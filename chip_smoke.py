@@ -4,21 +4,32 @@
 Phases, in order; any failure exits non-zero, and there is no CPU fallback:
 
   1. environment: the card's name and power limit (nvidia-smi), torch, CUDA;
-  2. build the four CUDA kernels from ``vote_saver_tpu_torch/csrc``;
+  2. build the CUDA kernels from ``vote_saver_tpu_torch/csrc`` (one nvcc
+     per translation unit, all at once);
   3. each kernel against its plain PyTorch version on the card at the
      main path's widths (K1 at 2^16 lanes in Fq and Fr, K2-K4 at 2^14 lanes
-     in G1 and G2), special lanes included; exact equality; both timed;
+     and the distinct add K3d at 2^16 lanes, the FixedBaseTable width, in G1
+     and G2), special lanes included; exact equality; both timed;
   4. a 2^16-point G1 MSM with uniform scalars at w = 10 against the native
      host MSM;
-  5. depth-2 ballots for voters [0, 1, 2] of the committed election, byte
-     for byte against ``tests/golden/torch_slice_d2.json``;
-  6. the vote phase at depth 6 with B = 16 voters (setup cached under
-     ``.torch_cache/``): one warm-up and two timed batches, every ballot
-     verified, per-stage seconds, proofs/s and each kernel's launch count
-     over the timed batches (a kernel of the path launched 0 times fails).
+  5. admin key generation for the depth-6 election on the card (Groth16
+     setup through FixedBaseTable and K3d): its five blobs byte-identical to
+     the host-native arm's, both arms timed;
+  6. depth-2 ballots for voters [0, 1, 2] of the committed election, byte
+     for byte against ``tests/golden/torch_slice_d2.json``, through the
+     default (device) vote arm and the host-witness arm;
+  7. the vote phase at depth 6 with B = 16 voters (election cached under
+     ``.torch_cache/``) through the device arm: one warm-up and two timed
+     batches, every ballot verified, per-stage seconds and launches, then
+     one timed batch of the host-witness arm for comparison.
 
-The last two lines of stdout are ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.  Needs one CUDA device:
+Every count of kernel launches is set to 0 just before a path runs (setup,
+the timed device-arm batches, the host-witness batch) and read just after
+it; the ``kernels`` line reports setup's and the device arm's.  A kernel of
+the path
+that launched 0 times fails the run.  The last two lines of stdout are
+``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.  Needs one
+CUDA device:
 
     python3 chip_smoke.py
 """
@@ -37,9 +48,11 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0xC41B5
 DEPTH, BATCH, EID_BITS = 6, 16, 64
-K1_LANES, CURVE_LANES = 1 << 16, 1 << 14
+K1_LANES, CURVE_LANES, FB_LANES = 1 << 16, 1 << 14, 1 << 16
 MSM_N, MSM_W = 1 << 16, 10
-SOURCE = "vote_saver_tpu_torch/csrc/kernels.cu"
+# the kernels each path runs (a kernel of a path that never launched fails)
+SETUP_KERNELS = ("g1_add_distinct", "g2_add_distinct", "mont_mul_fq")
+VOTE_KERNELS = ("mont_mul_fq", "mont_mul_fr", "g1_madd", "g2_madd", "g1_add", "g2_add", "g1_double", "g2_double")
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -143,6 +156,10 @@ def check_kernels(rnd) -> dict:
             f"{pre}_add": (lambda: add(P, Qd), lambda: hf.add_plain(g2, P, Qd)),
             f"{pre}_double": (lambda: dbl(P), lambda: hf.double_plain(g2, P)),
         }
+        # K3d at the FixedBaseTable width: the special lanes, four times over
+        P4, Q4 = (tuple(torch.cat([c] * (FB_LANES // CURVE_LANES)) for c in pts) for pts in (P, Qd))
+        addd = hf.g2_add_distinct if g2 else hf.g1_add_distinct
+        cases[f"{pre}_add_distinct"] = (lambda: addd(P4, Q4), lambda: hf.add_distinct_plain(g2, P4, Q4))
         for kname, (kern, plain) in cases.items():
             got, exp = kern(), plain()
             if kname.endswith("madd"):
@@ -150,11 +167,14 @@ def check_kernels(rnd) -> dict:
                 flags = got[-1][: len(MADD_EXC)].tolist()
                 if flags != MADD_EXC:
                     fail(f"{kname} exc flags on the special lanes: {flags}")
+            if kname.endswith("distinct") and (got[2][3].any() or got[2][4].any()):
+                fail(f"{kname}: the h = 0 lanes do not give z3 = 0")
             torch.cuda.synchronize()
             results[kname] = dict(
                 equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
                 max_abs_err=_diff(got, exp),
-                ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3), lanes=CURVE_LANES,
+                ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3),
+                lanes=FB_LANES if kname.endswith("distinct") else CURVE_LANES,
             )
     for kname, r in results.items():
         log(f"[kernels] {kname}: lanes={r['lanes']} equal={r['equal']} max_abs_err={r['max_abs_err']} "
@@ -205,7 +225,67 @@ def check_msm(rnd) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 5-6: the vote phase
+# Phase 5: admin key generation on the card
+# ---------------------------------------------------------------------------
+
+
+def election(depth: int):
+    """Voter keys, CRS + SAVER keys (host-native setup from FrRandom(SEED))
+    and election data for `depth` (blobs), cached under .torch_cache/ by
+    depth and seed; ``setup_s`` is the host-native setup's seconds, None
+    when cached."""
+    from vote_saver_tpu.circuit.voting import build_voting_circuit
+    from vote_saver_tpu.utils.rng import FrRandom
+    from vote_saver_tpu_torch.protocol import phases
+
+    build_voting_circuit(depth, EID_BITS)  # cached: no setup time below includes it
+    cache = ROOT / ".torch_cache" / f"election_d{depth}_s{SEED:x}_keys.pkl"
+    if cache.exists():
+        log(f"[setup] depth {depth}: cached {cache.relative_to(ROOT)}")
+        return dict(pickle.loads(cache.read_bytes()), setup_s=None)
+    t0 = time.perf_counter()
+    keys = phases.init_admin_phase_generate_keys(depth, EID_BITS, FrRandom(SEED))
+    setup_s = time.perf_counter() - t0
+    rng = FrRandom(SEED + 2)
+    voters = [phases.init_voter_phase(i, rng) for i in range(BATCH)]
+    data = phases.init_admin_phase_generate_data(depth, EID_BITS, [v[0] for v in voters], rng)
+    e = dict(voters=voters, keys=keys, data=data)
+    cache.parent.mkdir(exist_ok=True)
+    cache.write_bytes(pickle.dumps(e))
+    log(f"[setup] depth {depth}: host-native setup {setup_s:.2f} s (keys); election built")
+    return dict(e, setup_s=setup_s)
+
+
+def check_setup(e: dict) -> dict:
+    """The same keys through Groth16 setup on the card."""
+    import torch
+
+    from vote_saver_tpu.utils.rng import FrRandom
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.protocol import phases
+
+    hf.reset_launches()
+    t0 = time.perf_counter()
+    keys = phases.init_admin_phase_generate_keys(DEPTH, EID_BITS, FrRandom(SEED), device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(hf.launches)
+    names = ("pk_crs", "vk_crs", "pk_eid", "sk_eid", "vk_eid")
+    differ = [n for n, a, b in zip(names, keys, e["keys"]) if a != b]
+    host = "cached" if e["setup_s"] is None else f"{e['setup_s']:.2f} s"
+    log(f"[setup] depth {DEPTH} on the card: {secs:.2f} s (host-native arm: {host}); "
+        f"launches {({k: v for k, v in launches.items() if v})}")
+    if differ:
+        fail(f"setup on the card wrote other blobs than the host-native arm: {differ}")
+    log(f"[setup] the five blobs are byte-identical to the host-native arm's ({sum(map(len, keys))} bytes)")
+    missing = [k for k in SETUP_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels of the setup path never launched: {missing}")
+    return dict(device_s=secs, host_s=e["setup_s"], launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-7: the vote phase
 # ---------------------------------------------------------------------------
 
 
@@ -215,54 +295,34 @@ def check_golden() -> None:
 
     golden = json.loads((ROOT / "tests" / "golden" / "torch_slice_d2.json").read_text())
     e = pickle.loads((ROOT / golden["source"]).read_bytes())
-    t0 = time.perf_counter()
     ctx = phases.prepare_vote_context(
         golden["tree_depth"], golden["eid_bits"], e["tree"], e["rt"], e["eid"], e["pk_eid"],
         e["pk_crs"], e["vk_crs"], device="cuda",
     )
-    ballots = phases.vote_with_context(
-        ctx, golden["voters"], golden["votes"], [e["voters"][i][1] for i in golden["voters"]],
-        FrRandom(golden["seed"]),
-    )
-    for got, exp in zip(ballots, golden["ballots"]):
-        if [x.hex() for x in got] != [exp[k] for k in ("proof", "pinput", "ct", "sn")]:
-            fail("depth-2 ballots differ from tests/golden/torch_slice_d2.json")
-    if len(ballots) != len(golden["ballots"]):
-        fail("wrong number of depth-2 ballots")
-    log(f"[golden] depth-2 ballots for voters {golden['voters']} byte-identical to the JAX golden "
-        f"({time.perf_counter() - t0:.1f} s)")
+    expect = [[g[k] for k in ("proof", "pinput", "ct", "sn")] for g in golden["ballots"]]
+    for arm, host_witness in (("device", False), ("host-witness", True)):
+        t0 = time.perf_counter()
+        ballots = phases.vote_with_context(
+            ctx, golden["voters"], golden["votes"], [e["voters"][i][1] for i in golden["voters"]],
+            FrRandom(golden["seed"]), host_witness=host_witness,
+        )
+        if [[x.hex() for x in b] for b in ballots] != expect:
+            fail(f"depth-2 ballots of the {arm} arm differ from tests/golden/torch_slice_d2.json")
+        log(f"[golden] {arm} arm: depth-2 ballots for voters {golden['voters']} byte-identical to the "
+            f"JAX golden ({time.perf_counter() - t0:.1f} s)")
 
 
-def election(depth: int):
-    """Voter keys, CRS, SAVER keys and election data for `depth` (blobs),
-    cached under .torch_cache/ by depth and seed."""
-    from vote_saver_tpu.utils.rng import FrRandom
-    from vote_saver_tpu_torch.protocol import phases
-
-    cache = ROOT / ".torch_cache" / f"election_d{depth}_s{SEED:x}.pkl"
-    if cache.exists():
-        log(f"[setup] depth {depth}: cached {cache.relative_to(ROOT)}")
-        return pickle.loads(cache.read_bytes())
-    t0 = time.perf_counter()
-    rng = FrRandom(SEED)
-    voters = [phases.init_voter_phase(i, rng) for i in range(BATCH)]
-    keys = phases.init_admin_phase_generate_keys(depth, EID_BITS, rng)
-    data = phases.init_admin_phase_generate_data(depth, EID_BITS, [v[0] for v in voters], rng)
-    e = dict(voters=voters, keys=keys, data=data)
-    cache.parent.mkdir(exist_ok=True)
-    cache.write_bytes(pickle.dumps(e))
-    log(f"[setup] depth {depth}: host-native setup {time.perf_counter() - t0:.1f} s")
-    return e
+def _stages(timer, n: int) -> str:
+    return ", ".join(f"{k} {v / n:.3f}" for k, v in timer.seconds.items())
 
 
-def run_slice(rnd) -> dict:
+def run_slice(rnd, e: dict) -> dict:
     import torch
 
     from vote_saver_tpu.utils.rng import FrRandom
     from vote_saver_tpu_torch.ops import hopper_field as hf
     from vote_saver_tpu_torch.protocol import groth16, phases
 
-    e = election(DEPTH)
     pk_crs, vk_crs, pk_eid, _sk_eid, vk_eid = e["keys"]
     eid, rt, tree = e["data"]
     t0 = time.perf_counter()
@@ -273,14 +333,14 @@ def run_slice(rnd) -> dict:
     sks = [v[1] for v in e["voters"]]
     rng = FrRandom(SEED + 1)
 
-    def batch(timer=None):
+    def batch(timer=None, host_witness=False):
         votes = [rnd.randrange(25) for _ in idx]
-        return votes, phases.vote_with_context(ctx, idx, votes, sks, rng, timer=timer)
+        return votes, phases.vote_with_context(ctx, idx, votes, sks, rng, timer=timer, host_witness=host_witness)
 
     t0 = time.perf_counter()
     warm = [batch()]
     torch.cuda.synchronize()
-    log(f"[slice] warm-up batch (B={BATCH}): {time.perf_counter() - t0:.2f} s")
+    log(f"[slice] device arm warm-up batch (B={BATCH}): {time.perf_counter() - t0:.2f} s")
     hf.reset_launches()
     timer = groth16.StageTimer("cuda")
     t0 = time.perf_counter()
@@ -288,27 +348,45 @@ def run_slice(rnd) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(hf.launches)
+
+    hf.reset_launches()
+    host_timer = groth16.StageTimer("cuda")
+    t0 = time.perf_counter()
+    host = [batch(host_timer, host_witness=True)]
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    host_launches = dict(hf.launches)
+
     n_ok = 0
-    for votes, ballots in warm + timed:
+    for _votes, ballots in warm + timed + host:
         for b in ballots:
             n_ok += phases.verify_ballot(b[0], b[1], b[2], vk_eid, vk_crs)
-    n_total = BATCH * (len(warm) + len(timed))
-    stages = {k: v / len(timed) for k, v in timer.seconds.items()}
+    n_total = BATCH * (len(warm) + len(timed) + len(host))
     out = dict(
-        depth=DEPTH, batch=BATCH, proofs_per_s=BATCH * len(timed) / wall,
-        batch_s=wall / len(timed), stages_s=stages, fallbacks=timer.counts.get("fallbacks", 0),
-        ballots_verified=n_ok, ballots_total=n_total, launches=launches,
+        depth=DEPTH, batch=BATCH, proofs_per_s=BATCH * len(timed) / wall, batch_s=wall / len(timed),
+        stages_s={k: v / len(timed) for k, v in timer.seconds.items()},
+        stage_launches={k: v / len(timed) for k, v in timer.launches.items()},
+        fallbacks=timer.counts.get("fallbacks", 0), launches=launches,
+        host_arm_batch_s=host_wall, host_arm_stages_s=dict(host_timer.seconds),
+        ballots_verified=n_ok, ballots_total=n_total,
     )
-    log(f"[slice] depth {DEPTH}, B={BATCH}: {out['batch_s']:.3f} s/batch = {out['proofs_per_s']:.3f} proofs/s; "
-        f"var-base fallbacks {out['fallbacks']}")
-    log("[slice] per-batch stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    log(f"[slice] launches over the two timed batches: {launches}")
-    log(f"[slice] ballots verified: {n_ok}/{n_total}")
+    log(f"[slice] device arm, depth {DEPTH}, B={BATCH}: {out['batch_s']:.3f} s/batch = "
+        f"{out['proofs_per_s']:.3f} proofs/s; var-base fallbacks {out['fallbacks']}")
+    log("[slice] device arm per-batch stage seconds: " + _stages(timer, len(timed)))
+    log("[slice] device arm per-batch kernel launches by stage: "
+        + ", ".join(f"{k} {v:.0f}" for k, v in out["stage_launches"].items()))
+    log(f"[slice] device arm launches over the two timed batches: {launches}")
+    log(f"[slice] host-witness arm, same call: {host_wall:.3f} s/batch = {BATCH / host_wall:.3f} proofs/s; "
+        f"var-base fallbacks {host_timer.counts.get('fallbacks', 0)}")
+    log("[slice] host-witness arm stage seconds: " + _stages(host_timer, 1))
+    log(f"[slice] host-witness arm launches: {host_launches}")
+    log(f"[slice] ballots verified: {n_ok}/{n_total} (device arm {BATCH * 3}, host-witness arm {BATCH})")
     if n_ok != n_total:
         fail("a depth-6 ballot failed verify_ballot")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"kernels of the path never launched: {missing}")
+    for arm, counts in (("device", launches), ("host-witness", host_launches)):
+        missing = [k for k in VOTE_KERNELS if counts[k] == 0]
+        if missing:
+            fail(f"kernels of the {arm} vote arm never launched: {missing}")
     return out
 
 
@@ -331,7 +409,7 @@ def main() -> None:
     from vote_saver_tpu_torch.ops import hopper_field as hf
 
     kl = _build.load()
-    log(f"[build] {kl.path.name}: {kl.build_seconds:.1f} s")
+    log(f"[build] {', '.join(p.name for p in kl.paths)}: {kl.build_seconds:.1f} s")
     for line in kl.resource_usage.splitlines():
         if "Function properties" in line or "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
@@ -339,13 +417,15 @@ def main() -> None:
     rnd = random.Random(SEED)
     kern = check_kernels(rnd)
     check_msm(rnd)
+    e = election(DEPTH)
+    setup_launches = check_setup(e)["launches"]
     check_golden()
-    launches = run_slice(rnd)["launches"]
+    vote_launches = run_slice(rnd, e)["launches"]
 
     report = {"kernels": [
-        dict(name=k, route="cuda", source=SOURCE, replaces=hf.REPLACES[k],
-             launches=launches[k], max_abs_err=kern[k]["max_abs_err"],
-             ms=kern[k]["ms"], plain_ms=kern[k]["plain_ms"])
+        dict(name=k, route="cuda", source=hf.SOURCES[k], replaces=hf.REPLACES[k],
+             launches=(vote_launches if k in VOTE_KERNELS else setup_launches)[k],
+             max_abs_err=kern[k]["max_abs_err"], ms=kern[k]["ms"], plain_ms=kern[k]["plain_ms"])
         for k in hf.KERNELS
     ]}
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

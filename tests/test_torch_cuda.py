@@ -5,11 +5,12 @@ also runs where only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Each kernel (K1 in Fq and Fr, K2-K4 in G1 and G2) must equal its plain
-PyTorch version limb for limb on the special lanes of
+Each kernel (K1 in Fq and Fr, K2-K4 and K3d in G1 and G2) must equal its
+plain PyTorch version limb for limb on the special lanes of
 ``vote_saver_tpu_torch.testing``; a scheduled MSM must equal the native host
 MSM; a proof made on the card must be byte-identical to the same proof made
-by the plain versions on the CPU.
+by the plain versions on the CPU; setup on the card must write the
+host-native arm's CRS.
 """
 
 import random
@@ -81,6 +82,19 @@ def test_curve_kernels_match_plain(dev, g2):
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_add_distinct_matches_plain(dev, g2):
+    p, q, *_ = special_lanes(g2, 1024, random.Random(5 + g2))
+    P, Qd = (tuple(lb.ints_to_tensor([pt[i] for pt in pts], lb.FQ, dev) for i in range(3)) for pts in (p, q))
+    name = "g2_add_distinct" if g2 else "g1_add_distinct"
+    before = hf.launches[name]
+    got = (hf.g2_add_distinct if g2 else hf.g1_add_distinct)(P, Qd)
+    assert hf.launches[name] == before + 1
+    exp = hf.add_distinct_plain(g2, P, Qd)
+    assert all(torch.equal(x, y) for x, y in zip(got, exp))
+    assert not got[2][3].any() and not got[2][4].any()  # h = 0 lanes: the formula's z3 = 0
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
 def test_scheduled_msm_matches_native(dev, g2):
     rnd = random.Random(4 + g2)
     group = "g2" if g2 else "g1"
@@ -121,3 +135,20 @@ def test_prove_on_card_matches_cpu(dev):
     on_cpu = tg.prove(pk, w, FrRandom(4), "cpu", window_bits=4)
     assert [M.ser_proof(p) for p in on_card] == [M.ser_proof(p) for p in on_cpu]
     assert all(tg.verify(vk, [int(w[i, 1])], p) for i, p in enumerate(on_card))
+
+
+def test_setup_on_card_matches_host(dev):
+    """Setup through the device table on the card writes the host-native
+    arm's CRS, byte for byte."""
+    cs = ConstraintSystem()
+    out = cs.alloc()
+    cs.set_input_sizes(1)
+    xs = cs.alloc_vec(40)
+    for x in xs:
+        cs.constrain(lc((x, 1)), lc((x, 1)), lc((x, 1)))
+    cs.constrain(lc(*((x, 1) for x in xs)), lc((0, 1)), lc((out, 1)))
+    before = hf.launches["g1_add_distinct"], hf.launches["g2_add_distinct"]
+    pk, vk = tg.setup(cs, FrRandom(6), device=dev)
+    assert hf.launches["g1_add_distinct"] > before[0] and hf.launches["g2_add_distinct"] > before[1]
+    hpk, hvk = tg.setup(cs, FrRandom(6))
+    assert M.ser_groth16_pk(pk) == M.ser_groth16_pk(hpk) and M.ser_groth16_vk(vk) == M.ser_groth16_vk(hvk)

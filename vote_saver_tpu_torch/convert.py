@@ -5,7 +5,9 @@ Limb arrays of the JAX package (numpy or jax arrays, ``(B, L)`` or
 layout, L = 24 / 16) and 32-bit limbs in uint64 (the CPU rig, L = 12 / 8).
 Montgomery R is 2^384 / 2^256 in both, and in this package's layout, so a
 value converts by repacking limbs only.  ``proving_key_from_jax`` rebuilds
-this package's ProvingKey from a JAX one, so both sides prove from one CRS.
+this package's ProvingKey from a JAX one, so both sides prove from one CRS;
+``fixed_base_table_from_jax`` and ``pedersen_tables_from_jax`` carry the
+setup's window table and the device witness's Pedersen window constants.
 This module never imports jax: it reads arrays through numpy.
 """
 
@@ -42,6 +44,18 @@ def to_jax_limbs(t: torch.Tensor, limb_bits: int) -> np.ndarray:
         lo, hi = a & np.uint32(0xFFFF), a >> np.uint32(16)
         return np.stack([lo, hi], axis=-1).reshape(a.shape[:-1] + (2 * a.shape[-1],)).astype(np.uint32)
     raise ValueError(f"limb_bits must be 16 or 32, got {limb_bits}")
+
+
+def fixed_base_table_from_jax(table, device="cpu") -> tuple[torch.Tensor, ...]:
+    """A JAX ``FixedBaseTable.table`` (Jacobian limb arrays (W, 2^bw, ...))
+    -> this package's table coordinates, as ``ops.msm.FixedBaseTable.table``."""
+    return tuple(from_jax_limbs(c, device) for c in table)
+
+
+def pedersen_tables_from_jax(xs4, ys4, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """A JAX witness program's Pedersen window constants (``xs4``/``ys4``,
+    (W, 4, L) Montgomery limbs) -> this package's (W, 4, 8) int32 tensors."""
+    return from_jax_limbs(xs4, device), from_jax_limbs(ys4, device)
 
 
 def proving_key_from_jax(pk) -> groth16.ProvingKey:

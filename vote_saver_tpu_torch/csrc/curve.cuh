@@ -3,12 +3,15 @@
 //
 // Replaces the formulas of vote_saver_tpu/ops/pallas_field.py that its
 // kernels are built from: _jac_double (l.348-363), _jac_add with
-// complete=True (l.406-441) and _jac_madd (l.818-866).  One thread owns one
-// lane; the results equal the Pallas formulas' select chains limb for limb:
+// complete=True and complete=False (l.406-441) and _jac_madd (l.818-866).
+// One thread owns one lane; the results equal the Pallas formulas' select
+// chains limb for limb:
 //
 //   add:    same (h = 0, r = 0, both finite) -> double(p);
 //           opposite (h = 0, r != 0, both finite) -> infinity (1, 1, 0);
 //           p infinite -> q;  q infinite (p finite) -> p.
+//   add_distinct: p infinite -> q;  q infinite (p finite) -> p;  otherwise
+//           the generic formula, h = 0 included (then z3 = 0).
 //   madd:   q = (0, 0) -> lane inactive;  y negated as 0 - y when sign;
 //           acc infinite -> (x2, y2, 1);  h = 0, r != 0 -> infinity;
 //           h = 0, r = 0 (the doubling corner) -> exc = 1, acc' = generic
@@ -86,6 +89,36 @@ __device__ Jac<E> jac_add(const Jac<E>& p, const Jac<E>& q) {
   }
   if (p_inf) out = q;
   if (q_inf && !p_inf) out = p;
+  return out;
+}
+
+// Distinct-operand Jacobian add (_jac_add with complete=False): the generic
+// 16-multiply formula with only the two infinity selects.  Callers promise
+// p != +-q whenever both are finite (window-decomposition sums).  Where that
+// promise is broken, h = 0 and the result is the formula's own (x3, y3, 0),
+// NOT canonical infinity: the Pallas kernel computes exactly that, so this
+// one must not branch on h either.
+template <class E>
+__device__ Jac<E> jac_add_distinct(const Jac<E>& p, const Jac<E>& q) {
+  if (is_zero(p.z)) return q;
+  if (is_zero(q.z)) return p;
+  const E z1z1 = sq(p.z);
+  const E z2z2 = sq(q.z);
+  const E u1 = mul(p.x, z2z2);
+  const E u2 = mul(q.x, z1z1);
+  const E s1 = mul(mul(p.y, q.z), z2z2);
+  const E s2 = mul(mul(q.y, p.z), z1z1);
+  const E h = sub(u2, u1);
+  E rr = sub(s2, s1);
+  rr = add(rr, rr);
+  const E i = sq(add(h, h));
+  const E j = mul(h, i);
+  const E v = mul(u1, i);
+  Jac<E> out;
+  out.x = sub(sub(sq(rr), j), add(v, v));
+  const E s1j = mul(s1, j);
+  out.y = sub(mul(rr, sub(v, out.x)), add(s1j, s1j));
+  out.z = mul(sub(sq(add(p.z, q.z)), add(z1z1, z2z2)), h);
   return out;
 }
 

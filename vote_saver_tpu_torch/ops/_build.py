@@ -1,11 +1,13 @@
 """Builds the port's CUDA kernels (csrc/) with nvcc and loads them with ctypes.
 
-Route: nvcc into a shared library with a plain C interface (no PyTorch
+Route: nvcc into shared libraries with a plain C interface (no PyTorch
 headers, so a build takes seconds), at first use, into ``.torch_build/`` at
-the repository root (git-ignored).  The library name carries a digest of the
-sources and flags, so an edited source rebuilds and a stale library is never
-loaded.  ``ptxas`` resource usage (registers, spills) is kept beside the
-library in ``<lib>.resource.txt``.
+the repository root (git-ignored).  Each translation unit of ``UNITS`` is
+its own library, and their nvcc processes run at once, so the build takes
+as long as the slowest unit.  A library's name carries a digest of its
+sources and flags, so an edited source rebuilds and a stale library is
+never loaded.  ``ptxas`` resource usage (registers, spills) is kept beside
+each library in ``<lib>.resource.txt``.
 """
 
 from __future__ import annotations
@@ -18,14 +20,28 @@ import pathlib
 import shutil
 import subprocess
 import time
+import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_build"
-SOURCES = ("field.cuh", "curve.cuh", "kernels.cu")
+HEADERS = ("field.cuh", "curve.cuh")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
 )
+_VP, _LL = ctypes.c_void_p, ctypes.c_longlong
+# translation unit -> {extern "C" launcher: argtypes}; every launcher returns int
+UNITS = {
+    "kernels.cu": {
+        "vs_mont_mul": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
+        "vs_madd": [ctypes.c_int] + [_VP] * 11 + [_LL, _VP],
+        "vs_add": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
+        "vs_double": [ctypes.c_int] + [_VP] * 6 + [_LL, _VP],
+    },
+    "add_distinct.cu": {
+        "vs_add_distinct": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
+    },
+}
 
 
 def nvcc() -> str:
@@ -38,55 +54,67 @@ def nvcc() -> str:
     return found
 
 
-def _digest() -> str:
+def _digest(unit: str) -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    for name in (*HEADERS, unit):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
+def library_path(unit: str) -> pathlib.Path:
+    return BUILD_DIR / f"libvstorch_{pathlib.Path(unit).stem}_{_digest(unit)}.so"
+
+
 class KernelLib:
-    """The loaded kernel library plus what its build reported."""
+    """The loaded kernel libraries plus what their build reported; ``lib``
+    holds every launcher of every unit as an attribute."""
 
-    def __init__(self, path: pathlib.Path, build_seconds: float):
-        self.path = path
+    def __init__(self, paths: list[pathlib.Path], build_seconds: float):
+        self.paths = paths
         self.build_seconds = build_seconds
-        res = path.with_suffix(".resource.txt")
-        self.resource_usage = res.read_text() if res.exists() else ""
-        lib = ctypes.CDLL(str(path))
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        sig = {
-            "vs_mont_mul": [ctypes.c_int, vp, vp, vp, ll, vp],
-            "vs_madd": [ctypes.c_int] + [vp] * 11 + [ll, vp],
-            "vs_add": [ctypes.c_int] + [vp] * 9 + [ll, vp],
-            "vs_double": [ctypes.c_int] + [vp] * 6 + [ll, vp],
-        }
-        for name, args in sig.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        self.lib = lib
+        self.resource_usage = ""
+        fns = {}
+        for unit, path in zip(UNITS, paths):
+            res = path.with_suffix(".resource.txt")
+            if res.exists():
+                self.resource_usage += res.read_text()
+            lib = ctypes.CDLL(str(path))
+            for name, args in UNITS[unit].items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+        self.lib = types.SimpleNamespace(**fns)
 
 
-def build() -> tuple[pathlib.Path, float]:
-    """Compile csrc/kernels.cu unless the library for these sources exists."""
+def build() -> tuple[list[pathlib.Path], float]:
+    """Compile every unit whose library for these sources is missing, all
+    nvcc processes at once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libvstorch_{_digest()}.so"
-    if out.exists():
-        return out, 0.0
+    outs = [library_path(u) for u in UNITS]
     t0 = time.time()
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / "kernels.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".resource.txt").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out, time.time() - t0
+    procs = []
+    for unit, out in zip(UNITS, outs):
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / unit)]
+        procs.append((out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for out, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}) for {out.name}:\n{stdout}\n{stderr}")
+            continue
+        out.with_suffix(".resource.txt").write_text(stdout + stderr)
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs, (time.time() - t0) if procs else 0.0
 
 
 @functools.cache
 def load() -> KernelLib:
-    path, secs = build()
-    return KernelLib(path, secs)
+    paths, secs = build()
+    return KernelLib(paths, secs)

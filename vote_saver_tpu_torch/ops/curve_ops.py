@@ -1,11 +1,13 @@
 """Batched G1/G2 Jacobian arithmetic on limb tensors.
 
-Counterpart of ``vote_saver_tpu/ops/curve_ops.py`` (JacobianOps and the
-host <-> device point converters; EdwardsOps waits for the device-witness
-slice).  Points are tuples (X, Y, Z) of int32 tensors, (..., L) for G1 and
-(..., 2, L) for G2; infinity <=> Z == 0, canonical infinity (1, 1, 0).
-``add`` and ``double`` are kernels K3 and K4 on CUDA tensors (their plain
-versions on CPU), so every curve op of the slice rides the same kernels.
+Counterpart of ``vote_saver_tpu/ops/curve_ops.py``: JacobianOps, the
+JubJub EdwardsOps of the device witness, and the host <-> device point
+converters.  Jacobian points are tuples (X, Y, Z) of int32 tensors, (..., L)
+for G1 and (..., 2, L) for G2; infinity <=> Z == 0, canonical infinity
+(1, 1, 0).  ``add``, ``add_distinct`` and ``double`` are kernels K3, K3d and
+K4 on CUDA tensors (their plain versions on CPU), so every curve op rides
+the same kernels.  Edwards points are (X, Y, Z, T) over Fr in Montgomery
+form; their field multiplies are kernel K1.
 """
 
 from __future__ import annotations
@@ -15,13 +17,31 @@ import functools
 import numpy as np
 import torch
 
-from vote_saver_tpu.params import Q
+from vote_saver_tpu.params import JUBJUB_D, Q, R
 from vote_saver_tpu.refimpl import field as rf
 
 from . import hopper_field as hf
 from . import limbs as lb
-from .field_ops import fq_ops
+from .field_ops import fq_ops, fr_ops
 from .fq2_ops import Fq2Ops, fq2_ops
+
+
+def _tree_sum(adder, p, axis: int):
+    """Hillis-Steele sum of points over `axis`: step s adds points[i + 2^s]
+    into points[i] (lanes past the end keep their value); index 0 ends with
+    the total."""
+    coords = tuple(torch.movedim(c, axis, 0) for c in p)
+    n = coords[0].shape[0]
+    if n == 1:
+        return tuple(c[0] for c in coords)
+    idx = torch.arange(n, device=coords[0].device)
+    for s in range((n - 1).bit_length()):
+        shift = 1 << s
+        shifted = tuple(torch.roll(c, -shift, dims=0) for c in coords)
+        added = adder(coords, shifted)
+        valid = (idx + shift < n).reshape((n,) + (1,) * (coords[0].dim() - 1))
+        coords = tuple(torch.where(valid, a, c) for a, c in zip(added, coords))
+    return tuple(c[0] for c in coords)
 
 
 class JacobianOps:
@@ -60,6 +80,13 @@ class JacobianOps:
         """Complete Jacobian addition (kernel K3)."""
         return hf.g2_add(p, q) if self.is_fq2 else hf.g1_add(p, q)
 
+    def add_distinct(self, p, q):
+        """Jacobian add assuming p != +-q whenever both are finite (kernel
+        K3d: no doubling branch).  Safe for window-decomposition sums, whose
+        partial sums cover disjoint scalar bit ranges; NOT for arbitrary
+        operands."""
+        return hf.g2_add_distinct(p, q) if self.is_fq2 else hf.g1_add_distinct(p, q)
+
     def neg(self, p):
         return (p[0], self.f.neg(p[1]), p[2])
 
@@ -94,21 +121,12 @@ class JacobianOps:
             acc = self.add(acc, lookup(digits[..., w]))
         return acc
 
-    def sum_reduce(self, p, axis: int = 0):
+    def sum_reduce(self, p, axis: int = 0, distinct: bool = False):
         """Log-depth Hillis-Steele sum of points over `axis` (step s adds
-        points[i + 2^s] into points[i]; index 0 ends with the total)."""
-        coords = tuple(torch.movedim(c, axis, 0) for c in p)
-        n = coords[0].shape[0]
-        if n == 1:
-            return tuple(c[0] for c in coords)
-        idx = torch.arange(n, device=coords[0].device)
-        for s in range((n - 1).bit_length()):
-            shift = 1 << s
-            shifted = tuple(torch.roll(c, -shift, dims=0) for c in coords)
-            added = self.add(coords, shifted)
-            valid = (idx + shift < n).reshape((n,) + (1,) * (coords[0].dim() - 1))
-            coords = tuple(torch.where(valid, a, c) for a, c in zip(added, coords))
-        return tuple(c[0] for c in coords)
+        points[i + 2^s] into points[i]; index 0 ends with the total).
+        distinct=True uses add_distinct (valid when every partial sum is
+        provably distinct, e.g. window decompositions)."""
+        return _tree_sum(self.add_distinct if distinct else self.add, p, axis)
 
     def to_affine(self, p):
         """Fermat-inversion affine conversion; infinity maps to (0, 0)."""
@@ -130,6 +148,76 @@ def g1_ops() -> JacobianOps:
 @functools.cache
 def g2_ops() -> JacobianOps:
     return JacobianOps(fq2_ops())
+
+
+# ---------------------------------------------------------------------------
+# JubJub extended twisted Edwards (a = -1) over Fr: complete addition, no
+# selects
+# ---------------------------------------------------------------------------
+
+
+class EdwardsOps:
+    def __init__(self):
+        self.f = fr_ops()
+        self.k2d = lb.ints_to_tensor([2 * JUBJUB_D % R], lb.FR)[0]  # Montgomery form
+        self._dev: dict = {}
+
+    def _k2d(self, device):
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = self.k2d.to(device)
+        return self._dev[key]
+
+    def identity_like(self, x_coord):
+        """(0, 1, 1, 0) shaped like x_coord."""
+        zero = torch.zeros_like(x_coord)
+        one = self.f.const("one_mont", x_coord.device).expand_as(x_coord).clone()
+        return (zero, one, one.clone(), zero.clone())
+
+    def add(self, p, q):
+        """Hisil-Wong-Carter-Dawson a = -1 extended addition (complete on
+        the odd-order subgroup): 9 multiplies (kernel K1 on the card)."""
+        f = self.f
+        x1, y1, z1, t1 = p
+        x2, y2, z2, t2 = q
+        a = f.mul(f.sub(y1, x1), f.sub(y2, x2))
+        b = f.mul(f.add(y1, x1), f.add(y2, x2))
+        c = f.mul(f.mul(t1, t2), self._k2d(t1.device))
+        d = f.mul(z1, z2)
+        d = f.add(d, d)
+        e = f.sub(b, a)
+        ff = f.sub(d, c)
+        g = f.add(d, c)
+        h = f.add(b, a)
+        return (f.mul(e, ff), f.mul(g, h), f.mul(ff, g), f.mul(e, h))
+
+    def sum_reduce(self, p, axis: int = 0):
+        """Log-depth Hillis-Steele sum over `axis` (complete addition, so
+        out-of-range lanes are only left unchanged)."""
+        return _tree_sum(self.add, p, axis)
+
+
+@functools.cache
+def jj_ops() -> EdwardsOps:
+    return EdwardsOps()
+
+
+def jj_to_device(points, device="cpu"):
+    """Affine Edwards int points -> extended Montgomery tensors (X, Y, 1, XY)."""
+    xs = [p[0] for p in points]
+    ys = [p[1] for p in points]
+    ts = [p[0] * p[1] % R for p in points]
+    return tuple(lb.ints_to_tensor(v, lb.FR, device) for v in (xs, ys, [1] * len(points), ts))
+
+
+def jj_from_device(p):
+    """Extended Montgomery tensors -> list of affine Edwards int points."""
+    xs, ys, zs = (np.atleast_1d(lb.tensor_to_ints(c, lb.FR)) for c in p[:3])
+    out = []
+    for i in range(xs.shape[0]):
+        zi = pow(int(zs[i]), R - 2, R)
+        out.append((int(xs[i]) * zi % R, int(ys[i]) * zi % R))
+    return out
 
 
 # ---------------------------------------------------------------------------

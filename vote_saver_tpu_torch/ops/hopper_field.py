@@ -1,4 +1,4 @@
-"""The four Hopper kernels of the slice, their wrappers and plain versions.
+"""The port's Hopper kernels, their wrappers and plain versions.
 
 Counterpart of ``vote_saver_tpu/ops/pallas_field.py``.  Each public function
 keeps the signature and layout of its Pallas entry point:
@@ -7,6 +7,7 @@ keeps the signature and layout of its Pallas entry point:
   K2 ``g1_madd``/``g2_madd(acc, q_affine, sign, active) -> (acc', exc)``
                                                     <- g1/g2_madd_pallas
   K3 ``g1_add``/``g2_add(p, q)`` (complete)         <- g1/g2_add_pallas
+  K3d ``g1_add_distinct``/``g2_add_distinct(p, q)`` <- g1/g2_add_pallas(complete=False)
   K4 ``g1_double``/``g2_double(p)``                 <- g1/g2_double_pallas
 
 Coordinates are int32 tensors ``(..., L)`` (G1, Fq/Fr) or ``(..., 2, L)``
@@ -19,7 +20,8 @@ select order exactly, so kernel and plain version agree limb for limb —
 canonical infinity (1, 1, 0) and the madd ``exc`` flag included.
 
 ``launches`` counts kernel launches per kernel instance; only the CUDA
-branch of a wrapper increments it.
+branch of a wrapper increments it.  ``SOURCES`` names the ``csrc/``
+translation unit each kernel is built from.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .limbs import FQ, FR, spec_for
 KERNELS = (
     "mont_mul_fq", "mont_mul_fr", "g1_madd", "g2_madd",
     "g1_add", "g2_add", "g1_double", "g2_double",
+    "g1_add_distinct", "g2_add_distinct",
 )
 # file:line of the pallas_call each instance replaces
 REPLACES = {
@@ -43,7 +46,13 @@ REPLACES = {
     "g2_add": "vote_saver_tpu/ops/pallas_field.py:570",
     "g1_double": "vote_saver_tpu/ops/pallas_field.py:542",
     "g2_double": "vote_saver_tpu/ops/pallas_field.py:597",
+    "g1_add_distinct": "vote_saver_tpu/ops/pallas_field.py:517",
+    "g2_add_distinct": "vote_saver_tpu/ops/pallas_field.py:570",
 }
+# the csrc/ translation unit each kernel is built from
+SOURCES = dict.fromkeys(KERNELS, "vote_saver_tpu_torch/csrc/kernels.cu")
+SOURCES.update(dict.fromkeys(("g1_add_distinct", "g2_add_distinct"),
+                             "vote_saver_tpu_torch/csrc/add_distinct.cu"))
 launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -258,8 +267,10 @@ def jac_double(f, p):
     return (x3, y3, z3)
 
 
-def jac_add(f, p, q):
-    """Complete Jacobian add (``_jac_add(..., complete=True)``)."""
+def jac_add(f, p, q, complete: bool = True):
+    """Jacobian add, as ``_jac_add(..., complete)``: complete=False keeps
+    only the two infinity selects (h = 0 then gives the formula's own
+    (x3, y3, 0), not canonical infinity)."""
     x1, y1, z1 = p
     x2, y2, z2 = q
     z1z1 = f.sq(z1)
@@ -281,15 +292,16 @@ def jac_add(f, p, q):
     out = (x3, y3, z3)
     p_inf = f.is_zero(z1)
     q_inf = f.is_zero(z2)
-    h_zero = f.is_zero(h)
-    r_zero = f.is_zero(rr)
-    same = h_zero & r_zero & ~p_inf & ~q_inf
-    opposite = h_zero & ~r_zero & ~p_inf & ~q_inf
-    dbl = jac_double(f, p)
-    one = f.one_like(x1)
-    inf = (one, one, f.zero_like(x1))
-    out = tuple(f.select(same, d, g) for d, g in zip(dbl, out))
-    out = tuple(f.select(opposite, iz, o) for iz, o in zip(inf, out))
+    if complete:
+        h_zero = f.is_zero(h)
+        r_zero = f.is_zero(rr)
+        same = h_zero & r_zero & ~p_inf & ~q_inf
+        opposite = h_zero & ~r_zero & ~p_inf & ~q_inf
+        dbl = jac_double(f, p)
+        one = f.one_like(x1)
+        inf = (one, one, f.zero_like(x1))
+        out = tuple(f.select(same, d, g) for d, g in zip(dbl, out))
+        out = tuple(f.select(opposite, iz, o) for iz, o in zip(inf, out))
     out = tuple(f.select(p_inf, qq, o) for qq, o in zip(q, out))
     out = tuple(f.select(q_inf & ~p_inf, pp, o) for pp, o in zip(p, out))
     return out
@@ -363,6 +375,11 @@ def madd_plain(g2: bool, acc, q_affine, sign, active):
 
 def add_plain(g2: bool, p, q):
     return tuple(_pack(c) for c in jac_add(_field(g2), tuple(map(_half, p)), tuple(map(_half, q))))
+
+
+def add_distinct_plain(g2: bool, p, q):
+    return tuple(_pack(c) for c in jac_add(_field(g2), tuple(map(_half, p)), tuple(map(_half, q)),
+                                           complete=False))
 
 
 def double_plain(g2: bool, p):
@@ -468,17 +485,18 @@ def g2_madd(acc, q_affine, sign, active, out=None):
     return _madd(True, acc, q_affine, sign, active, out)
 
 
-def _add(g2: bool, p, q):
+def _add(g2: bool, p, q, complete: bool = True):
     if not _on_cuda(p[0]):
-        return add_plain(g2, p, q)
+        return (add_plain if complete else add_distinct_plain)(g2, p, q)
     tail = (2, _L) if g2 else (_L,)
     coords, shape, n = _flat((*p, *q), len(tail))
     _check(coords, tail, n, coords[0].device)
     out = tuple(torch.empty_like(coords[0]) for _ in range(3))
-    name = "g2_add" if g2 else "g1_add"
+    name = ("g2_add" if g2 else "g1_add") + ("" if complete else "_distinct")
     if n:
+        launch = _lib().vs_add if complete else _lib().vs_add_distinct
         ptrs = [c.data_ptr() for c in (*coords, *out)]
-        _raise_on(_lib().vs_add(int(g2), *ptrs, n, _stream(coords[0].device)), name)
+        _raise_on(launch(int(g2), *ptrs, n, _stream(coords[0].device)), name)
         launches[name] += 1
     return tuple(o.reshape(shape) for o in out)
 
@@ -491,6 +509,17 @@ def g1_add(p, q):
 def g2_add(p, q):
     """K3 over Fq2; coords (..., 2, L)."""
     return _add(True, p, q)
+
+
+def g1_add_distinct(p, q):
+    """K3d: distinct-operand Jacobian add (p != +-q where both are finite);
+    coords (..., L), broadcast-compatible."""
+    return _add(False, p, q, complete=False)
+
+
+def g2_add_distinct(p, q):
+    """K3d over Fq2; coords (..., 2, L)."""
+    return _add(True, p, q, complete=False)
 
 
 def _double(g2: bool, p):

@@ -1,9 +1,13 @@
-"""Variable-base MSM: the complete-formula fallback of the scheduled MSM.
+"""Variable-base MSM and the fixed-base window table.
 
-Counterpart of ``msm_var_base``, ``scalars_to_window_digits`` and
-``limbs_to_window_digits`` in ``vote_saver_tpu/ops/msm.py``.  Runs when a
-mixed-add lane flags the doubling corner; every add is the complete K3 and
-every doubling K4, so no corner exists on this path.
+Counterpart of ``msm_var_base``, ``FixedBaseTable``,
+``scalars_to_window_digits`` and ``limbs_to_window_digits`` in
+``vote_saver_tpu/ops/msm.py``.  ``msm_var_base`` is the complete-formula
+fallback of the scheduled MSM, run when a mixed-add lane flags the doubling
+corner: every add is the complete K3 and every doubling K4, so no corner
+exists on it.  ``FixedBaseTable`` multiplies many scalars by one base (the
+CRS in Groth16 setup): a table gather per 8-bit window, then a window sum
+by the distinct-operand add K3d.
 """
 
 from __future__ import annotations
@@ -12,7 +16,9 @@ import numpy as np
 import torch
 
 from vote_saver_tpu.params import R
+from vote_saver_tpu.refimpl import jacobian as rj
 
+from . import curve_ops as co
 from .curve_ops import JacobianOps
 
 FB_WINDOW = 4
@@ -30,15 +36,52 @@ def msm_var_base(ops: JacobianOps, points, scalar_digits):
     return ops.sum_reduce(per_point, axis=digits.dim() - 2)
 
 
+class FixedBaseTable:
+    """Host-built table entry[w][d] = d * 2^(bw*w) * base (entry 0 of each
+    row is infinity), as Jacobian tensors (W, 2^bw, ...): 8-bit windows and
+    32 of them by default.  The per-scalar window sum uses distinct-operand
+    adds: partial sums cover disjoint scalar bit ranges, so no true doubling
+    occurs (infinity is handled by the kernel's selects).  Its digits are
+    ``digits()``'s, not the 4-bit ``scalars_to_window_digits`` defaults."""
+
+    def __init__(self, base_affine_int, group: str = "g1", window_bits: int = 8):
+        self.group = group
+        self.window_bits = window_bits
+        self.num_windows = (255 + window_bits - 1) // window_bits
+        # d * 2^(bw*w) * base by native host fixed-base multiplication: the
+        # same points the JAX package reaches by repeated affine adds
+        scalars = [d << (window_bits * w) for w in range(self.num_windows) for d in range(1 << window_bits)]
+        entries = rj.FixedBaseHost(base_affine_int, group).mul_many(scalars)
+        to_dev = co.g1_to_device if group == "g1" else co.g2_to_device
+        self.table = tuple(c.reshape(self.num_windows, 1 << window_bits, *c.shape[1:])
+                           for c in to_dev(entries))
+        self._dev: dict = {}
+
+    def mul(self, ops: JacobianOps, digits, device="cpu"):
+        """digits: (n, W) window digits (LSB window first) -> (n,) points."""
+        key = str(device)
+        if key not in self._dev:  # the table is copied to each device once
+            self._dev[key] = tuple(c.to(device) for c in self.table)
+        table = self._dev[key]
+        d = torch.as_tensor(digits, device=table[0].device).to(torch.int64)
+        rows = torch.arange(self.num_windows, device=d.device)[:, None]
+        gathered = tuple(c[rows, d.T] for c in table)  # (W, n, ...)
+        return ops.sum_reduce(gathered, axis=0, distinct=True)
+
+    def digits(self, scalars) -> np.ndarray:
+        """Ints -> (n, W) int32 window digits, LSB window first."""
+        return scalars_to_window_digits(scalars, self.window_bits, self.num_windows)
+
+
 def scalars_to_window_digits(scalars, window=FB_WINDOW, num_windows=FB_NUM_WINDOWS) -> np.ndarray:
-    arr = np.asarray(scalars, dtype=object).reshape(-1)
-    out = np.zeros((arr.shape[0], num_windows), dtype=np.int32)
-    mask = (1 << window) - 1
-    for i, v in enumerate(arr):
-        v = int(v) % R
-        for w in range(num_windows):
-            out[i, w] = (v >> (window * w)) & mask
-    return out
+    """Ints (reduced mod R) -> (n, num_windows) int32 base-2^window digits,
+    LSB window first."""
+    le = b"".join((int(v) % R).to_bytes(32, "little") for v in np.asarray(scalars, dtype=object).reshape(-1))
+    bits = np.unpackbits(np.frombuffer(le, np.uint8).reshape(-1, 32), axis=1, bitorder="little")
+    nb = window * num_windows
+    bits = np.pad(bits, ((0, 0), (0, max(0, nb - 256))))[:, :nb]
+    weights = 1 << np.arange(window, dtype=np.int64)
+    return (bits.reshape(-1, num_windows, window).astype(np.int64) @ weights).astype(np.int32)
 
 
 def limbs_to_window_digits(limbs: torch.Tensor, window: int = FB_WINDOW) -> torch.Tensor:

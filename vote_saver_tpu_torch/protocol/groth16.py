@@ -1,18 +1,21 @@
-"""Groth16 over BLS12-381: host setup, device prover from a host witness,
-host verify.
+"""Groth16 over BLS12-381: setup (host-native or on the device), the device
+prover, host verify.
 
-Counterpart of ``vote_saver_tpu/protocol/groth16.py`` along the path the
-vote phase takes with a host witness:
+Counterpart of ``vote_saver_tpu/protocol/groth16.py``:
 
-  * setup: QAP evaluation at tau and the CRS by native host fixed-base
-    multiplication (the JAX package's host arm; identical CRS for the same
-    ``FrRandom``);
+  * setup: QAP evaluation at tau, then the CRS by fixed-base
+    multiplication, either native on the host (``device=None``) or on the
+    device through ``FixedBaseTable`` (8-bit window gathers summed by the
+    distinct-operand add K3d, in 2048-scalar chunks).  Both arms give the
+    same CRS for the same ``FrRandom``;
   * prove: witness -> A/B/C by a COO matvec on the device (K1 multiplies,
     ``index_add_`` of int64 lazy limb columns, one ``reduce_lazy`` per row),
     the R1CS check, 3 iNTT + 3 coset NTT + 1 coset iNTT for H, then five
     scheduled MSMs (a/b1/l/h in G1, b2 in G2) with the B voters batched as
-    parts, the var-base fallback on a flagged doubling corner, and the host
-    blinding/assembly;
+    parts and the var-base fallback on a flagged doubling corner.
+    ``prove_msms_device`` stops there and leaves the MSM outputs on the
+    device for the device ballot tail; ``prove`` (the host-witness arm)
+    brings them to the host and blinds and assembles the proofs there;
   * verify: the 4-term pairing check on the host.
 """
 
@@ -32,6 +35,7 @@ from vote_saver_tpu.refimpl import pairing as rp
 from vote_saver_tpu.utils.rng import FrRandom
 
 from ..ops import curve_ops as co
+from ..ops import hopper_field as hf
 from ..ops import limbs as lb
 from ..ops import msm as msm_mod
 from ..ops import msm_sched as ms
@@ -76,26 +80,57 @@ class Proof:
 
 
 class StageTimer:
-    """Per-stage wall seconds and event counts (``fallbacks``); synchronises
-    the device at each mark so a stage's time includes its device work."""
+    """Per-stage wall seconds, kernel launches (``launches[stage]``: the
+    port's CUDA kernels launched in the stage) and event counts
+    (``fallbacks``); synchronises the device at each mark so a stage's time
+    includes its device work."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.seconds: dict[str, float] = {}
+        self.launches: dict[str, int] = {}
         self.counts: dict[str, int] = {}
         self._t = time.perf_counter()
+        self._n = sum(hf.launches.values())
 
     def mark(self, stage: str) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
+        now, n = time.perf_counter(), sum(hf.launches.values())
         self.seconds[stage] = self.seconds.get(stage, 0.0) + now - self._t
-        self._t = now
+        self.launches[stage] = self.launches.get(stage, 0) + n - self._n
+        self._t, self._n = now, n
 
 
 # ---------------------------------------------------------------------------
-# Setup (host-native arm)
+# Setup
 # ---------------------------------------------------------------------------
+
+_FB_CHUNK = 2048
+_fb_tables: dict = {}
+
+
+def _fb_table(group: str) -> msm_mod.FixedBaseTable:
+    if group not in _fb_tables:
+        base = rc.g1_gen if group == "g1" else rc.g2_gen
+        _fb_tables[group] = msm_mod.FixedBaseTable(base, group)
+    return _fb_tables[group]
+
+
+def _fixed_base_batch(group: str, scalars: list[int], device) -> list:
+    """Fixed-base multiplication of many scalars on `device`; returns host
+    affine points (None for a zero scalar).  Chunks of 2048 scalars, the
+    last one zero-padded, as in the JAX package: every chunk's window sum
+    is 5 distinct adds over 32 x 2048 lanes."""
+    table = _fb_table(group)
+    ops = co.g1_ops() if group == "g1" else co.g2_ops()
+    from_dev = co.g1_from_device if group == "g1" else co.g2_from_device
+    out = []
+    for off in range(0, len(scalars), _FB_CHUNK):
+        chunk = scalars[off : off + _FB_CHUNK]
+        padded = chunk + [0] * (_FB_CHUNK - len(chunk))
+        out.extend(from_dev(table.mul(ops, table.digits(padded), device))[: len(chunk)])
+    return out
 
 
 def _batch_inv_host(xs: list[int]) -> list[int]:
@@ -139,7 +174,9 @@ def qap_evaluate(cs: ConstraintSystem, tau: int):
     return u, v, w, z_tau, domain
 
 
-def setup(cs: ConstraintSystem, rng: FrRandom) -> tuple[ProvingKey, VerificationKey]:
+def setup(cs: ConstraintSystem, rng: FrRandom, device=None) -> tuple[ProvingKey, VerificationKey]:
+    """Groth16 keys; the CRS points come from native host fixed-base
+    multiplication when `device` is None, else from the device table."""
     nc, ni, m = cs.num_constraints, cs.num_primary, cs.num_vars
     tau, alpha, beta, gamma, delta = (rng() for _ in range(5))
     u, v, w, z_tau, domain = qap_evaluate(cs, tau)
@@ -151,7 +188,14 @@ def setup(cs: ConstraintSystem, rng: FrRandom) -> tuple[ProvingKey, Verification
     for _ in range(domain - 1):
         h_exp.append(t_pow * z_tau % R * delta_inv % R)
         t_pow = t_pow * tau % R
-    g1_points = rj.FixedBaseHost(rc.g1_gen, "g1").mul_many(u + v + h_exp + l_exp + ic_exp + [alpha, beta, delta])
+    g1_scalars = u + v + h_exp + l_exp + ic_exp + [alpha, beta, delta]
+    g2_scalars = v + [beta, gamma, delta]
+    if device is None:
+        g1_points = rj.FixedBaseHost(rc.g1_gen, "g1").mul_many(g1_scalars)
+        g2_points = rj.FixedBaseHost(rc.g2_gen, "g2").mul_many(g2_scalars)
+    else:
+        g1_points = _fixed_base_batch("g1", g1_scalars, device)
+        g2_points = _fixed_base_batch("g2", g2_scalars, device)
     ofs = 0
 
     def take(k):
@@ -163,7 +207,6 @@ def setup(cs: ConstraintSystem, rng: FrRandom) -> tuple[ProvingKey, Verification
     a_pts, b1_pts, h_pts = take(m), take(m), take(domain - 1)
     l_pts, ic_pts = take(m - ni - 1), take(ni + 1)
     alpha_g1, beta_g1, delta_g1 = take(3)
-    g2_points = rj.FixedBaseHost(rc.g2_gen, "g2").mul_many(v + [beta, gamma, delta])
     beta_g2, gamma_g2, delta_g2 = g2_points[m : m + 3]
     pk = ProvingKey(
         num_primary=ni, num_vars=m, domain=domain,
@@ -324,20 +367,30 @@ def msms_from_device(outs: dict):
     return a, b1, co.g2_from_device(outs["b2"]), l, h
 
 
-def prove(pk: ProvingKey, wvals: np.ndarray, rng: FrRandom, device="cpu",
-          window_bits: int = ms.DEFAULT_WINDOW_BITS, timer: StageTimer | None = None) -> list[Proof]:
-    """wvals: (B, num_vars) object ints (full assignments, column 0 == 1)."""
-    w_mont = fr_ops().to_mont(lb.ints_to_tensor(wvals, lb.FR, device, mont=False))
+def prove_msms_device(pk: ProvingKey, w_mont: torch.Tensor, window_bits: int = ms.DEFAULT_WINDOW_BITS,
+                      timer: StageTimer | None = None):
+    """Montgomery witness (B, m, L) on the device -> (the five query MSMs as
+    device Jacobian coords with leading dim (B,), w_std (B, m, L) standard
+    form on the device).  Raises ValueError if an assignment fails the
+    R1CS."""
     h_std, w_std, sat = _abc_h_w(pk, w_mont)
     if not bool(sat.all()):
         raise ValueError("witness does not satisfy the R1CS")
     if timer:
         timer.mark("abc_h")
     outs, fallbacks = prove_msms(pk, w_std, h_std, window_bits, timer)
-    pts = msms_from_device(outs)
-    proofs = _blind_and_assemble(pk, *pts, rng)
     if timer:
         timer.counts["fallbacks"] = timer.counts.get("fallbacks", 0) + fallbacks
+    return outs, w_std
+
+
+def prove(pk: ProvingKey, wvals: np.ndarray, rng: FrRandom, device="cpu",
+          window_bits: int = ms.DEFAULT_WINDOW_BITS, timer: StageTimer | None = None) -> list[Proof]:
+    """wvals: (B, num_vars) object ints (full assignments, column 0 == 1)."""
+    w_mont = fr_ops().to_mont(lb.ints_to_tensor(wvals, lb.FR, device, mont=False))
+    outs, _w_std = prove_msms_device(pk, w_mont, window_bits, timer)
+    proofs = _blind_and_assemble(pk, *msms_from_device(outs), rng)
+    if timer:
         timer.mark("proof_assembly")
     return proofs
 

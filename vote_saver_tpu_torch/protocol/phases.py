@@ -1,14 +1,24 @@
-"""The protocol phases of the slice: voter and admin setup, the vote phase
-and ballot verification.
+"""The protocol phases: voter and admin setup, the vote phase and ballot
+verification.
 
 Counterpart of ``vote_saver_tpu/protocol/phases.py``.  Blob-in/blob-out as
-there; the vote phase is batched over voters and takes the path the JAX
-package runs with ``VSTPU_HOST_WITNESS``: host witness
-(``circ.generate_witness``) -> device prover (A/B/C, R1CS check, NTTs, five
-scheduled MSMs on the CUDA kernels) -> host tail (blinding, SAVER encrypt,
-rerandomize) -> serialization.  Randomness comes from one seeded
-``FrRandom`` drawn in exactly the JAX order, so ballots are byte-identical
-to the JAX package's under the same seed.
+there; the vote phase is batched over voters.  Admin key generation runs
+Groth16 setup natively on the host, or on ``device`` (the CRS is the same).
+The vote phase has the JAX package's two arms, chosen by an explicit
+argument, never by the environment:
+
+  * the default, everything on the context's device: device witness
+    (``circuit.witness_dev``) -> ``groth16.prove_msms_device`` (A/B/C, R1CS
+    check, NTTs, five scheduled MSMs, outputs kept on the device) -> device
+    ballot tail (``ballot_dev``: blinding, SAVER encrypt, rerandomize) ->
+    serialization;
+  * ``host_witness=True``, the arm the JAX package runs under
+    ``VSTPU_HOST_WITNESS``: host witness (``circ.generate_witness``) ->
+    device prover -> host blinding and host SAVER tail -> serialization.
+
+Randomness comes from one seeded ``FrRandom`` drawn in exactly the JAX
+order, so both arms give ballots byte-identical to the JAX package's under
+the same seed.
 """
 
 from __future__ import annotations
@@ -21,8 +31,10 @@ from vote_saver_tpu.protocol import marshal as M
 from vote_saver_tpu.refimpl import pedersen as rpd
 from vote_saver_tpu.utils.rng import FrRandom
 
+from ..circuit import witness_dev
+from ..ops import limbs as lb
 from ..ops import merkle
-from . import groth16, keys, saver
+from . import ballot_dev, groth16, keys, saver
 
 
 def init_voter_phase(voter_idx: int, rng: FrRandom | None = None) -> tuple[bytes, bytes]:
@@ -33,12 +45,13 @@ def init_voter_phase(voter_idx: int, rng: FrRandom | None = None) -> tuple[bytes
 
 
 def init_admin_phase_generate_keys(tree_depth: int, eid_bits: int = DEFAULT_EID_BITS,
-                                   rng: FrRandom | None = None):
-    """R1CS for the tree depth, Groth16 setup, SAVER keys from msg_size*3+2
-    scalars.  Returns (pk_crs, vk_crs, pk_eid, sk_eid, vk_eid) blobs."""
+                                   rng: FrRandom | None = None, device=None):
+    """R1CS for the tree depth, Groth16 setup (host-native when `device` is
+    None, else on `device`), SAVER keys from msg_size*3+2 scalars.  Returns
+    (pk_crs, vk_crs, pk_eid, sk_eid, vk_eid) blobs."""
     rng = rng or FrRandom()
     circ = build_voting_circuit(tree_depth, eid_bits)
-    pk, vk = groth16.setup(circ.cs, rng)
+    pk, vk = groth16.setup(circ.cs, rng, device)
     rnd = [rng() for _ in range(MSG_SIZE * 3 + 2)]
     spk, ssk, svk = saver.keygen(vk, MSG_SIZE, rnd)
     return (M.ser_groth16_pk(pk), M.ser_groth16_vk(vk), M.ser_saver_pk(spk),
@@ -106,9 +119,10 @@ def _finish_host(spk, vk, pk, proofs, prim, B: int, rng: FrRandom):
 
 def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[int],
                       sk_blobs: list[bytes], rng: FrRandom | None = None,
-                      timer: groth16.StageTimer | None = None):
+                      timer: groth16.StageTimer | None = None, host_witness: bool = False):
     """Per voter (proof_blob, pinput_blob, ct_blob, sn_blob), as the JAX
-    package's vote_with_context.  ``timer`` records per-stage seconds."""
+    package's vote_with_context.  ``host_witness`` selects the host-witness
+    + host-tail arm; ``timer`` records per-stage seconds."""
     rng = rng or FrRandom()
     B = len(voter_indices)
     if len(votes) != B or len(sk_blobs) != B:
@@ -118,15 +132,29 @@ def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[in
     circ = ctx.circ
     sks = [M.de_bitarray(b, SECRET_KEY_BITS) for b in sk_blobs]
     sib = np.stack([merkle.copath(ctx.levels, i) for i in voter_indices]).astype(object)
-    wit = circ.generate_witness(
-        np.array(votes), np.array(ctx.eid, dtype=object), np.array(sks, dtype=object),
-        np.array(voter_indices), sib,
-    )
+    if host_witness:
+        wit = circ.generate_witness(
+            np.array(votes), np.array(ctx.eid, dtype=object), np.array(sks, dtype=object),
+            np.array(voter_indices), sib,
+        )
+        if timer:
+            timer.mark("witness")
+        proofs = groth16.prove(ctx.pk, wit.values, rng, ctx.device, timer=timer)
+        prim = wit.primary(circ.cs.num_primary)
+        rerand = _finish_host(ctx.spk, ctx.vk, ctx.pk, proofs, prim, B, rng)
+        stage = "tail"
+    else:
+        w_mont = witness_dev.generate_witness_device(
+            circ, np.array(votes), ctx.eid, sks, np.array(voter_indices), sib, ctx.device,
+        )
+        if timer:
+            timer.mark("witness")
+        outs, w_std = groth16.prove_msms_device(ctx.pk, w_mont, timer=timer)
+        prim = lb.tensor_to_ints(w_std[:, 1 : 1 + circ.cs.num_primary], lb.FR, mont=False)
+        rerand = ballot_dev.finalize_ballots_device(ctx.pk, ctx.spk, ctx.vk, outs, votes, rng)
+        stage = "ballot_tail"
     if timer:
-        timer.mark("witness")
-    proofs = groth16.prove(ctx.pk, wit.values, rng, ctx.device, timer=timer)
-    prim = wit.primary(circ.cs.num_primary)
-    rerand = _finish_host(ctx.spk, ctx.vk, ctx.pk, proofs, prim, B, rng)
+        timer.mark(stage)
     out = []
     sn_off = MSG_SIZE + len(ctx.eid_field)
     for i in range(B):
@@ -139,7 +167,7 @@ def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[in
             M.ser_scalar_vector(pinput[sn_off : sn_off + 2]),
         ))
     if timer:
-        timer.mark("tail")
+        timer.mark("serialize")
     return out
 
 
