@@ -7,11 +7,19 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
   2. build the CUDA kernels from ``vote_saver_tpu_torch/csrc`` (one nvcc
      per translation unit, all at once);
   3. each kernel against its plain PyTorch version on the card at the
-     main path's widths (K1 at 2^16 lanes in Fq and Fr, K2-K4 at 2^14 lanes
-     and the distinct add K3d at 2^16 lanes, the FixedBaseTable width, in G1
-     and G2), special lanes included; exact equality; both timed;
+     main path's widths (K1 at 2^16 lanes in Fq and Fr in each multiplier
+     mode, K2-K4 and the flagged distinct add K5/K6 at 2^14 lanes and the
+     distinct add K3d at 2^16 lanes, the FixedBaseTable width, in G1 and
+     G2), special lanes included; exact equality; both timed;
   4. a 2^16-point G1 MSM with uniform scalars at w = 10 against the native
-     host MSM;
+     host MSM; then the same buckets, and those of a 2^14-point G2 MSM,
+     through the combination phase once with the complete adder (K3) and
+     once with the flagged distinct adder (K5/K6), both equal to the native
+     MSM and both timed;
+  4b. the multiply probes (``vote_saver_tpu_torch.micro``): K9's per-op
+     rates, K1 in each multiplier mode, K7, K8 and K10, each with parity
+     against the host oracle, and each timed launch held against its plain
+     version on every lane;
   5. admin key generation for the depth-6 election on the card (Groth16
      setup through FixedBaseTable and K3d): its five blobs byte-identical to
      the host-native arm's, both arms timed;
@@ -24,12 +32,18 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      one timed batch of the host-witness arm for comparison.
 
 Every count of kernel launches is set to 0 just before a path runs (setup,
-the timed device-arm batches, the host-witness batch) and read just after
-it; the ``kernels`` line reports setup's and the device arm's.  A kernel of
-the path
-that launched 0 times fails the run.  The last two lines of stdout are
-``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.  Needs one
-CUDA device:
+the combination phase through K5/K6, the probes, the timed device-arm
+batches, the host-witness batch) and read just after it; the ``kernels``
+line reports each kernel's count on its path.  A kernel of a path that
+launched 0 times fails the run.  Each kernel's ``bound_ms`` is the larger of
+its bytes over 3.35 TB/s and its operations over the card's rate for their
+type: 32x32->64 multiply-adds (counted per lane from the formulas), 32-bit
+multiplies and issued instructions over documented per-SM rates times the
+SM count and the maximum SM clock (``micro.card_int_rates``; multiply-adds
+at K9's measured rate where that is higher), float32 operations over 67
+TFLOP/s, int8 products over 1,979 TOP/s.  The run imports nothing of JAX or
+of the JAX package.  The last two lines of stdout are ``{"kernels": [...]}`` and
+``{"ok": true, "device": {...}}``.  Needs one CUDA device:
 
     python3 chip_smoke.py
 """
@@ -41,25 +55,36 @@ import json
 import pathlib
 import pickle
 import random
-import subprocess
+import re
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0xC41B5
 DEPTH, BATCH, EID_BITS = 6, 16, 64
 K1_LANES, CURVE_LANES, FB_LANES = 1 << 16, 1 << 14, 1 << 16
-MSM_N, MSM_W = 1 << 16, 10
+MSM_N, MSM_W, MSM_G2_N = 1 << 16, 10, 1 << 14
 # the kernels each path runs (a kernel of a path that never launched fails)
 SETUP_KERNELS = ("g1_add_distinct", "g2_add_distinct", "mont_mul_fq")
 VOTE_KERNELS = ("mont_mul_fq", "mont_mul_fr", "g1_madd", "g2_madd", "g1_add", "g2_add", "g1_double", "g2_double")
+COMBINE_KERNELS = ("g1_addx", "g2_addx")
+K1_MODE_KERNELS = ("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold")
+# H100 SXM published peaks: HBM bytes/s, fp32 FLOP/s, int8 OP/s
+HBM_BPS, F32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
+# 32x32->64 multiply-adds of one Fq / Fr Montgomery multiply: 2L^2 + L
+MADS = {"fq": 2 * 12 * 12 + 12, "fr": 2 * 8 * 8 + 8}
+# Fq multiplies per lane of each curve formula, G1 and G2 (an Fq2 square is
+# 2 Fq multiplies, an Fq2 multiply 3): (squares, multiplies)
+FORMULA = {"add": (5, 11), "madd": (4, 7), "double": (5, 2)}
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
-    """The port runs without JAX: importing it here is an error."""
+    """The port runs without JAX and without the JAX package: importing
+    either here is an error (``vote_saver_tpu_torch`` is the port itself)."""
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "vote_saver_tpu"):
             raise ImportError(f"{name} imported on the port's path")
         return None
 
@@ -71,28 +96,6 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     log(f"FAIL: {msg}")
     raise SystemExit(1)
-
-
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -115,32 +118,75 @@ def _diff(a, b) -> int:
     )
 
 
-def check_kernels(rnd) -> dict:
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _finite(*zs):
+    """Lanes where every given Z coordinate is nonzero (finite points)."""
     import torch
 
+    out = None
+    for z in zs:
+        nz = (z.reshape(z.shape[0], -1) != 0).any(dim=1)
+        out = nz if out is None else out & nz
+    return int(out.sum())
+
+
+def _curve_mads(kind: str, g2: bool, lanes: int) -> int:
+    sq, mul = FORMULA[kind]
+    return lanes * (sq * 2 + mul * 3 if g2 else sq + mul) * MADS["fq"]
+
+
+def check_kernels(rnd) -> dict:
+    """Each kernel against its plain version.  Besides the times, each
+    result carries the work that its bound is computed from: bytes read and
+    written once, and the operations these inputs need (lanes with an
+    infinite operand or an inactive madd lane take the formula's early exit
+    and count no multiplies; the handful of h = 0 lanes count as generic)."""
+    import torch
+
+    from vote_saver_tpu_torch.micro import time_ms
+    from vote_saver_tpu_torch.ops import fold_mul
     from vote_saver_tpu_torch.ops import hopper_field as hf
     from vote_saver_tpu_torch.ops import limbs as lb
-    from vote_saver_tpu_torch.testing import MADD_EXC, special_lanes
+    from vote_saver_tpu_torch.testing import ADDX_EXC, MADD_EXC, special_lanes
 
     dev = torch.device("cuda")
     results = {}
     for name, spec in (("fq", lb.FQ), ("fr", lb.FR)):
         N = spec.modulus
-        xs = [0, 1, N - 1, N - 1] + [rnd.randrange(N) for _ in range(K1_LANES - 4)]
-        ys = [N - 1, 1, N - 1, 0] + [rnd.randrange(N) for _ in range(K1_LANES - 4)]
+        rinv = pow(spec.mont_r, -1, N)
+        # limbs 0, R mod N, N - R, then raw limbs 1 and N - 1 (Montgomery ints
+        # R^-1 and (N - 1) R^-1), then random
+        xs = [0, 1, N - 1, N - 1, rinv, (N - 1) * rinv % N] + [rnd.randrange(N) for _ in range(K1_LANES - 6)]
+        ys = [N - 1, 1, N - 1, 0, rinv, (N - 1) * rinv % N] + [rnd.randrange(N) for _ in range(K1_LANES - 6)]
         a, b = lb.ints_to_tensor(xs, spec, dev), lb.ints_to_tensor(ys, spec, dev)
-        got = hf.mont_mul(name, a, b)
-        exp = hf.mont_mul_plain(name, a, b)
-        torch.cuda.synchronize()
-        sample = list(lb.tensor_to_ints(got[:64], spec))
-        if sample != [x * y % N for x, y in zip(xs[:64], ys[:64])]:
-            fail(f"mont_mul_{name} disagrees with Python integers")
-        results[f"mont_mul_{name}"] = dict(
-            equal=torch.equal(got, exp), max_abs_err=_diff((got,), (exp,)),
-            ms=time_ms(lambda: hf.mont_mul(name, a, b), 50),
-            plain_ms=time_ms(lambda: hf.mont_mul_plain(name, a, b), 3),
-            lanes=K1_LANES,
-        )
+        want = [x * y % N for x, y in zip(xs[:64], ys[:64])]
+        loop = None
+        for mode in hf.MODES:
+            kname = f"mont_mul_{name}" + ("" if mode == "loop" else f"_{mode}")
+            got = hf.mont_mul(name, a, b, mode)
+            exp = hf.mont_mul_plain(name, a, b, mode)
+            torch.cuda.synchronize()
+            if list(lb.tensor_to_ints(got[:64], spec)) != want:
+                fail(f"{kname} disagrees with Python integers")
+            loop = got if loop is None else loop
+            if not torch.equal(got, loop):
+                fail(f"{kname} disagrees with the loop mode")
+            work = dict(bytes=_nbytes(a, b, got))
+            if mode == "fold":
+                p = fold_mul.plan(spec)
+                work.update(f32_flops=K1_LANES * 2 * p["nd"] ** 2, int8_ops=K1_LANES * 2 * p["mat"].size,
+                            mads=K1_LANES * 2 * (p["L"] + 1))
+            else:
+                work["mads"] = K1_LANES * MADS[name]
+            results[kname] = dict(
+                equal=torch.equal(got, exp), max_abs_err=_diff((got,), (exp,)),
+                ms=time_ms(lambda: hf.mont_mul(name, a, b, mode), 50),
+                plain_ms=time_ms(lambda: hf.mont_mul_plain(name, a, b, mode), 3),
+                lanes=K1_LANES, work=work,
+            )
     for g2 in (False, True):
         pre = "g2" if g2 else "g1"
         p, q, acc, qa, sign, active = special_lanes(g2, CURVE_LANES, rnd)
@@ -151,31 +197,50 @@ def check_kernels(rnd) -> dict:
         madd = hf.g2_madd if g2 else hf.g1_madd
         add = hf.g2_add if g2 else hf.g1_add
         dbl = hf.g2_double if g2 else hf.g1_double
+        addx = hf.g2_addx if g2 else hf.g1_addx
         cases = {
             f"{pre}_madd": (lambda: madd(A, QA, S, ACT), lambda: hf.madd_plain(g2, A, QA, S, ACT)),
             f"{pre}_add": (lambda: add(P, Qd), lambda: hf.add_plain(g2, P, Qd)),
             f"{pre}_double": (lambda: dbl(P), lambda: hf.double_plain(g2, P)),
+            f"{pre}_addx": (lambda: addx(P, Qd), lambda: hf.addx_plain(g2, P, Qd)),
         }
         # K3d at the FixedBaseTable width: the special lanes, four times over
         P4, Q4 = (tuple(torch.cat([c] * (FB_LANES // CURVE_LANES)) for c in pts) for pts in (P, Qd))
         addd = hf.g2_add_distinct if g2 else hf.g1_add_distinct
         cases[f"{pre}_add_distinct"] = (lambda: addd(P4, Q4), lambda: hf.add_distinct_plain(g2, P4, Q4))
+        live_madd = int((ACT & ~((A[2] == 0).reshape(CURVE_LANES, -1).all(dim=1))
+                         & ~((QA[0] == 0) & (QA[1] == 0)).reshape(CURVE_LANES, -1).all(dim=1)).sum())
+        work = {
+            f"{pre}_madd": dict(mads=_curve_mads("madd", g2, live_madd)),
+            f"{pre}_add": dict(mads=_curve_mads("add", g2, _finite(P[2], Qd[2]))),
+            f"{pre}_double": dict(mads=_curve_mads("double", g2, CURVE_LANES)),
+            f"{pre}_addx": dict(mads=_curve_mads("add", g2, _finite(P[2], Qd[2]))),
+            f"{pre}_add_distinct": dict(mads=_curve_mads("add", g2, _finite(P4[2], Q4[2]))),
+        }
         for kname, (kern, plain) in cases.items():
             got, exp = kern(), plain()
-            if kname.endswith("madd"):
+            flat_in = (*A, *QA, S, ACT) if kname.endswith("madd") else (
+                (*P4, *Q4) if kname.endswith("distinct") else (*P, *Qd) if not kname.endswith("double") else P)
+            if kname.endswith("madd") or kname.endswith("addx"):
                 got, exp = (*got[0], got[1]), (*exp[0], exp[1])
                 flags = got[-1][: len(MADD_EXC)].tolist()
-                if flags != MADD_EXC:
+                if flags != (MADD_EXC if kname.endswith("madd") else ADDX_EXC):
                     fail(f"{kname} exc flags on the special lanes: {flags}")
             if kname.endswith("distinct") and (got[2][3].any() or got[2][4].any()):
                 fail(f"{kname}: the h = 0 lanes do not give z3 = 0")
+            if kname.endswith("addx") and (got[2][3].any() or got[2][4].any() or got[2][5].any()):
+                fail(f"{kname}: the p = q and p = -q lanes do not give z3 = 0")
             torch.cuda.synchronize()
+            work[kname]["bytes"] = _nbytes(*flat_in, *got)
             results[kname] = dict(
                 equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
                 max_abs_err=_diff(got, exp),
                 ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3),
-                lanes=FB_LANES if kname.endswith("distinct") else CURVE_LANES,
+                lanes=FB_LANES if kname.endswith("distinct") else CURVE_LANES, work=work[kname],
             )
+        # K5/K6 at the K3d width, beside K3d in the same call
+        ms4 = time_ms(lambda: addx(P4, Q4), 20)
+        log(f"[kernels] {pre}_addx at {FB_LANES} lanes: {ms4:.4f} ms (K3d {results[f'{pre}_add_distinct']['ms']:.4f} ms)")
     for kname, r in results.items():
         log(f"[kernels] {kname}: lanes={r['lanes']} equal={r['equal']} max_abs_err={r['max_abs_err']} "
             f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.3f} ms")
@@ -192,12 +257,12 @@ def check_kernels(rnd) -> dict:
 def check_msm(rnd) -> dict:
     import torch
 
-    from vote_saver_tpu import native_bridge as nb
-    from vote_saver_tpu.params import R
-    from vote_saver_tpu.refimpl import curves as rc
-    from vote_saver_tpu.refimpl import jacobian as rj
+    from vote_saver_tpu_torch import native_bridge as nb
     from vote_saver_tpu_torch.ops import curve_ops as co
     from vote_saver_tpu_torch.ops import msm_sched as ms
+    from vote_saver_tpu_torch.params import R
+    from vote_saver_tpu_torch.refimpl import curves as rc
+    from vote_saver_tpu_torch.refimpl import jacobian as rj
 
     pts = rj.FixedBaseHost(rc.g1_gen, "g1").mul_many([rnd.randrange(1, R) for _ in range(MSM_N)])
     scalars = [rnd.randrange(R) for _ in range(MSM_N)]
@@ -215,13 +280,108 @@ def check_msm(rnd) -> dict:
         times.append(time.perf_counter() - t0)
     dt = sorted(times)[1]
     got = co.g1_from_device(res)[0]
-    if bool(exc) or got != nb.msm(pts, scalars):
+    want = nb.msm(pts, scalars)
+    if bool(exc) or got != want:
         fail("2^16 G1 MSM does not match native_bridge.msm")
     out = dict(n=MSM_N, w=MSM_W, ms=dt * 1e3, mpoints_per_s=MSM_N / dt / 1e6, sched_host_ms=sched_ms,
                steps=int(sched.codes.shape[0]), lanes=int(sched.lanes))
     log(f"[msm] 2^16 G1 w=10: {out['ms']:.2f} ms = {out['mpoints_per_s']:.4f} Mpoints/s "
         f"(steps={out['steps']} lanes={out['lanes']} host schedule {sched_ms:.1f} ms); matches native")
+    g2_pts = rj.FixedBaseHost(rc.g2_gen, "g2").mul_many([rnd.randrange(1, R) for _ in range(MSM_G2_N)])
+    g2_scalars = [rnd.randrange(R) for _ in range(MSM_G2_N)]
+    g2_sched = ms.build_schedule(g2_scalars, MSM_W)
+    cases = (("g1", MSM_N, pxy, sched, want),
+             ("g2", MSM_G2_N, ms.g2_affine_to_device(g2_pts, "cuda"), g2_sched,
+              nb.msm(g2_pts, g2_scalars, group="g2")))
+    out["combine"] = check_combination(cases)
     return out
+
+
+def check_combination(cases) -> dict:
+    """One set of buckets per MSM through the combination phase, once with
+    the complete adder and once with the flagged distinct adder K5/K6.
+    With uniform scalars every bucket below a window's top digit is
+    non-empty, so the flag is expected clear; if it fires, the flagged
+    lanes are counted and the complete adder's result is taken, as
+    ``msm_scheduled``'s fallback does.  Launch counts are set to 0 just
+    before the flagged run and read just after it."""
+    import torch
+
+    from vote_saver_tpu_torch.ops import curve_ops as co
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import msm_sched as ms
+
+    out = {}
+    for group, n, pxy, sched, want in cases:
+        from_dev = co.g2_from_device if group == "g2" else co.g1_from_device
+        buckets, bexc = ms.bucket_phase(group, pxy, sched)
+        if bool(bexc):
+            fail(f"{group} bucket phase hit the madd doubling corner")
+        r = {}
+        for adder, distinct in (("complete", False), ("addx", True)):
+            addx = ms._addx(group, distinct=distinct)
+            hf.reset_launches()
+            res, flag = ms.combination_phase(group, buckets, sched, addx)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in hf.launches.items() if v}
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ms.combination_phase(group, buckets, sched, addx)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            flagged = 0
+            if bool(flag):
+                counted = []
+
+                def counting(p, q, addx=addx, counted=counted):
+                    o, e = addx(p, q)
+                    counted.append(int((e != 0).sum()))
+                    return o, e
+
+                ms.combination_phase(group, buckets, sched, counting)
+                flagged = sum(counted)
+                log(f"[combine] {group} {adder}: the flag fired on {flagged} lanes; "
+                    f"taking the complete adder's result")
+                res = r["complete"]["res"]
+            if from_dev(res)[0] != want:
+                fail(f"{group} combination phase through the {adder} adder does not match native_bridge.msm")
+            r[adder] = dict(res=res, ms=sorted(times)[1] * 1e3, flag=bool(flag), flagged_lanes=flagged,
+                            launches=launches)
+            log(f"[combine] {group} {n} points w={MSM_W}, {adder} adder: {r[adder]['ms']:.2f} ms, "
+                f"flag {'set' if flag else 'clear'}; launches {launches}; matches native")
+        out[group] = {k: {kk: vv for kk, vv in v.items() if kk != "res"} for k, v in r.items()}
+        missing = [k for k in COMBINE_KERNELS if k.startswith(group) and not r["addx"]["launches"].get(k)]
+        if missing:
+            fail(f"kernels of the {group} combination phase never launched: {missing}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the multiply probes
+# ---------------------------------------------------------------------------
+
+
+def run_probes(gpu: str) -> dict:
+    """K9, K1 by mode, K7, K8, K10, with the launch counts of every probe
+    kernel set to 0 just before and read just after."""
+    from vote_saver_tpu_torch import micro
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+
+    hf.reset_launches()
+    micro.reset_launches()
+    t0 = time.perf_counter()
+    res = micro.run_all("cuda")
+    secs = time.perf_counter() - t0
+    launches = dict(micro.launches)
+    launches.update({k: hf.launches[k] for k in K1_MODE_KERNELS})
+    for line in micro.report_lines(res, gpu):
+        log(line)
+    log(f"[probes] {secs:.1f} s; launches {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"probe kernels that never launched: {missing}")
+    return dict(res=res, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -234,9 +394,9 @@ def election(depth: int):
     and election data for `depth` (blobs), cached under .torch_cache/ by
     depth and seed; ``setup_s`` is the host-native setup's seconds, None
     when cached."""
-    from vote_saver_tpu.circuit.voting import build_voting_circuit
-    from vote_saver_tpu.utils.rng import FrRandom
+    from vote_saver_tpu_torch.circuit.voting import build_voting_circuit
     from vote_saver_tpu_torch.protocol import phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
 
     build_voting_circuit(depth, EID_BITS)  # cached: no setup time below includes it
     cache = ROOT / ".torch_cache" / f"election_d{depth}_s{SEED:x}_keys.pkl"
@@ -244,7 +404,7 @@ def election(depth: int):
         log(f"[setup] depth {depth}: cached {cache.relative_to(ROOT)}")
         return dict(pickle.loads(cache.read_bytes()), setup_s=None)
     t0 = time.perf_counter()
-    keys = phases.init_admin_phase_generate_keys(depth, EID_BITS, FrRandom(SEED))
+    keys = phases.init_admin_phase_generate_keys(depth, EID_BITS, FrRandom(SEED), device="host")
     setup_s = time.perf_counter() - t0
     rng = FrRandom(SEED + 2)
     voters = [phases.init_voter_phase(i, rng) for i in range(BATCH)]
@@ -260,9 +420,9 @@ def check_setup(e: dict) -> dict:
     """The same keys through Groth16 setup on the card."""
     import torch
 
-    from vote_saver_tpu.utils.rng import FrRandom
     from vote_saver_tpu_torch.ops import hopper_field as hf
     from vote_saver_tpu_torch.protocol import phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
 
     hf.reset_launches()
     t0 = time.perf_counter()
@@ -290,8 +450,8 @@ def check_setup(e: dict) -> dict:
 
 
 def check_golden() -> None:
-    from vote_saver_tpu.utils.rng import FrRandom
     from vote_saver_tpu_torch.protocol import phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
 
     golden = json.loads((ROOT / "tests" / "golden" / "torch_slice_d2.json").read_text())
     e = pickle.loads((ROOT / golden["source"]).read_bytes())
@@ -319,9 +479,9 @@ def _stages(timer, n: int) -> str:
 def run_slice(rnd, e: dict) -> dict:
     import torch
 
-    from vote_saver_tpu.utils.rng import FrRandom
     from vote_saver_tpu_torch.ops import hopper_field as hf
     from vote_saver_tpu_torch.protocol import groth16, phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
 
     pk_crs, vk_crs, pk_eid, _sk_eid, vk_eid = e["keys"]
     eid, rt, tree = e["data"]
@@ -390,6 +550,88 @@ def run_slice(rnd, e: dict) -> dict:
     return out
 
 
+def _short(mangled: str) -> str:
+    """k_add<Fq2,MulLoop>-style name of a mangled kernel or device function."""
+    m = re.search(r"(k_[a-z_]+|mul_fold|fq_mul_call)(I.*)?$", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"FqParams|FrParams|Fq2|MulLoop|MulV1|MulFold|Li\d+E", m.group(2) or "")
+    args = [a[2:-1] if a.startswith("Li") else a for a in args]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def resource_lines(report: str) -> list[tuple[str, str, str]]:
+    """ptxas's report -> (function, registers, spill-store bytes) per
+    function."""
+    out, name, spill = [], None, "0"
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            name = _short(line.split("for", 1)[1].strip())
+        elif "spill stores" in line:
+            spill = line.split("bytes spill stores")[0].split(",")[-1].strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append((name, line.split("Used", 1)[1].split("registers")[0].strip(), spill))
+            name, spill = None, "0"
+    return out
+
+
+def bound(work: dict, rates: dict) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one kernel's work on this card: bytes over
+    HBM_BPS; 32x32->64 multiply-adds, 32-bit multiplies and issued
+    instructions over ``micro.card_int_rates`` (documented per-SM rates on
+    this card; multiply-adds at K9's measured rate where that is higher);
+    float32 operations over F32_FLOPS; int8 products over INT8_OPS."""
+    ops_s = max(work.get("mads", 0) / rates["mul_wide"], work.get("mul32", 0) / rates["mul32"],
+                work.get("instrs", 0) / rates["issue"],
+                work.get("f32_flops", 0) / F32_FLOPS, work.get("int8_ops", 0) / INT8_OPS)
+    bytes_s = work["bytes"] / HBM_BPS
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def probe_entries(probes: dict) -> dict:
+    """kernels-line fields of the probe kernels (K7-K10): max_abs_err, ms,
+    plain_ms and the work their bound is computed from, all at the timed
+    2^20 lanes.  max_abs_err is over every lane of the timed launch of a
+    chain probe (and of its parity launch at the JAX probes' 14,336 lanes),
+    and over every lane of K9's launch with per-lane inputs."""
+    from vote_saver_tpu_torch import micro
+    from vote_saver_tpu_torch.ops import fold_mul
+    from vote_saver_tpu_torch.ops import limbs as lb
+
+    res = probes["res"]
+    chain = {**{f"k7_{m}": r for m, r in res["field_mul"].items()},
+             **{f"k8_{v}": r for v, r in res["cios_loop"].items()},
+             **{f"k10_{m}": r for m, r in res["mul_chain"].items()}}
+    fold = fold_mul.plan(lb.FQ)
+    out = {}
+    for probe, r in chain.items():
+        _idx, mode, chains, unroll = micro.CHAIN_PROBES[probe]
+        muls = r["lanes"] * chains * unroll
+        work = dict(bytes=r["lanes"] * 4 * lb.FQ.num_limbs * (3 + (chains > 1)))
+        if mode == "fold":
+            work.update(f32_flops=muls * 2 * fold["nd"] ** 2, int8_ops=muls * 2 * fold["mat"].size,
+                        mads=muls * 2 * (fold["L"] + 1))
+        else:
+            work["mads"] = muls * MADS["fq"]
+        out[f"mul_chain_{probe}"] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], work=work)
+    for kind, r in res["op_throughput"].items():
+        # each step of a chain is at least one instruction (cvt: 256 steps of
+        # two conversions); a float step is two flops (an FMA, or a mul and
+        # an add); the multiply kinds add their multiplies
+        iters = r["lanes"] * r["unroll"]
+        work = dict(bytes=3 * 4 * r["lanes"])
+        if kind.startswith("f32"):
+            work["f32_flops"] = 2 * iters
+        else:
+            work["instrs"] = iters
+            if kind in micro.MUL_WIDE_KINDS:
+                work["mads"] = iters
+            elif kind.startswith("u32_mul"):
+                work["mul32"] = iters
+        out[f"op_{kind}"] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], work=work)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -400,37 +642,58 @@ def main() -> None:
     sys.meta_path.insert(0, _NoJax())
     sys.path.insert(0, str(ROOT))
     t_all = time.perf_counter()
-    gpu = gpu_line()
+
+    from vote_saver_tpu_torch import micro
+    from vote_saver_tpu_torch import native_bridge as nb
+    from vote_saver_tpu_torch.ops import _build
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+
+    gpu = micro.gpu_line()
     log(gpu)
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    from vote_saver_tpu_torch.ops import _build
-    from vote_saver_tpu_torch.ops import hopper_field as hf
-
+    # the host library (g++) builds beside the CUDA kernels (nvcc)
+    native = threading.Thread(target=nb.get_lib)
+    native.start()
     kl = _build.load()
+    native.join()
+    if not nb.available():
+        fail("the native host library did not build")
     log(f"[build] {', '.join(p.name for p in kl.paths)}: {kl.build_seconds:.1f} s")
-    for line in kl.resource_usage.splitlines():
-        if "Function properties" in line or "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for name, regs, spill in resource_lines(kl.resource_usage):
+        log(f"[build] {name}: {regs} registers, {spill} B spill stores")
 
     rnd = random.Random(SEED)
     kern = check_kernels(rnd)
-    check_msm(rnd)
+    combine = check_msm(rnd)["combine"]
+    probes = run_probes(gpu)
     e = election(DEPTH)
     setup_launches = check_setup(e)["launches"]
     check_golden()
     vote_launches = run_slice(rnd, e)["launches"]
 
-    report = {"kernels": [
-        dict(name=k, route="cuda", source=hf.SOURCES[k], replaces=hf.REPLACES[k],
-             launches=(vote_launches if k in VOTE_KERNELS else setup_launches)[k],
-             max_abs_err=kern[k]["max_abs_err"], ms=kern[k]["ms"], plain_ms=kern[k]["plain_ms"])
-        for k in hf.KERNELS
-    ]}
-    log(f"[done] {time.perf_counter() - t_all:.1f} s")
+    kern.update(probe_entries(probes))
+    paths = dict.fromkeys(SETUP_KERNELS, setup_launches)
+    paths.update(dict.fromkeys(VOTE_KERNELS, vote_launches))
+    paths.update(dict.fromkeys(COMBINE_KERNELS, {k: combine[k[:2]]["addx"]["launches"].get(k, 0)
+                                                 for k in COMBINE_KERNELS}))
+    paths.update(dict.fromkeys((*K1_MODE_KERNELS, *micro.KERNELS), probes["launches"]))
+    entries = []
+    for k in (*hf.KERNELS, *micro.KERNELS):
+        src = hf if k in hf.KERNELS else micro
+        r = kern[k]
+        bound_ms, bound_by = bound(r["work"], probes["res"]["rates"])
+        entries.append(dict(name=k, route="cuda", source=src.SOURCES[k], replaces=src.REPLACES[k],
+                            launches=paths[k][k], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        # a kernel faster than its bound would mean a rate above is not the card's peak
+        note = "; FASTER THAN ITS BOUND" if r["ms"] < bound_ms else ""
+        log(f"[bound] {k}: {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / r['ms']:.1f}% of its time){note}; launches on its path {paths[k][k]}; {gpu}")
+    log(f"[done] {time.perf_counter() - t_all:.1f} s (kernel build {kl.build_seconds:.1f} s)")
     log(gpu)
-    print(json.dumps(report), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -1,15 +1,17 @@
 """The port's CUDA kernels and device path on the card (skipped without one).
 
-This file imports neither jax nor the JAX package's jax-bound modules, so it
-also runs where only the port is installed:
+This file imports neither jax nor the JAX package, so it also runs where
+only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Each kernel (K1 in Fq and Fr, K2-K4 and K3d in G1 and G2) must equal its
-plain PyTorch version limb for limb on the special lanes of
-``vote_saver_tpu_torch.testing``; a scheduled MSM must equal the native host
-MSM; a proof made on the card must be byte-identical to the same proof made
-by the plain versions on the CPU; setup on the card must write the
+Each kernel (K1 in Fq and Fr in each multiplier mode, K2-K4, K3d and K5/K6
+in G1 and G2) must equal its plain PyTorch version limb for limb on the
+special lanes of ``vote_saver_tpu_torch.testing``; a scheduled MSM must
+equal the native host MSM, and so must a G2 MSM's buckets combined through
+the flagged distinct add K6; the probes K7-K10 must pass their host-oracle
+parity; a proof made on the card must be byte-identical to the same proof
+made by the plain versions on the CPU; setup on the card must write the
 host-native arm's CRS.
 """
 
@@ -19,19 +21,20 @@ import numpy as np
 import pytest
 import torch
 
-from vote_saver_tpu import native_bridge as nb
-from vote_saver_tpu.circuit.r1cs import ConstraintSystem, lc
-from vote_saver_tpu.params import Q, R
-from vote_saver_tpu.protocol import marshal as M
-from vote_saver_tpu.refimpl import curves as rc
-from vote_saver_tpu.refimpl import jacobian as rj
-from vote_saver_tpu.utils.rng import FrRandom
+from vote_saver_tpu_torch import micro
+from vote_saver_tpu_torch import native_bridge as nb
+from vote_saver_tpu_torch.circuit.r1cs import ConstraintSystem, lc
 from vote_saver_tpu_torch.ops import curve_ops as co
 from vote_saver_tpu_torch.ops import hopper_field as hf
 from vote_saver_tpu_torch.ops import limbs as lb
 from vote_saver_tpu_torch.ops import msm_sched as ms
+from vote_saver_tpu_torch.params import Q, R
 from vote_saver_tpu_torch.protocol import groth16 as tg
-from vote_saver_tpu_torch.testing import MADD_EXC, special_lanes
+from vote_saver_tpu_torch.protocol import marshal as M
+from vote_saver_tpu_torch.refimpl import curves as rc
+from vote_saver_tpu_torch.refimpl import jacobian as rj
+from vote_saver_tpu_torch.testing import ADDX_EXC, MADD_EXC, special_lanes
+from vote_saver_tpu_torch.utils.rng import FrRandom
 
 pytestmark = pytest.mark.cuda
 
@@ -94,6 +97,65 @@ def test_add_distinct_matches_plain(dev, g2):
     assert not got[2][3].any() and not got[2][4].any()  # h = 0 lanes: the formula's z3 = 0
 
 
+@pytest.mark.parametrize("name,N", [("fq", Q), ("fr", R)])
+def test_k1_modes_match_plain(dev, name, N):
+    rnd = random.Random(7)
+    spec = lb.spec_for(name)
+    rinv = pow(spec.mont_r, -1, N)
+    xs = [0, 1, N - 1, rinv, (N - 1) * rinv % N] + [rnd.randrange(N) for _ in range(4091)]
+    ys = [N - 1, 1, N - 1, rinv, (N - 1) * rinv % N] + [rnd.randrange(N) for _ in range(4091)]
+    a, b = lb.ints_to_tensor(xs, spec, dev), lb.ints_to_tensor(ys, spec, dev)
+    loop = hf.mont_mul(name, a, b)
+    for mode in ("v1", "fold"):
+        key = f"mont_mul_{name}_{mode}"
+        before = hf.launches[key]
+        got = hf.mont_mul(name, a, b, mode)
+        assert hf.launches[key] == before + 1
+        assert torch.equal(got, loop) and torch.equal(got, hf.mont_mul_plain(name, a, b, mode)), mode
+    assert list(lb.tensor_to_ints(loop, spec)) == [x * y % N for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_addx_matches_plain(dev, g2):
+    p, q, *_ = special_lanes(g2, 1024, random.Random(8 + g2))
+    P, Qd = (tuple(lb.ints_to_tensor([pt[i] for pt in pts], lb.FQ, dev) for i in range(3)) for pts in (p, q))
+    name = "g2_addx" if g2 else "g1_addx"
+    before = hf.launches[name]
+    got, exc = (hf.g2_addx if g2 else hf.g1_addx)(P, Qd)
+    assert hf.launches[name] == before + 1
+    exp, pexc = hf.addx_plain(g2, P, Qd)
+    assert all(torch.equal(x, y) for x, y in zip(got, exp)) and torch.equal(exc, pexc)
+    assert exc[: len(ADDX_EXC)].tolist() == ADDX_EXC
+    assert all(torch.equal(x, y) for x, y in zip(got, hf.add_distinct_plain(g2, P, Qd)))
+
+
+def test_g2_combination_through_addx_matches_native(dev):
+    """A G2 MSM's buckets combined by K6: equal to the native MSM and to the
+    complete adder (every bucket below a window's top is non-empty)."""
+    rnd = random.Random(9)
+    pts = rj.FixedBaseHost(rc.g2_gen, "g2").mul_many([rnd.randrange(1, R) for _ in range(2048)])
+    scalars = [rnd.randrange(R) for _ in range(2048)]
+    sched = ms.build_schedule(scalars, 8)
+    buckets, bexc = ms.bucket_phase("g2", ms.g2_affine_to_device(pts, dev), sched)
+    before = hf.launches["g2_addx"]
+    res, exc = ms.combination_phase("g2", buckets, sched, ms._addx("g2", distinct=True))
+    assert hf.launches["g2_addx"] > before
+    cres, cexc = ms.combination_phase("g2", buckets, sched, ms._addx("g2"))
+    assert not bool(bexc) and not bool(exc) and not bool(cexc)
+    assert all(torch.equal(x, y) for x, y in zip(res, cres))
+    assert co.g2_from_device(res) == [nb.msm(pts, scalars, group="g2")]
+
+
+def test_probes_pass_parity(dev):
+    """K7-K10 and K1 by mode at reduced widths: host-oracle parity, kernel
+    equal to plain."""
+    for mode in hf.MODES:
+        assert micro.field_mul(mode, dev, lanes=1 << 14, reps=2)["max_abs_err"] == 0
+    assert all(r["max_abs_err"] == 0 for r in micro.mul_chain(device=dev, lanes=1 << 14, reps=2).values())
+    assert all(r["max_abs_err"] == 0 for r in micro.op_throughput(dev, lanes=1 << 14, reps=2).values())
+    assert all(r["parity"] for r in micro.mont_mul_modes(dev, lanes=1 << 14, reps=2).values())
+
+
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
 def test_scheduled_msm_matches_native(dev, g2):
     rnd = random.Random(4 + g2)
@@ -130,7 +192,7 @@ def test_prove_on_card_matches_cpu(dev):
             w[b, xs[k]], w[b, ps[k]] = bit, acc
         w[b, out] = acc
     assert cs.is_satisfied(w)
-    pk, vk = tg.setup(cs, FrRandom(3))
+    pk, vk = tg.setup(cs, FrRandom(3), device="host")
     on_card = tg.prove(pk, w, FrRandom(4), dev, window_bits=4)
     on_cpu = tg.prove(pk, w, FrRandom(4), "cpu", window_bits=4)
     assert [M.ser_proof(p) for p in on_card] == [M.ser_proof(p) for p in on_cpu]
@@ -150,5 +212,5 @@ def test_setup_on_card_matches_host(dev):
     before = hf.launches["g1_add_distinct"], hf.launches["g2_add_distinct"]
     pk, vk = tg.setup(cs, FrRandom(6), device=dev)
     assert hf.launches["g1_add_distinct"] > before[0] and hf.launches["g2_add_distinct"] > before[1]
-    hpk, hvk = tg.setup(cs, FrRandom(6))
+    hpk, hvk = tg.setup(cs, FrRandom(6), device="host")
     assert M.ser_groth16_pk(pk) == M.ser_groth16_pk(hpk) and M.ser_groth16_vk(vk) == M.ser_groth16_vk(hvk)

@@ -7,7 +7,8 @@
     ``groth16.prove`` under one ``FrRandom`` seed, accepted by both verifiers;
   * ``prepare_vote_context`` on the depth-2 election parses the same CRS as
     the JAX package, and its device point arrays equal JAX ``_devaff``'s;
-  * every ``vote_saver_tpu_torch`` module imports with ``jax`` blocked.
+  * every ``vote_saver_tpu_torch`` module, and chip_smoke.py, imports with
+    ``jax``, ``jaxlib`` and the JAX package ``vote_saver_tpu`` blocked.
 
 The full depth-2 vote is held to tests/golden/torch_slice_d2.json on the
 card by chip_smoke.py (its MSM combination passes span 13k lanes, too slow
@@ -112,7 +113,7 @@ def toy():
 
 def test_setup_matches_jax(toy):
     cs, pk, vk, _w = toy
-    tpk, tvk = tg.setup(cs, FrRandom(5))
+    tpk, tvk = tg.setup(cs, FrRandom(5), device="host")
     assert M.ser_groth16_pk(tpk) == M.ser_groth16_pk(pk)
     assert M.ser_groth16_vk(tvk) == M.ser_groth16_vk(vk)
 
@@ -133,7 +134,7 @@ def test_abc_h_matches_jax(toy):
 def test_prove_byte_identical_to_jax(toy):
     _cs, pk, vk, w = toy
     jproofs = jg.prove(pk, w, FrRandom(9))
-    tproofs = tg.prove(convert.proving_key_from_jax(pk), w, FrRandom(9), window_bits=4)
+    tproofs = tg.prove(convert.proving_key_from_jax(pk), w, FrRandom(9), "cpu", window_bits=4)
     assert [M.ser_proof(p) for p in tproofs] == [M.ser_proof(p) for p in jproofs]
     tvk = convert.verification_key_from_jax(vk)
     for i, p in enumerate(tproofs):
@@ -145,7 +146,7 @@ def test_prove_byte_identical_to_jax(toy):
 def test_vote_context_matches_jax(election):
     e = election
     args = (2, 64, e["tree"], e["rt"], e["eid"], e["pk_eid"], e["pk_crs"], e["vk_crs"])
-    ctx = tphases.prepare_vote_context(*args)
+    ctx = tphases.prepare_vote_context(*args, device="cpu")
     jctx = jphases.prepare_vote_context(*args)
     assert ctx.eid == jctx.eid and ctx.eid_field == jctx.eid_field
     assert all(np.array_equal(a, b) for a, b in zip(ctx.levels, jctx.levels))
@@ -163,25 +164,47 @@ def test_vote_context_matches_jax(election):
     assert tphases.verify_ballot(b[0], b[1], b[2], e["vk_eid"], e["vk_crs"])
 
 
-_IMPORT_CHECK = """
+_BLOCKER = """
 import importlib, importlib.abc, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "vote_saver_tpu")
 class NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, NoJax())
+"""
+
+_IMPORT_CHECK = _BLOCKER + """
 import vote_saver_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import vote_saver_tpu_torch.convert
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print(len(names))
+"""
+
+_SMOKE_IMPORT_CHECK = _BLOCKER + """
+import chip_smoke
+assert callable(chip_smoke.main)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("ok")
 """
 
 
 def test_port_imports_without_jax():
+    """Every module of the port imports with jax, jaxlib and the JAX
+    package (the top-level name ``vote_saver_tpu``) blocked."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 30
+
+
+def test_chip_smoke_imports_without_jax():
+    """chip_smoke.py imports as a module (``main`` not run) with the same
+    names blocked."""
+    out = subprocess.run([sys.executable, "-c", _SMOKE_IMPORT_CHECK], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"

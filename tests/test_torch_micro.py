@@ -1,0 +1,159 @@
+"""The multiply probes K7-K10 (``vote_saver_tpu_torch.micro``) on the CPU,
+and the port's entry points defaulting to the card.
+
+Each probe's plain version runs at a few lanes against the host oracle: the
+chain probes end at x * (y R^-1)^depth on every checked lane, in each
+multiplier mode; every K9 kind, its 8-chain forms included, equals its
+Python-integer (or correctly rounded float32) oracle bit for bit, on the
+JAX probe's constant inputs and on K9's per-lane parity inputs, which give
+the lanes different results; K1 agrees across the modes.  The
+kernels themselves are held to these plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+
+Without a card, a call that names no device must raise, not run on the
+CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vote_saver_tpu_torch import micro
+from vote_saver_tpu_torch.circuit import witness_dev
+from vote_saver_tpu_torch.ops import hopper_field as hf
+from vote_saver_tpu_torch.ops import limbs as lb
+from vote_saver_tpu_torch.protocol import groth16, phases
+from vote_saver_tpu_torch.testing import torch_threads
+from vote_saver_tpu_torch.utils.rng import FrRandom
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
+
+@pytest.mark.parametrize("probe", list(micro.CHAIN_PROBES))
+def test_chain_probe_plain_matches_host_oracle(probe):
+    r = micro.chain_probe(probe, "cpu", parity_lanes=5, reps=2)
+    _idx, mode, chains, unroll = micro.CHAIN_PROBES[probe]
+    assert r["parity"] and r["parity_depth"] == 2 * unroll and r["mode"] == mode
+    assert "ms" not in r  # no rate from a CPU run
+    # the sum output: chains 1.. start at the next lanes
+    _xs, _ys, a, b = micro._parity_inputs(5, "cpu")
+    out0, out1 = micro.run_chain(probe, a, b)
+    assert torch.equal(out0, micro.mul_chain_plain(mode, 1, unroll, a, b)[0])
+    if chains > 1:
+        fq = hf.HALF["fq"]
+        want = None
+        for k in range(1, chains):
+            c = micro.mul_chain_plain(mode, 1, unroll, torch.roll(a, -k, dims=0), b)[0]
+            want = hf._half(c) if want is None else fq.add(want, hf._half(c))
+        assert torch.equal(out1, hf._pack(want))
+    else:
+        assert out1 is None
+
+
+@pytest.mark.parametrize("kind", list(micro.OP_KINDS))
+def test_op_plain_matches_host_oracle(kind):
+    flt = kind.startswith("f32")
+    x0, y0 = (0x3F800000, 0x40400000) if flt else (1, 3)
+    rnd = np.random.default_rng(7)
+    xs = [x0] + ([0x3F000000, 0x3FC00000] if flt else [int(v) for v in rnd.integers(0, 1 << 32, 2)])
+    ys = [y0] + ([0x3F800000, 0x40000000] if flt else [int(v) for v in rnd.integers(0, 1 << 32, 2)])
+    x = torch.tensor(np.array(xs, np.uint32).view(np.int32))
+    y = torch.tensor(np.array(ys, np.uint32).view(np.int32))
+    got = micro.run_op(kind, x, y).numpy().view(np.uint32).tolist()
+    assert got == [micro.op_oracle(kind, a, b) for a, b in zip(xs, ys)]
+    r = micro.op_throughput("cpu", lanes=3, kinds=(kind,))[kind]
+    assert r["parity"] and "giter_s" not in r
+
+
+@pytest.mark.parametrize("kind", list(micro.OP_KINDS))
+def test_op_parity_inputs_differ_by_lane(kind):
+    xs, ys = micro.op_inputs(kind, 12)
+    assert len(set(zip(xs.tolist(), ys.tolist()))) == 12
+    x, y = (torch.from_numpy(v.view(np.int32)) for v in (xs, ys))
+    got = micro.op_plain(kind, x, y).numpy().view(np.uint32).tolist()
+    if kind in ("u32_mul", "u32_mulmask"):
+        # x * y (y + 1) ... (y + 511) is divisible by 2^32 whatever x and y:
+        # the JAX probe's result is 0 in every lane; the _x8 forms, whose
+        # chains step their constants by 8, run the same indexing and keep
+        # their lanes apart
+        assert set(got) == {0}
+    else:
+        assert len(set(got)) > 1, "a kernel that read one lane for all would pass"
+    assert got[:3] == [micro.op_oracle(kind, int(a), int(b)) for a, b in zip(xs[:3], ys[:3])]
+
+
+@pytest.mark.parametrize("wide_giter_s, want", [(5000.0, "guide"), (9000.0, "k9")])
+def test_card_int_rates_take_the_larger(monkeypatch, wide_giter_s, want):
+    """A bound divides by the faster of the documented and the measured
+    rate, so that no kernel's bound is larger than the card allows."""
+
+    class _Smi:
+        stdout = "1980\n"
+
+    class _Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(micro.subprocess, "run", lambda *a, **k: _Smi())
+    monkeypatch.setattr(micro.torch.cuda, "get_device_properties", lambda i: _Props())
+    k9 = {k: dict(giter_s=1.0, gop_s=1.0) for k in micro.OP_KINDS}
+    k9["u32_mul_wide_x8"]["giter_s"] = wide_giter_s
+    rt = micro.card_int_rates(k9)
+    mul32 = 64 * 132 * 1980e6  # 64 32-bit multiply results per clock per SM
+    assert rt["guide_mul_wide"] == mul32 / 2 and rt["mul32"] == mul32 and rt["issue"] == 2 * mul32
+    assert rt["mul_wide"] == (mul32 / 2 if want == "guide" else wide_giter_s * 1e9)
+
+
+def test_plain_fma_rounds_once():
+    """x * y + 1 = 1 + 2^-24 + 2^-60: rounded to float64 first it lands on
+    the float32 midpoint 1 + 2^-24 and then rounds to even (1.0); fmaf
+    rounds once, up to 1 + 2^-23."""
+    x = torch.tensor([2.0**-24 * (1 + 2.0**-12)], dtype=torch.float32)
+    y = torch.tensor([1 - 4095 * 2.0**-24], dtype=torch.float32)
+    assert (x.double() * y.double() + 1).float().item() == 1.0
+    assert micro._fma_f32(x, y, 1).item() == 1 + 2.0**-23
+    frac = __import__("fractions").Fraction
+    assert micro._f32_round(frac(x.item()) * frac(y.item()) + 1) == 1 + 2.0**-23
+
+
+def test_op_oracle_rounds_float32_correctly():
+    third = micro._f32_round(__import__("fractions").Fraction(1, 3))
+    assert third == float(np.float32(1 / 3))
+    assert micro._f32_round(__import__("fractions").Fraction(2) ** 130) == float("inf")
+    # u32_mul_wide is lo * (y + k) + hi on the full 64-bit value
+    assert micro.op_oracle("u32_mul_wide", 1, 3) != micro.op_oracle("u32_mul", 1, 3)
+
+
+def test_mont_mul_modes_probe_on_cpu():
+    r = micro.mont_mul_modes("cpu", lanes=6)
+    assert set(r) == {f"{n}_{m}" for n in ("fq", "fr") for m in hf.MODES}
+    assert all(v["parity"] and v["max_abs_err"] == 0 and "ms" not in v for v in r.values())
+
+
+def _default_calls():
+    cs_stub = object()
+    return {
+        "prepare_vote_context": lambda: phases.prepare_vote_context(2, 64, b"", b"", b"", b"", b"", b""),
+        "init_admin_phase_generate_keys": lambda: phases.init_admin_phase_generate_keys(2, 64, FrRandom(1)),
+        "groth16.setup": lambda: groth16.setup(cs_stub, FrRandom(1)),
+        "groth16.prove": lambda: groth16.prove(None, np.zeros((1, 2), dtype=object), FrRandom(1)),
+        "generate_witness_device": lambda: witness_dev.generate_witness_device(None, [0], [0], [[0]], [0], [[0]]),
+        "micro.field_mul": lambda: micro.field_mul("loop"),
+        "micro.cios_loop": lambda: micro.cios_loop(),
+        "micro.mul_chain": lambda: micro.mul_chain(),
+        "micro.op_throughput": lambda: micro.op_throughput(),
+        "micro.mont_mul_modes": lambda: micro.mont_mul_modes(),
+    }
+
+
+@pytest.mark.parametrize("entry", list(_default_calls()))
+def test_entry_points_default_to_the_card(entry):
+    """Without a card, the default device raises before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _default_calls()[entry]()
+    assert lb.device_of("cpu") == torch.device("cpu")

@@ -100,7 +100,7 @@ def test_g2_fixed_base_table_products():
 
 def test_device_setup_matches_host_arm(monkeypatch):
     cs, _witness = _toy_circuit()
-    pk, vk = tg.setup(cs, FrRandom(54))
+    pk, vk = tg.setup(cs, FrRandom(54), device="host")
     # 64-scalar chunks: the toy CRS spans several chunks and a zero-padded
     # last one, at a width the plain versions run quickly on the CPU
     monkeypatch.setattr(tg, "_FB_CHUNK", 64)

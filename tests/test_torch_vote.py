@@ -42,7 +42,7 @@ def test_default_vote_arm_matches_golden(monkeypatch):
     golden = json.loads((ROOT / "tests" / "golden" / "torch_slice_d2.json").read_text())
     e = pickle.loads((ROOT / golden["source"]).read_bytes())
     ctx = phases.prepare_vote_context(golden["tree_depth"], golden["eid_bits"], e["tree"], e["rt"], e["eid"],
-                                      e["pk_eid"], e["pk_crs"], e["vk_crs"])
+                                      e["pk_eid"], e["pk_crs"], e["vk_crs"], device="cpu")
     monkeypatch.setattr(groth16, "prove_msms", _host_msms)
     timer = groth16.StageTimer("cpu")
     with torch_threads(4):

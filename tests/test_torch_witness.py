@@ -120,7 +120,7 @@ def test_device_witness_matches_host(depth2):
     votes, vidx = np.array([5, 5, 17]), np.array([0, 1, 2])
     sib = np.stack([merkle.copath(levels, i) for i in vidx]).astype(object)
     host = circ.generate_witness(votes, np.array(eid, dtype=object), np.array(sks, dtype=object), vidx, sib)
-    w = wd.generate_witness_device(circ, votes, eid, sks, vidx, sib)
+    w = wd.generate_witness_device(circ, votes, eid, sks, vidx, sib, "cpu")
     assert w.shape == (3, circ.cs.num_vars, 8) and w.dtype == torch.int32
     got = wd.witness_to_host_ints(w)
     mism = np.nonzero(got != host.values)

@@ -3,16 +3,22 @@
 The JAX package ``vote_saver_tpu`` is the reference this package is held
 against; module names mirror it so each counterpart is easy to find:
 
-  ops/        — limb field math, curve ops, NTT, scheduled MSM; the four
+  ops/        — limb field math, curve ops, NTT, scheduled MSM; the
                 hand-written CUDA kernels live in ``csrc/`` and are bound in
                 ``ops/hopper_field.py`` (plain PyTorch twins beside them)
-  protocol/   — Groth16 (device prover from a host witness), SAVER host
-                arm, key parsing, the vote-phase functions
+  circuit/    — R1CS, the voting circuit, the device witness
+  protocol/   — Groth16, SAVER, key parsing, the vote-phase functions
+  refimpl/, params.py, utils/rng.py, native_bridge.py
+              — the host oracle, constants, seeded randomness and the native
+                host library's bridge
+  micro.py    — the multiply probes K7-K10 (``python -m vote_saver_tpu_torch.micro``)
   convert.py  — carries arrays and keys across from the JAX package
 
-This package imports ``torch`` and never ``jax``; from the JAX package it
-imports only modules that are themselves jax-free (params, config,
-refimpl, circuit, marshal's byte helpers, native_bridge, utils.rng).
+This package imports ``torch`` and nothing of ``jax`` or of the JAX
+package: what it needs from the JAX package's jax-free modules it keeps as
+its own copies at the same relative paths.  The tests are where the two
+meet.  Entry points run on the card (``device="cuda"``) unless the caller
+names another device.
 """
 
 __version__ = "0.1.0"

@@ -1,3 +1,3 @@
-"""Circuit layer of the port: the device witness generator.  The R1CS and
-the voting circuit itself are the JAX package's jax-free
-``vote_saver_tpu.circuit`` modules."""
+"""Circuit layer of the port: the R1CS builder, the voting circuit and its
+gadgets (copies of ``vote_saver_tpu/circuit/{r1cs,gadgets,voting}.py``), and
+the device witness generator."""

@@ -30,8 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vote_saver_tpu.params import CHUNK_SIZE, DIGEST_BITS, MSG_SIZE, SECRET_KEY_BITS
-
+from ..params import CHUNK_SIZE, DIGEST_BITS, MSG_SIZE, SECRET_KEY_BITS
 from ..ops import limbs as lb
 from ..ops.curve_ops import jj_ops
 from ..ops.field_ops import FieldOps, fr_ops
@@ -350,9 +349,10 @@ def _wgen(prog: _Program, vote_idx, eid_bits, sk_bits, addr_bits, sib_bits) -> t
 
 
 def generate_witness_device(circ, vote_idx, eid_bits_le, sk_bits, voter_idx, sib_bits,
-                            device="cpu") -> torch.Tensor:
+                            device="cuda") -> torch.Tensor:
     """Batched device witness; same inputs as VotingCircuit.generate_witness.
     Returns the (B, num_vars, L) Montgomery limb tensor on `device`."""
+    device = lb.device_of(device)
     prog = witness_program(circ)
     vote = np.asarray(vote_idx, np.int64).reshape(-1)
     B = vote.shape[0]

@@ -3,7 +3,8 @@
 // Replaces: the in-kernel emitters of vote_saver_tpu/ops/pallas_field.py —
 // FqEmitLoop.mul (loop-CIOS Montgomery multiply, l.245-271), the FqEmit
 // helpers _ripple/_csub_n/add/sub/is_zero/select/one_like (l.83-184) and the
-// Fq2 Karatsuba of Fq2Emit (l.301-339).
+// Fq2 add/sub/select of Fq2Emit (l.301-339; its Karatsuba multiply is in
+// mul_modes.cuh, over the multiplier mode).
 //
 // Layout: an element is L little-endian uint32 limbs in Montgomery form,
 // R = 2^(32L): Fq L = 12 (R = 2^384), Fr L = 8 (R = 2^256) — the same values
@@ -85,7 +86,9 @@ __device__ __forceinline__ Fp<P> csub(const uint32_t* t, uint32_t top) {
   return r;
 }
 
-// CIOS Montgomery product a * b * R^-1 mod N for canonical a, b.
+// CIOS Montgomery product a * b * R^-1 mod N for canonical a, b: the body
+// of the `loop` multiplier mode (MulLoop in mul_modes.cuh), every kernel's
+// default.
 template <class P>
 __device__ __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
   constexpr int L = P::L;
@@ -203,26 +206,9 @@ __device__ __forceinline__ Fq one_of<Fq>() {
 }
 
 // ---------------------------------------------------------------------------
-// Fq2 = Fq[u]/(u^2 + 1), exactly as Fq2Emit: Karatsuba mul (3 Fq muls),
-// square as (a0 + a1)(a0 - a1), 2 a0 a1 (2 Fq muls).  The Fq multiply is a
-// real call here (one copy per kernel): inlining all ~100 of a G2 complete
-// add's multiplies made a 68 s ptxas compile and 1.7 KB of spills.
+// Fq2 = Fq[u]/(u^2 + 1): add, sub, tests and selects here; its multiply and
+// square take the multiplier mode (fmul<M> / fsq<M> in mul_modes.cuh).
 // ---------------------------------------------------------------------------
-
-__device__ __noinline__ Fq fq_mul_call(const Fq a, const Fq b) { return mul(a, b); }
-
-__device__ __forceinline__ Fq2 mul(const Fq2& a, const Fq2& b) {
-  const Fq t0 = fq_mul_call(a.c0, b.c0);
-  const Fq t1 = fq_mul_call(a.c1, b.c1);
-  const Fq t2 = fq_mul_call(add(a.c0, a.c1), add(b.c0, b.c1));
-  return {sub(t0, t1), sub(t2, add(t0, t1))};
-}
-
-__device__ __forceinline__ Fq2 sq(const Fq2& a) {
-  const Fq t0 = fq_mul_call(add(a.c0, a.c1), sub(a.c0, a.c1));
-  const Fq t1 = fq_mul_call(a.c0, a.c1);
-  return {t0, add(t1, t1)};
-}
 
 __device__ __forceinline__ Fq2 add(const Fq2& a, const Fq2& b) {
   return {add(a.c0, b.c0), add(a.c1, b.c1)};

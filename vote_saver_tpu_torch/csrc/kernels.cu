@@ -9,7 +9,10 @@
 // uint32_t*, with every limb in registers.  The Pallas kernels tile the
 // batch into (S, T) vregs and transpose to (L, S, T) around every call; here
 // the tensors keep the framework layout, so nothing is repacked per call.
-// Bound and design notes: field.cuh (arithmetic) and curve.cuh (formulas).
+// Bound and design notes: field.cuh (arithmetic), mul_modes.cuh (the
+// multiplier modes) and curve.cuh (formulas).  Every kernel takes the
+// multiplier mode as a template parameter; here each is instantiated in the
+// default `loop` mode only (K1's v1 and fold instances: mont_mul_modes.cu).
 // Register use and spills per kernel are printed by `nvcc --resource-usage`
 // at build time (ops/_build.py keeps the report beside the library).
 //
@@ -30,7 +33,7 @@ __host__ __forceinline__ unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-template <class P>
+template <class P, class M = MulLoop>
 __global__ void __launch_bounds__(kThreads)
     k_mont_mul(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                uint32_t* __restrict__ out, long long n) {
@@ -39,11 +42,11 @@ __global__ void __launch_bounds__(kThreads)
   Fp<P> x, y;
   load(x, a, i);
   load(y, b, i);
-  store(out, i, mul(x, y));
+  store(out, i, M::mul(x, y));
 }
 
 // In-place safe: every lane reads all of its inputs before it writes.
-template <class E>
+template <class E, class M = MulLoop>
 __global__ void __launch_bounds__(kThreads)
     k_madd(const uint32_t* ax, const uint32_t* ay, const uint32_t* az,
            const uint32_t* qx, const uint32_t* qy, const uint8_t* sign,
@@ -58,14 +61,14 @@ __global__ void __launch_bounds__(kThreads)
   load(acc.z, az, i);
   load(x2, qx, i);
   load(y2, qy, i);
-  const uint32_t e = jac_madd(acc, x2, y2, sign[i] != 0, active[i] != 0);
+  const uint32_t e = jac_madd<E, M>(acc, x2, y2, sign[i] != 0, active[i] != 0);
   store(ox, i, acc.x);
   store(oy, i, acc.y);
   store(oz, i, acc.z);
   exc[i] = (int32_t)e;
 }
 
-template <class E>
+template <class E, class M = MulLoop>
 __global__ void __launch_bounds__(kThreads)
     k_add(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
           const uint32_t* qx, const uint32_t* qy, const uint32_t* qz,
@@ -79,13 +82,13 @@ __global__ void __launch_bounds__(kThreads)
   load(q.x, qx, i);
   load(q.y, qy, i);
   load(q.z, qz, i);
-  const Jac<E> r = jac_add(p, q);
+  const Jac<E> r = jac_add<E, M>(p, q);
   store(ox, i, r.x);
   store(oy, i, r.y);
   store(oz, i, r.z);
 }
 
-template <class E>
+template <class E, class M = MulLoop>
 __global__ void __launch_bounds__(kThreads)
     k_double(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
              uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n) {
@@ -95,7 +98,7 @@ __global__ void __launch_bounds__(kThreads)
   load(p.x, px, i);
   load(p.y, py, i);
   load(p.z, pz, i);
-  const Jac<E> r = jac_double(p);
+  const Jac<E> r = jac_double<E, M>(p);
   store(ox, i, r.x);
   store(oy, i, r.y);
   store(oz, i, r.z);

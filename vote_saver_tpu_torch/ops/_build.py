@@ -24,7 +24,7 @@ import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_build"
-HEADERS = ("field.cuh", "curve.cuh")
+HEADERS = ("field.cuh", "mul_modes.cuh", "curve.cuh")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
@@ -40,6 +40,16 @@ UNITS = {
     },
     "add_distinct.cu": {
         "vs_add_distinct": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
+        "vs_addx": [ctypes.c_int] + [_VP] * 10 + [_LL, _VP],
+    },
+    "mont_mul_modes.cu": {
+        "vs_mont_mul_mode": [ctypes.c_int, ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
+        "vs_mont_mul_fold_upload": [ctypes.c_int, _VP, _LL],
+    },
+    "micro.cu": {
+        "vs_mul_chain": [ctypes.c_int, _VP, _VP, _VP, _VP, _LL, _VP],
+        "vs_op": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
+        "vs_micro_fold_upload": [ctypes.c_int, _VP, _LL],
     },
 }
 
@@ -112,6 +122,22 @@ def build() -> tuple[list[pathlib.Path], float]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return outs, (time.time() - t0) if procs else 0.0
+
+
+def compile_seconds(unit: str, defines: tuple[str, ...] = ()) -> tuple[float, str]:
+    """Build `unit` once more with extra -D defines into a scratch library
+    and delete it: (nvcc wall seconds, its resource-usage report).  The K8
+    probe times one multiplier variant's build this way."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"variant_{pathlib.Path(unit).stem}_{os.getpid()}.so"
+    cmd = [nvcc(), *FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(CSRC / unit)]
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.time() - t0
+    tmp.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {unit} {defines}:\n{proc.stdout}\n{proc.stderr}")
+    return secs, proc.stdout + proc.stderr
 
 
 @functools.cache

@@ -17,9 +17,8 @@ import functools
 import numpy as np
 import torch
 
-from vote_saver_tpu.params import JUBJUB_D, Q, R
-from vote_saver_tpu.refimpl import field as rf
-
+from ..params import JUBJUB_D, Q, R
+from ..refimpl import field as rf
 from . import hopper_field as hf
 from . import limbs as lb
 from .field_ops import fq_ops, fr_ops

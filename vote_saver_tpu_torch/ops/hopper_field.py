@@ -3,17 +3,24 @@
 Counterpart of ``vote_saver_tpu/ops/pallas_field.py``.  Each public function
 keeps the signature and layout of its Pallas entry point:
 
-  K1 ``mont_mul(name, a, b)``                       <- mont_mul_pallas
+  K1 ``mont_mul(name, a, b, mode="loop")``         <- mont_mul_pallas
   K2 ``g1_madd``/``g2_madd(acc, q_affine, sign, active) -> (acc', exc)``
                                                     <- g1/g2_madd_pallas
   K3 ``g1_add``/``g2_add(p, q)`` (complete)         <- g1/g2_add_pallas
   K3d ``g1_add_distinct``/``g2_add_distinct(p, q)`` <- g1/g2_add_pallas(complete=False)
   K4 ``g1_double``/``g2_double(p)``                 <- g1/g2_double_pallas
+  K5/K6 ``g1_addx``/``g2_addx(p, q) -> (coords, exc)`` <- g1/g2_addx_pallas
+
+K1's multiplier mode is an argument (the JAX package reads ``VSTPU_MUL``):
+``loop`` (CIOS, every kernel's default), ``v1`` (separated operand
+scanning) or ``fold`` (digit columns and a constant-matrix fold,
+``ops/fold_mul.py``); all three give the same canonical limbs.  The curve
+kernels run in ``loop``.
 
 Coordinates are int32 tensors ``(..., L)`` (G1, Fq/Fr) or ``(..., 2, L)``
 (G2) of 32-bit Montgomery limbs.  On a CUDA tensor a wrapper launches its
-kernel from ``csrc/kernels.cu`` (or raises); on a CPU tensor it runs the
-plain PyTorch version beside it.  The plain versions compute on int64
+kernel from ``csrc/`` (``SOURCES`` names the file) or raises; on a CPU
+tensor it runs the plain PyTorch version beside it.  The plain versions compute on int64
 tensors of 16-bit half-limbs (CPU torch has no uint32/uint64 add, sub or
 shift) with vectorised carry resolution, and follow the Pallas formulas'
 select order exactly, so kernel and plain version agree limb for limb —
@@ -21,7 +28,8 @@ canonical infinity (1, 1, 0) and the madd ``exc`` flag included.
 
 ``launches`` counts kernel launches per kernel instance; only the CUDA
 branch of a wrapper increments it.  ``SOURCES`` names the ``csrc/``
-translation unit each kernel is built from.
+translation unit each kernel is built from, ``REPLACES`` the pallas_call
+it replaces.
 """
 
 from __future__ import annotations
@@ -29,12 +37,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import fold_mul
 from .limbs import FQ, FR, spec_for
 
+MODES = ("loop", "v1", "fold")
 KERNELS = (
     "mont_mul_fq", "mont_mul_fr", "g1_madd", "g2_madd",
     "g1_add", "g2_add", "g1_double", "g2_double",
     "g1_add_distinct", "g2_add_distinct",
+    "mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold",
+    "g1_addx", "g2_addx",
 )
 # file:line of the pallas_call each instance replaces
 REPLACES = {
@@ -48,11 +60,19 @@ REPLACES = {
     "g2_double": "vote_saver_tpu/ops/pallas_field.py:597",
     "g1_add_distinct": "vote_saver_tpu/ops/pallas_field.py:517",
     "g2_add_distinct": "vote_saver_tpu/ops/pallas_field.py:570",
+    "mont_mul_fq_v1": "vote_saver_tpu/ops/pallas_field.py:786",
+    "mont_mul_fr_v1": "vote_saver_tpu/ops/pallas_field.py:786",
+    "mont_mul_fq_fold": "vote_saver_tpu/ops/pallas_field.py:786",
+    "mont_mul_fr_fold": "vote_saver_tpu/ops/pallas_field.py:786",
+    "g1_addx": "vote_saver_tpu/ops/pallas_field.py:626",
+    "g2_addx": "vote_saver_tpu/ops/pallas_field.py:656",
 }
 # the csrc/ translation unit each kernel is built from
 SOURCES = dict.fromkeys(KERNELS, "vote_saver_tpu_torch/csrc/kernels.cu")
-SOURCES.update(dict.fromkeys(("g1_add_distinct", "g2_add_distinct"),
+SOURCES.update(dict.fromkeys(("g1_add_distinct", "g2_add_distinct", "g1_addx", "g2_addx"),
                              "vote_saver_tpu_torch/csrc/add_distinct.cu"))
+SOURCES.update(dict.fromkeys(("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold"),
+                             "vote_saver_tpu_torch/csrc/mont_mul_modes.cu"))
 launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -267,10 +287,8 @@ def jac_double(f, p):
     return (x3, y3, z3)
 
 
-def jac_add(f, p, q, complete: bool = True):
-    """Jacobian add, as ``_jac_add(..., complete)``: complete=False keeps
-    only the two infinity selects (h = 0 then gives the formula's own
-    (x3, y3, 0), not canonical infinity)."""
+def _jac_add_generic(f, p, q):
+    """The generic add's (x3, y3, z3) on every lane, with h and r."""
     x1, y1, z1 = p
     x2, y2, z2 = q
     z1z1 = f.sq(z1)
@@ -289,9 +307,17 @@ def jac_add(f, p, q, complete: bool = True):
     s1j = f.mul(s1, j)
     y3 = f.sub(f.mul(rr, f.sub(v, x3)), f.add(s1j, s1j))
     z3 = f.mul(f.sub(f.sq(f.add(z1, z2)), f.add(z1z1, z2z2)), h)
-    out = (x3, y3, z3)
-    p_inf = f.is_zero(z1)
-    q_inf = f.is_zero(z2)
+    return (x3, y3, z3), h, rr
+
+
+def jac_add(f, p, q, complete: bool = True):
+    """Jacobian add, as ``_jac_add(..., complete)``: complete=False keeps
+    only the two infinity selects (h = 0 then gives the formula's own
+    (x3, y3, 0), not canonical infinity)."""
+    out, h, rr = _jac_add_generic(f, p, q)
+    x1 = p[0]
+    p_inf = f.is_zero(p[2])
+    q_inf = f.is_zero(q[2])
     if complete:
         h_zero = f.is_zero(h)
         r_zero = f.is_zero(rr)
@@ -305,6 +331,18 @@ def jac_add(f, p, q, complete: bool = True):
     out = tuple(f.select(p_inf, qq, o) for qq, o in zip(q, out))
     out = tuple(f.select(q_inf & ~p_inf, pp, o) for pp, o in zip(p, out))
     return out
+
+
+def jac_addx(f, p, q):
+    """``_jac_addx``: the distinct add's selects plus the doubling-corner
+    flag exc = (h = 0, r = 0, both finite)."""
+    out, h, rr = _jac_add_generic(f, p, q)
+    p_inf = f.is_zero(p[2])
+    q_inf = f.is_zero(q[2])
+    exc = f.is_zero(h) & f.is_zero(rr) & ~p_inf & ~q_inf
+    out = tuple(f.select(p_inf, qq, o) for qq, o in zip(q, out))
+    out = tuple(f.select(q_inf & ~p_inf, pp, o) for pp, o in zip(p, out))
+    return out, exc
 
 
 def jac_madd(f, acc, q, sign, active):
@@ -353,7 +391,13 @@ def _field(g2: bool):
     return HALF_FQ2 if g2 else HALF["fq"]
 
 
-def mont_mul_plain(name: str, a, b):
+def mont_mul_plain(name: str, a, b, mode: str = "loop"):
+    """loop and v1 compute the same function: one separated product and
+    REDC on 16-bit half-limbs; fold runs the fold pipeline."""
+    if mode == "fold":
+        return fold_mul.mul_fold_plain(spec_for(name), a, b)
+    if mode not in MODES:
+        raise ValueError(f"unknown multiplier mode {mode!r}")
     return _pack(HALF[name].mul(_half(a), _half(b)))
 
 
@@ -380,6 +424,12 @@ def add_plain(g2: bool, p, q):
 def add_distinct_plain(g2: bool, p, q):
     return tuple(_pack(c) for c in jac_add(_field(g2), tuple(map(_half, p)), tuple(map(_half, q)),
                                            complete=False))
+
+
+def addx_plain(g2: bool, p, q):
+    """-> (coords, (n,) int32 exc)."""
+    out, exc = jac_addx(_field(g2), tuple(map(_half, p)), tuple(map(_half, q)))
+    return tuple(_pack(c) for c in out), exc.to(torch.int32)
 
 
 def double_plain(g2: bool, p):
@@ -436,18 +486,46 @@ def _flat(coords, tail_dims: int):
     return flat, shape, n
 
 
-def mont_mul(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K1: Montgomery a*b*R^-1 mod p on (..., L) limbs ('fq' or 'fr')."""
+# (upload function, field, device index) whose fold matrix is in place
+_fold_uploaded: set = set()
+
+
+def upload_fold_matrix(upload, field: int, device) -> None:
+    """Copy field's packed fold matrix into the __constant__ memory of the
+    library whose upload function is `upload`, once per device."""
+    key = (upload.__name__, field, device.index)
+    if key in _fold_uploaded:
+        return
+    words = fold_mul.packed_matrix(FQ if field == 0 else FR)
+    with torch.cuda.device(device):
+        _raise_on(upload(field, words.ctypes.data, words.size), "fold matrix upload")
+    _fold_uploaded.add(key)
+
+
+def mont_mul(name: str, a: torch.Tensor, b: torch.Tensor, mode: str = "loop") -> torch.Tensor:
+    """K1: Montgomery a*b*R^-1 mod p on (..., L) limbs ('fq' or 'fr'), with
+    the multiplier `mode` ('loop', 'v1' or 'fold')."""
+    if mode not in MODES:
+        raise ValueError(f"unknown multiplier mode {mode!r}")
     if not _on_cuda(a):
-        return mont_mul_plain(name, a, b)
+        return mont_mul_plain(name, a, b, mode)
     L = spec_for(name).num_limbs
     (a, b), shape, n = _flat((a, b), 1)
     _check((a, b), (L,), n, a.device)
     out = torch.empty_like(a)
+    field = 0 if name == "fq" else 1
+    kname = f"mont_mul_{name}" + ("" if mode == "loop" else f"_{mode}")
     if n:
-        _raise_on(_lib().vs_mont_mul(0 if name == "fq" else 1, a.data_ptr(), b.data_ptr(),
-                                     out.data_ptr(), n, _stream(a.device)), f"mont_mul_{name}")
-        launches[f"mont_mul_{name}"] += 1
+        lib = _lib()
+        if mode == "loop":
+            rc = lib.vs_mont_mul(field, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _stream(a.device))
+        else:
+            if mode == "fold":
+                upload_fold_matrix(lib.vs_mont_mul_fold_upload, field, a.device)
+            rc = lib.vs_mont_mul_mode(field, MODES.index(mode), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                      n, _stream(a.device))
+        _raise_on(rc, kname)
+        launches[kname] += 1
     return out.reshape(shape)
 
 
@@ -520,6 +598,34 @@ def g1_add_distinct(p, q):
 def g2_add_distinct(p, q):
     """K3d over Fq2; coords (..., 2, L)."""
     return _add(True, p, q, complete=False)
+
+
+def _addx(g2: bool, p, q):
+    if not _on_cuda(p[0]):
+        return addx_plain(g2, p, q)
+    tail = (2, _L) if g2 else (_L,)
+    coords, shape, n = _flat((*p, *q), len(tail))
+    _check(coords, tail, n, coords[0].device)
+    out = tuple(torch.empty_like(coords[0]) for _ in range(3))
+    exc = torch.empty((n,), dtype=torch.int32, device=coords[0].device)
+    name = "g2_addx" if g2 else "g1_addx"
+    if n:
+        ptrs = [c.data_ptr() for c in (*coords, *out, exc)]
+        _raise_on(_lib().vs_addx(int(g2), *ptrs, n, _stream(coords[0].device)), name)
+        launches[name] += 1
+    lead = shape[: len(shape) - len(tail)]
+    return tuple(o.reshape(shape) for o in out), exc.reshape(lead)
+
+
+def g1_addx(p, q):
+    """K5: distinct add with the doubling-corner flag; coords (..., L),
+    broadcast-compatible -> (coords, (...) int32 exc)."""
+    return _addx(False, p, q)
+
+
+def g2_addx(p, q):
+    """K6: K5 over Fq2; coords (..., 2, L)."""
+    return _addx(True, p, q)
 
 
 def _double(g2: bool, p):

@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from vote_saver_tpu.params import FieldSpec, Q, R
+from ..params import FieldSpec, Q, R
 
 FQ = FieldSpec("fq", Q, 32, 12)
 FR = FieldSpec("fr", R, 32, 8)
@@ -23,6 +23,16 @@ FR = FieldSpec("fr", R, 32, 8)
 
 def spec_for(name: str) -> FieldSpec:
     return FQ if name == "fq" else FR
+
+
+def device_of(device) -> torch.device:
+    """The device an entry point runs on.  The entry points default to
+    "cuda"; where there is no card that default raises here instead of
+    running on the CPU, which only a caller that names it gets."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the plain PyTorch versions")
+    return dev
 
 
 def ints_to_limbs(xs, spec: FieldSpec) -> np.ndarray:

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from vote_saver_tpu.params import DIGEST_BITS
-from vote_saver_tpu.refimpl import pedersen as rpd
+from ..params import DIGEST_BITS
+from ..refimpl import pedersen as rpd
 
 
 def _hash_rows(rows: np.ndarray) -> np.ndarray:

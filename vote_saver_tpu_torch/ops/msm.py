@@ -15,9 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vote_saver_tpu.params import R
-from vote_saver_tpu.refimpl import jacobian as rj
-
+from ..params import R
+from ..refimpl import jacobian as rj
 from . import curve_ops as co
 from .curve_ops import JacobianOps
 

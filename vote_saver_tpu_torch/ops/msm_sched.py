@@ -12,8 +12,11 @@ the same algebra on torch tensors:
     sign << 30; 0 = idle lane), updating the accumulator in place;
   * orphan runs: segmented-tree rounds of K3 on the live lanes only, then
     one K3 round adding each run head into its canonical bucket;
-  * combination: Hillis-Steele suffix sums over the bucket axis (K3, twice),
-    then a Horner pass over windows (w K4 doublings + one K3 add each).
+  * combination: Hillis-Steele suffix sums over the bucket axis (twice),
+    then a Horner pass over windows (w K4 doublings + one add each), over
+    the adder ``_addx`` gives: the complete add K3 (``msm_device``'s) or the
+    flagged distinct add K5/K6.  ``bucket_phase`` and ``combination_phase``
+    are the two halves, so one set of buckets can go through either adder.
 
 Lane padding is the port's own: 128 lanes (one CUDA thread block of the
 kernels), the same granularity the JAX package uses off the TPU, so the two
@@ -27,9 +30,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from vote_saver_tpu import native_bridge as nb
-
+from .. import native_bridge as nb
 from . import curve_ops as co
+from . import hopper_field as hf
 from . import limbs as lb
 
 _IDX_MASK = (1 << 30) - 1
@@ -276,8 +279,6 @@ def _ops(group: str) -> co.JacobianOps:
 
 
 def _madd(group: str):
-    from . import hopper_field as hf
-
     return hf.g1_madd if group == "g1" else hf.g2_madd
 
 
@@ -295,12 +296,48 @@ def _live_add(ops, coords, partner_pos: np.ndarray):
     return tuple(c.index_copy(0, dst, a) for c, a in zip(coords, added))
 
 
-def _suffix_and_total(ops, acc, K: int, bw: int):
-    """acc coords with leading dim K*bw -> per-window weighted sums
-    S_w = sum_b (b+1) acc[w, b], coords (K, ...).  Two passes of the masked
-    Hillis-Steele suffix round: buckets -> suffix sums -> their sum.  Equal
-    operands occur routinely (empty bucket ranges), so the add is complete."""
+def _addx(group: str, distinct: bool = False):
+    """(p, q) -> (p + q, doubling-corner flag or None) — the
+    combination-phase adder, as the JAX package's ``msm_sched._addx``.
+
+    distinct=False: the complete add K3, right for EQUAL operands, which the
+    suffix rounds meet systematically through empty bucket ranges; it never
+    flags, so its flag is None and costs no launch.  distinct=True: the
+    flagged distinct add K5/K6 (16 Fq multiplies, no doubling branch) —
+    valid only where operand collisions are measure-zero; the flag feeds
+    the caller's complete-formula fallback."""
+    if distinct:
+        return hf.g1_addx if group == "g1" else hf.g2_addx
+    ops = _ops(group)
+
+    def addc(p, q):
+        return ops.add(p, q), None
+
+    return addc
+
+
+def _or_flag(exc, flag):
+    """exc | (flag != 0).any(), where None stands for a flag that never fires."""
+    if flag is None:
+        return exc
+    hit = (flag != 0).any()
+    return hit if exc is None else exc | hit
+
+
+def _suffix_and_total(ops, addx, acc, K: int, bw: int):
+    """acc coords with leading dim K*bw -> (per-window weighted sums
+    S_w = sum_b (b+1) acc[w, b] as coords (K, ...), the OR of the adder's
+    flags as a () bool tensor, None where the adder gave none).  Two
+    passes of the masked Hillis-Steele suffix round: buckets -> suffix sums
+    -> their sum.  Out-of-range partners enter as infinity, which the adder
+    absorbs.
+
+    The adder must handle EQUAL operands: an empty bucket below a non-empty
+    one makes two adjacent suffix partials equal, so pass the complete add
+    (no flag) unless every bucket below a window's top is known to be
+    non-empty."""
     coords = tuple(c[: K * bw].reshape((K, bw) + tuple(c.shape[1:])) for c in acc)
+    exc = None
     if bw > 1:
         idx = torch.arange(bw, device=coords[0].device)
         inf = ops.infinity_like(coords[0])
@@ -311,8 +348,9 @@ def _suffix_and_total(ops, acc, K: int, bw: int):
                 rolled = tuple(
                     torch.where(valid, torch.roll(c, -shift, dims=1), i) for c, i in zip(coords, inf)
                 )
-                coords = ops.add(coords, rolled)
-    return tuple(c[:, 0] for c in coords)
+                coords, flag = addx(coords, rolled)
+                exc = _or_flag(exc, flag)
+    return tuple(c[:, 0] for c in coords), exc
 
 
 def _top_window(sched: Schedule) -> int:
@@ -325,33 +363,35 @@ def _top_window(sched: Schedule) -> int:
     return int(nz[-1]) if nz.size else -1
 
 
-def _horner(ops, window_sums, w: int, parts: int, top: int):
+def _horner(ops, addx, window_sums, w: int, parts: int, top: int):
     """result[p] = sum_j 2^(w j) S_{p, j}, MSB window first, batched over
-    parts; returns coords with leading dim (parts,).  Windows above `top`
-    are empty: their sums are the canonical infinity (1, 1, 0), which the
-    doubling and the complete add both map to itself, so starting at `top`
-    gives the same limbs as running every window."""
+    parts; returns (coords with leading dim (parts,), the OR of the adder's
+    flags, None where it gave none).  Windows above `top` are empty: their
+    sums are the canonical infinity (1, 1, 0), which the doubling and both
+    adders map to itself without a flag, so starting at `top` gives the same
+    limbs as running every window, as the JAX ``_horner`` does."""
     coords = tuple(c.reshape((parts, c.shape[0] // parts) + tuple(c.shape[1:])) for c in window_sums)
     acc = ops.infinity_like(coords[0][:, 0])
+    exc = None
     for j in range(top, -1, -1):
         for _ in range(w):
             acc = ops.double(acc)
-        acc = ops.add(acc, tuple(c[:, j] for c in coords))
-    return acc
+        acc, flag = addx(acc, tuple(c[:, j] for c in coords))
+        exc = _or_flag(exc, flag)
+    return acc, exc
 
 
-def msm_device(group: str, points_xy, sched: Schedule):
-    """Run one scheduled MSM on the points' device (the JAX package's
-    ``_msm_device`` + ``msm_scheduled_async``: launches only, the exception
-    flag stays on the device).  Returns (Jacobian coords with leading dim
-    (parts,), exceptional flag tensor () bool)."""
+def bucket_phase(group: str, points_xy, sched: Schedule):
+    """The scheduled MSM's bucket phase: the scan of schedule rows (K2, in
+    place), then the orphan runs folded into their canonical buckets (K3 on
+    the live lanes).  Returns (bucket coords with leading dim canon =
+    windows * parts * 2^(w-1), the madd doubling-corner flag tensor () bool)."""
     ops = _ops(group)
     madd = _madd(group)
     px, py = points_xy
     dev = px.device
     lanes = sched.codes.shape[1]
     canon = sched.merge_gather.shape[0]
-    bw = 1 << (sched.window_bits - 1)
     tail = tuple(px.shape[1:])
     acc = ops.infinity_like(torch.zeros((lanes,) + tail, dtype=torch.int32, device=dev))
     exc = torch.zeros((lanes,), dtype=torch.int32, device=dev)
@@ -376,9 +416,31 @@ def msm_device(group: str, points_xy, sched: Schedule):
         added = ops.add(tuple(c.index_select(0, dst) for c in can),
                         tuple(c.index_select(0, src) for c in orph))
         can = tuple(c.index_copy(0, dst, a) for c, a in zip(can, added))
-    sums = _suffix_and_total(ops, can, sched.num_windows * sched.num_parts, bw)
-    res = _horner(ops, sums, sched.window_bits, sched.num_parts, _top_window(sched))
-    return res, (exc != 0).any()
+    return can, (exc != 0).any()
+
+
+def combination_phase(group: str, buckets, sched: Schedule, addx):
+    """Buckets (``bucket_phase``'s coords) -> (Jacobian coords with leading
+    dim (parts,), the OR of `addx`'s flags as a () bool tensor, or None for
+    the complete adder, which gives none): the suffix rounds, then Horner
+    from the highest non-empty window.  `addx` is ``_addx(group)`` or
+    ``_addx(group, distinct=True)``."""
+    ops = _ops(group)
+    bw = 1 << (sched.window_bits - 1)
+    sums, exc_s = _suffix_and_total(ops, addx, buckets, sched.num_windows * sched.num_parts, bw)
+    res, exc_h = _horner(ops, addx, sums, sched.window_bits, sched.num_parts, _top_window(sched))
+    return res, _or_flag(exc_s, exc_h)
+
+
+def msm_device(group: str, points_xy, sched: Schedule):
+    """Run one scheduled MSM on the points' device (the JAX package's
+    ``_msm_device`` + ``msm_scheduled_async``: launches only, the exception
+    flag stays on the device).  The combination phase takes the complete
+    adder, as the JAX package's does.  Returns (Jacobian coords with leading
+    dim (parts,), exceptional flag tensor () bool)."""
+    buckets, exc = bucket_phase(group, points_xy, sched)
+    res, _ = combination_phase(group, buckets, sched, _addx(group))  # the complete adder gives no flag
+    return res, exc
 
 
 def msm_scheduled(group: str, points_xy, sched: Schedule, fallback=None):

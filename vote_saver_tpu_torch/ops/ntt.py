@@ -14,8 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from vote_saver_tpu.params import FR_GENERATOR, FR_ROOT_OF_UNITY, FR_TWO_ADICITY, R
-
+from ..params import FR_GENERATOR, FR_ROOT_OF_UNITY, FR_TWO_ADICITY, R
 from . import limbs as lb
 from .field_ops import fr_ops
 

@@ -25,11 +25,10 @@ from __future__ import annotations
 
 import torch
 
-from vote_saver_tpu.params import R
-from vote_saver_tpu.refimpl import curves as rc
-from vote_saver_tpu.refimpl import jacobian as rj
-from vote_saver_tpu.utils.rng import FrRandom
-
+from ..params import R
+from ..refimpl import curves as rc
+from ..refimpl import jacobian as rj
+from ..utils.rng import FrRandom
 from ..ops import curve_ops as co
 from ..ops import msm as msm_mod
 from .groth16 import Proof, ProvingKey, VerificationKey

@@ -4,8 +4,8 @@ prover, host verify.
 Counterpart of ``vote_saver_tpu/protocol/groth16.py``:
 
   * setup: QAP evaluation at tau, then the CRS by fixed-base
-    multiplication, either native on the host (``device=None``) or on the
-    device through ``FixedBaseTable`` (8-bit window gathers summed by the
+    multiplication, either native on the host (``device="host"``) or on the
+    device (the default, the card) through ``FixedBaseTable`` (8-bit window gathers summed by the
     distinct-operand add K3d, in 2048-scalar chunks).  Both arms give the
     same CRS for the same ``FrRandom``;
   * prove: witness -> A/B/C by a COO matvec on the device (K1 multiplies,
@@ -27,13 +27,12 @@ import time
 import numpy as np
 import torch
 
-from vote_saver_tpu.circuit.r1cs import ConstraintSystem
-from vote_saver_tpu.params import FR_ROOT_OF_UNITY, FR_TWO_ADICITY, R
-from vote_saver_tpu.refimpl import curves as rc
-from vote_saver_tpu.refimpl import jacobian as rj
-from vote_saver_tpu.refimpl import pairing as rp
-from vote_saver_tpu.utils.rng import FrRandom
-
+from ..circuit.r1cs import ConstraintSystem
+from ..params import FR_ROOT_OF_UNITY, FR_TWO_ADICITY, R
+from ..refimpl import curves as rc
+from ..refimpl import jacobian as rj
+from ..refimpl import pairing as rp
+from ..utils.rng import FrRandom
 from ..ops import curve_ops as co
 from ..ops import hopper_field as hf
 from ..ops import limbs as lb
@@ -174,9 +173,12 @@ def qap_evaluate(cs: ConstraintSystem, tau: int):
     return u, v, w, z_tau, domain
 
 
-def setup(cs: ConstraintSystem, rng: FrRandom, device=None) -> tuple[ProvingKey, VerificationKey]:
+def setup(cs: ConstraintSystem, rng: FrRandom, device="cuda") -> tuple[ProvingKey, VerificationKey]:
     """Groth16 keys; the CRS points come from native host fixed-base
-    multiplication when `device` is None, else from the device table."""
+    multiplication when `device` is "host", else from the device table on
+    `device`."""
+    if device != "host":
+        device = lb.device_of(device)
     nc, ni, m = cs.num_constraints, cs.num_primary, cs.num_vars
     tau, alpha, beta, gamma, delta = (rng() for _ in range(5))
     u, v, w, z_tau, domain = qap_evaluate(cs, tau)
@@ -190,7 +192,7 @@ def setup(cs: ConstraintSystem, rng: FrRandom, device=None) -> tuple[ProvingKey,
         t_pow = t_pow * tau % R
     g1_scalars = u + v + h_exp + l_exp + ic_exp + [alpha, beta, delta]
     g2_scalars = v + [beta, gamma, delta]
-    if device is None:
+    if device == "host":
         g1_points = rj.FixedBaseHost(rc.g1_gen, "g1").mul_many(g1_scalars)
         g2_points = rj.FixedBaseHost(rc.g2_gen, "g2").mul_many(g2_scalars)
     else:
@@ -384,9 +386,10 @@ def prove_msms_device(pk: ProvingKey, w_mont: torch.Tensor, window_bits: int = m
     return outs, w_std
 
 
-def prove(pk: ProvingKey, wvals: np.ndarray, rng: FrRandom, device="cpu",
+def prove(pk: ProvingKey, wvals: np.ndarray, rng: FrRandom, device="cuda",
           window_bits: int = ms.DEFAULT_WINDOW_BITS, timer: StageTimer | None = None) -> list[Proof]:
     """wvals: (B, num_vars) object ints (full assignments, column 0 == 1)."""
+    device = lb.device_of(device)
     w_mont = fr_ops().to_mont(lb.ints_to_tensor(wvals, lb.FR, device, mont=False))
     outs, _w_std = prove_msms_device(pk, w_mont, window_bits, timer)
     proofs = _blind_and_assemble(pk, *msms_from_device(outs), rng)

@@ -2,17 +2,16 @@
 
 The JAX package's deserializers import its jax-bound Groth16/SAVER modules
 for their dataclasses; the byte-level helpers they use (``de_g1``,
-``de_g2``, ``_de_g1_vec``, ``_de_g2_vec``, ``de_scalar_vector``) are
-jax-free and reused here.  The ``ser_*`` writers are duck-typed and work on
-these dataclasses as they are.  Wire formats: docs/WIRE_FORMATS.md.
+``de_g2``, ``_de_g1_vec``, ``_de_g2_vec``, ``de_scalar_vector``) come from
+the port's copy of ``marshal``.  The ``ser_*`` writers are duck-typed and
+work on these dataclasses as they are.  Wire formats: docs/WIRE_FORMATS.md.
 """
 
 from __future__ import annotations
 
 import struct
 
-from vote_saver_tpu.protocol import marshal as M
-
+from . import marshal as M
 from .groth16 import Proof, ProvingKey, VerificationKey
 from .saver import Ciphertext, SaverPublicKey, SaverSecretKey, SaverVerificationKey
 

@@ -3,7 +3,8 @@ verification.
 
 Counterpart of ``vote_saver_tpu/protocol/phases.py``.  Blob-in/blob-out as
 there; the vote phase is batched over voters.  Admin key generation runs
-Groth16 setup natively on the host, or on ``device`` (the CRS is the same).
+Groth16 setup on ``device`` (the card by default), or natively on the host
+with ``device="host"`` (the CRS is the same).
 The vote phase has the JAX package's two arms, chosen by an explicit
 argument, never by the environment:
 
@@ -25,16 +26,15 @@ from __future__ import annotations
 
 import numpy as np
 
-from vote_saver_tpu.circuit.voting import build_voting_circuit
-from vote_saver_tpu.params import DEFAULT_EID_BITS, MSG_SIZE, PUBLIC_KEY_BITS, SECRET_KEY_BITS
-from vote_saver_tpu.protocol import marshal as M
-from vote_saver_tpu.refimpl import pedersen as rpd
-from vote_saver_tpu.utils.rng import FrRandom
-
 from ..circuit import witness_dev
+from ..circuit.voting import build_voting_circuit
 from ..ops import limbs as lb
 from ..ops import merkle
+from ..params import DEFAULT_EID_BITS, MSG_SIZE, PUBLIC_KEY_BITS, SECRET_KEY_BITS
+from ..refimpl import pedersen as rpd
+from ..utils.rng import FrRandom
 from . import ballot_dev, groth16, keys, saver
+from . import marshal as M
 
 
 def init_voter_phase(voter_idx: int, rng: FrRandom | None = None) -> tuple[bytes, bytes]:
@@ -45,10 +45,12 @@ def init_voter_phase(voter_idx: int, rng: FrRandom | None = None) -> tuple[bytes
 
 
 def init_admin_phase_generate_keys(tree_depth: int, eid_bits: int = DEFAULT_EID_BITS,
-                                   rng: FrRandom | None = None, device=None):
-    """R1CS for the tree depth, Groth16 setup (host-native when `device` is
-    None, else on `device`), SAVER keys from msg_size*3+2 scalars.  Returns
+                                   rng: FrRandom | None = None, device="cuda"):
+    """R1CS for the tree depth, Groth16 setup (on `device`, or host-native
+    when `device` is "host"), SAVER keys from msg_size*3+2 scalars.  Returns
     (pk_crs, vk_crs, pk_eid, sk_eid, vk_eid) blobs."""
+    if device != "host":
+        device = lb.device_of(device)
     rng = rng or FrRandom()
     circ = build_voting_circuit(tree_depth, eid_bits)
     pk, vk = groth16.setup(circ.cs, rng, device)
@@ -94,7 +96,8 @@ class VoteContext:
 
 def prepare_vote_context(tree_depth: int, eid_bits: int, merkle_tree_blob: bytes, rt_blob: bytes,
                          eid_blob: bytes, pk_eid_blob: bytes, proving_key_blob: bytes,
-                         verification_key_blob: bytes, device="cpu") -> VoteContext:
+                         verification_key_blob: bytes, device="cuda") -> VoteContext:
+    device = lb.device_of(device)
     circ = build_voting_circuit(tree_depth, eid_bits)
     levels = merkle.unflatten_tree(M.de_merkle_tree(merkle_tree_blob, tree_depth), tree_depth)
     rt_bits = [int(b) for b in merkle.root(levels)]

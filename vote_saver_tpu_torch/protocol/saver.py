@@ -11,11 +11,10 @@ from __future__ import annotations
 
 import dataclasses
 
-from vote_saver_tpu.params import R
-from vote_saver_tpu.refimpl import curves as rc
-from vote_saver_tpu.refimpl import jacobian as rj
-from vote_saver_tpu.refimpl import pairing as rp
-
+from ..params import R
+from ..refimpl import curves as rc
+from ..refimpl import jacobian as rj
+from ..refimpl import pairing as rp
 from .groth16 import Proof, VerificationKey
 
 

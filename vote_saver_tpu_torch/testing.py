@@ -1,4 +1,4 @@
-"""Inputs that drive every special lane of the curve kernels K2-K4.
+"""Inputs that drive every special lane of the curve kernels K2-K6.
 
 Shared by the CPU tests and chip_smoke.py, so the kernels meet the same
 corner cases on the card as their plain versions meet against the Pallas
@@ -12,10 +12,10 @@ import random
 
 import torch
 
-from vote_saver_tpu.params import Q
-from vote_saver_tpu.refimpl import curves as rc
-from vote_saver_tpu.refimpl import field as rf
-from vote_saver_tpu.refimpl import jacobian as rj
+from .params import Q
+from .refimpl import curves as rc
+from .refimpl import field as rf
+from .refimpl import jacobian as rj
 
 
 @contextlib.contextmanager
@@ -37,6 +37,8 @@ def torch_threads(n: int):
 MADD_SIGN = [False, True, False, False, False, True, False, True]
 MADD_ACTIVE = [True, True, True, False, True, True, True, True]
 MADD_EXC = [0, 0, 0, 0, 1, 0, 0, 0]
+# flagged distinct add (K5/K6) of p + q on the same lanes: p = q (lanes 3, 4)
+ADDX_EXC = [0, 0, 0, 1, 1, 0, 0, 0]
 
 
 def neg_y(y, g2: bool):
