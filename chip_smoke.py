@@ -6,11 +6,15 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
   1. environment: the card's name and power limit (nvidia-smi), torch, CUDA;
   2. build the CUDA kernels from ``vote_saver_tpu_torch/csrc`` (one nvcc
      per translation unit, all at once);
-  3. each kernel against its plain PyTorch version on the card at the
-     main path's widths (K1 at 2^16 lanes in Fq and Fr in each multiplier
-     mode, K2-K4 and the flagged distinct add K5/K6 at 2^14 lanes and the
-     distinct add K3d at 2^16 lanes, the FixedBaseTable width, in G1 and
-     G2), special lanes included; exact equality; both timed;
+  3. each kernel against its plain PyTorch version on the card (K1 at 2^16
+     lanes in Fq and Fr in each multiplier mode, K2-K4 and the flagged
+     distinct add K5/K6 at 2^14 lanes and the distinct add K3d at 2^16
+     lanes, the FixedBaseTable width, in G1 and G2), special lanes
+     included; exact equality; both timed.  The chain kernels (K1's Fermat
+     inversion ``mont_inv``, K4 with a count of doublings) also at the
+     widths and counts the vote path gives them (``CHAIN_SHAPES``), each
+     row timed per call with CUDA events and per launch on the device with
+     torch.profiler;
   4. a 2^16-point G1 MSM with uniform scalars at w = 10 against the native
      host MSM; then the same buckets, and those of a 2^14-point G2 MSM,
      through the combination phase once with the complete adder (K3) and
@@ -29,7 +33,9 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
   7. the vote phase at depth 6 with B = 16 voters (election cached under
      ``.torch_cache/``) through the device arm: one warm-up and two timed
      batches, every ballot verified, per-stage seconds and launches, then
-     one timed batch of the host-witness arm for comparison.
+     one timed batch of the host-witness arm for comparison; then one more
+     device-arm batch under torch.profiler: device time and launches per
+     kernel, and the device's busy share.
 
 Every count of kernel launches is set to 0 just before a path runs (setup,
 the combination phase through K5/K6, the probes, the timed device-arm
@@ -66,8 +72,11 @@ DEPTH, BATCH, EID_BITS = 6, 16, 64
 K1_LANES, CURVE_LANES, FB_LANES = 1 << 16, 1 << 14, 1 << 16
 MSM_N, MSM_W, MSM_G2_N = 1 << 16, 10, 1 << 14
 # the kernels each path runs (a kernel of a path that never launched fails)
-SETUP_KERNELS = ("g1_add_distinct", "g2_add_distinct", "mont_mul_fq")
-VOTE_KERNELS = ("mont_mul_fq", "mont_mul_fr", "g1_madd", "g2_madd", "g1_add", "g2_add", "g1_double", "g2_double")
+SETUP_KERNELS = ("g1_add_distinct", "g2_add_distinct", "mont_mul_fq", "mont_inv_fq")
+VOTE_KERNELS = ("mont_mul_fq", "mont_mul_fr", "g1_madd", "g2_madd", "g1_add", "g2_add", "g1_double", "g2_double",
+                "mont_inv_fq", "mont_inv_fr")
+# the host-witness arm inverts nothing in Fr on the card (its witness is the host's)
+HOST_ARM_KERNELS = tuple(k for k in VOTE_KERNELS if k != "mont_inv_fr")
 COMBINE_KERNELS = ("g1_addx", "g2_addx")
 K1_MODE_KERNELS = ("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold")
 # H100 SXM published peaks: HBM bytes/s, fp32 FLOP/s, int8 OP/s
@@ -77,6 +86,21 @@ MADS = {"fq": 2 * 12 * 12 + 12, "fr": 2 * 8 * 8 + 8}
 # Fq multiplies per lane of each curve formula, G1 and G2 (an Fq2 square is
 # 2 Fq multiplies, an Fq2 multiply 3): (squares, multiplies)
 FORMULA = {"add": (5, 11), "madd": (4, 7), "double": (5, 2)}
+# multiplies of k_mont_inv's chain: a square per bit of N - 2 below the top,
+# a multiply per set bit below the top
+INV_MULS = {"fq": 380 + 228, "fr": 254 + 163}
+# (lanes, doublings) the depth-6 B = 16 vote path gives the chain kernels,
+# the first of each being its kernels-line row: the device witness inverts
+# B = 16 lanes in Fr; the ballot tail's affine conversion 2B + B(25 + 2) =
+# 464 lanes in Fq; Horner 10 doublings on the B parts of an MSM; the tail's
+# windowed multiplies 4 on B(25 + 5) = 480 (G1) and 2B = 32 (G2) lanes.
+# Also inversions at 2^16 lanes and 10 doublings at 480 lanes, for scale.
+CHAIN_SHAPES = {
+    "mont_inv_fr": ((16, 1), (1 << 16, 1)),
+    "mont_inv_fq": ((464, 1), (16, 1), (1 << 16, 1)),
+    "g1_double": ((16, 10), (480, 4), (480, 10)),
+    "g2_double": ((16, 10), (32, 4), (480, 10)),
+}
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -138,6 +162,84 @@ def _curve_mads(kind: str, g2: bool, lanes: int) -> int:
     return lanes * (sq * 2 + mul * 3 if g2 else sq + mul) * MADS["fq"]
 
 
+def device_ms(fn, reps: int, family: str):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    `family` over `reps` calls of fn, from torch.profiler's CUDA activity;
+    None where the profiler recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA and family in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def check_chains(rnd, points: dict) -> dict:
+    """The chain kernels at CHAIN_SHAPES against their plain versions:
+    mont_inv on 0, 1, N - 1, R mod N and random lanes; the doublings on the
+    first lanes of check_kernels' special lanes (lane 0 canonical
+    infinity).  Each row: equality, the event-timed ms per call (wrapper
+    and launch included), the profiler's device ms per launch, the plain
+    ms and the work its bound is computed from."""
+    import torch
+
+    from vote_saver_tpu_torch.micro import time_ms
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import limbs as lb
+
+    out = {}
+    for kname, shapes in CHAIN_SHAPES.items():
+        rows = []
+        for lanes, times in shapes:
+            if kname.startswith("mont_inv"):
+                name = kname[-2:]
+                spec = lb.spec_for(name)
+                N = spec.modulus
+                xs = [0, 1, N - 1, spec.mont_r % N] + [rnd.randrange(N) for _ in range(lanes - 4)]
+                a = lb.ints_to_tensor(xs, spec, "cuda")
+                ins = (a,)
+                kern = lambda name=name, a=a: (hf.mont_inv(name, a),)  # noqa: E731
+                plain = lambda name=name, a=a: (hf.mont_inv_plain(name, a),)  # noqa: E731
+                mads = lanes * INV_MULS[name] * MADS[name]
+                family = "k_mont_inv"
+            else:
+                g2 = kname.startswith("g2")
+                ins = tuple(c[:lanes].contiguous() for c in points[g2])
+                dbl = hf.g2_double if g2 else hf.g1_double
+                kern = lambda dbl=dbl, ins=ins, times=times: dbl(ins, times)  # noqa: E731
+                plain = lambda g2=g2, ins=ins, times=times: hf.double_plain(g2, ins, times)  # noqa: E731
+                mads = times * _curve_mads("double", g2, lanes)
+                family = "k_double"
+            got, exp = kern(), plain()
+            torch.cuda.synchronize()
+            if kname.startswith("mont_inv") and list(lb.tensor_to_ints(got[0][:64], spec)) != [
+                    pow(x, N - 2, N) for x in xs[:64]]:
+                fail(f"{kname} at {lanes} lanes disagrees with Python integers")
+            reps = 20 if lanes <= 1024 else 5
+            row = dict(lanes=lanes, times=times, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
+                       max_abs_err=_diff(got, exp), ms=time_ms(kern, reps), device_ms=device_ms(kern, reps, family),
+                       plain_ms=time_ms(plain, 1 if lanes > 1024 else 3),
+                       work=dict(bytes=_nbytes(*ins, *got), mads=mads))
+            log(f"[kernels] {kname}: lanes={lanes} times={times} equal={row['equal']} "
+                f"max_abs_err={row['max_abs_err']} kernel {row['ms']:.4f} ms a call, device "
+                f"{_ms(row['device_ms'])} a launch, plain {row['plain_ms']:.3f} ms")
+            if not row["equal"]:
+                fail(f"{kname} at {lanes} lanes x {times} disagrees with its plain version")
+            rows.append(row)
+        out[kname] = rows
+    return out
+
+
 def check_kernels(rnd) -> dict:
     """Each kernel against its plain version.  Besides the times, each
     result carries the work that its bound is computed from: bytes read and
@@ -153,7 +255,7 @@ def check_kernels(rnd) -> dict:
     from vote_saver_tpu_torch.testing import ADDX_EXC, MADD_EXC, special_lanes
 
     dev = torch.device("cuda")
-    results = {}
+    results, points = {}, {}
     for name, spec in (("fq", lb.FQ), ("fr", lb.FR)):
         N = spec.modulus
         rinv = pow(spec.mont_r, -1, N)
@@ -191,6 +293,7 @@ def check_kernels(rnd) -> dict:
         pre = "g2" if g2 else "g1"
         p, q, acc, qa, sign, active = special_lanes(g2, CURVE_LANES, rnd)
         P, Qd = _to_dev(zip(*p), dev), _to_dev(zip(*q), dev)
+        points[g2] = P
         A, QA = _to_dev(zip(*acc), dev), _to_dev(zip(*qa), dev)
         S = torch.tensor(sign, device=dev)
         ACT = torch.tensor(active, device=dev)
@@ -246,6 +349,9 @@ def check_kernels(rnd) -> dict:
             f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.3f} ms")
         if not r["equal"]:
             fail(f"{kname} kernel disagrees with its plain version")
+    for kname, rows in check_chains(rnd, points).items():
+        main = {k: rows[0][k] for k in ("equal", "max_abs_err", "ms", "plain_ms", "lanes", "work")}
+        results.setdefault(kname, main)["chains"] = rows
     return results
 
 
@@ -472,6 +578,56 @@ def check_golden() -> None:
             f"JAX golden ({time.perf_counter() - t0:.1f} s)")
 
 
+def kernel_key(name: str) -> str | None:
+    """The port's kernel name (``hopper_field.KERNELS``) of a device kernel
+    as the profiler names it (``(anonymous namespace)::k_double<Fq2,
+    MulLoop>(...)``), None for a kernel that is not the port's."""
+    m = re.search(r"\bk_(mont_mul|mont_inv|madd|add_distinct|addx|add|double)<([^,>]+)", name)
+    if not m:
+        return None
+    fam, arg = m.groups()
+    if fam.startswith("mont_"):
+        return f"{fam}_{'fq' if 'FqParams' in arg else 'fr'}"
+    return f"{'g2' if 'Fq2' in arg else 'g1'}_{fam}"
+
+
+def profile_batch(batch):
+    """One device-arm batch under torch.profiler (CUDA activity only) ->
+    (the batch's result, its profile): launches and device seconds per
+    kernel of the port, the plain PyTorch kernels' device seconds (the five
+    largest by name), and the device's busy share of the batch's wall time
+    under the profiler; the profile is empty where the profiler recorded no
+    device kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = batch()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ours: dict = {}
+    other: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        key = kernel_key(e.name)
+        if key is None:
+            other[e.name] = other.get(e.name, 0.0) + us
+        else:
+            n, t = ours.get(key, (0, 0.0))
+            ours[key] = (n + 1, t + us)
+    if not ours and not other:
+        return result, {}
+    busy = sum(t for _n, t in ours.values()) + sum(other.values())
+    return result, dict(wall_s=wall, busy_s=busy / 1e6, port={k: dict(launches=n, device_s=t / 1e6) for k, (n, t) in ours.items()},
+                plain_s=sum(other.values()) / 1e6,
+                top_plain={k: v / 1e6 for k, v in sorted(other.items(), key=lambda kv: -kv[1])[:5]})
+
+
 def _stages(timer, n: int) -> str:
     return ", ".join(f"{k} {v / n:.3f}" for k, v in timer.seconds.items())
 
@@ -517,18 +673,20 @@ def run_slice(rnd, e: dict) -> dict:
     host_wall = time.perf_counter() - t0
     host_launches = dict(hf.launches)
 
+    profiled, prof = profile_batch(batch)
+
     n_ok = 0
-    for _votes, ballots in warm + timed + host:
+    for _votes, ballots in warm + timed + [profiled] + host:
         for b in ballots:
             n_ok += phases.verify_ballot(b[0], b[1], b[2], vk_eid, vk_crs)
-    n_total = BATCH * (len(warm) + len(timed) + len(host))
+    n_total = BATCH * (len(warm) + len(timed) + 1 + len(host))
     out = dict(
         depth=DEPTH, batch=BATCH, proofs_per_s=BATCH * len(timed) / wall, batch_s=wall / len(timed),
         stages_s={k: v / len(timed) for k, v in timer.seconds.items()},
         stage_launches={k: v / len(timed) for k, v in timer.launches.items()},
         fallbacks=timer.counts.get("fallbacks", 0), launches=launches,
         host_arm_batch_s=host_wall, host_arm_stages_s=dict(host_timer.seconds),
-        ballots_verified=n_ok, ballots_total=n_total,
+        ballots_verified=n_ok, ballots_total=n_total, profile=prof,
     )
     log(f"[slice] device arm, depth {DEPTH}, B={BATCH}: {out['batch_s']:.3f} s/batch = "
         f"{out['proofs_per_s']:.3f} proofs/s; var-base fallbacks {out['fallbacks']}")
@@ -540,11 +698,22 @@ def run_slice(rnd, e: dict) -> dict:
         f"var-base fallbacks {host_timer.counts.get('fallbacks', 0)}")
     log("[slice] host-witness arm stage seconds: " + _stages(host_timer, 1))
     log(f"[slice] host-witness arm launches: {host_launches}")
-    log(f"[slice] ballots verified: {n_ok}/{n_total} (device arm {BATCH * 3}, host-witness arm {BATCH})")
+    if prof:
+        log(f"[profile] one device-arm batch under torch.profiler: {prof['wall_s']:.3f} s wall, device busy "
+            f"{prof['busy_s']:.3f} s = {100 * prof['busy_s'] / prof['wall_s']:.1f}%; plain PyTorch kernels "
+            f"{prof['plain_s']:.3f} s")
+        for k, v in sorted(prof["port"].items(), key=lambda kv: -kv[1]["device_s"]):
+            log(f"[profile] {k}: {v['launches']} launches, {1e3 * v['device_s']:.3f} ms on the device, "
+                f"{1e6 * v['device_s'] / v['launches']:.2f} us a launch")
+        for k, v in prof["top_plain"].items():
+            log(f"[profile] plain: {1e3 * v:.3f} ms {k[:120]}")
+    else:
+        log("[profile] device time per kernel on the vote path: not measured (the profiler recorded no device kernel)")
+    log(f"[slice] ballots verified: {n_ok}/{n_total} (device arm {BATCH * 4}, host-witness arm {BATCH})")
     if n_ok != n_total:
         fail("a depth-6 ballot failed verify_ballot")
-    for arm, counts in (("device", launches), ("host-witness", host_launches)):
-        missing = [k for k in VOTE_KERNELS if counts[k] == 0]
+    for arm, counts, kernels in (("device", launches, VOTE_KERNELS), ("host-witness", host_launches, HOST_ARM_KERNELS)):
+        missing = [k for k in kernels if counts[k] == 0]
         if missing:
             fail(f"kernels of the {arm} vote arm never launched: {missing}")
     return out
@@ -691,6 +860,16 @@ def main() -> None:
         note = "; FASTER THAN ITS BOUND" if r["ms"] < bound_ms else ""
         log(f"[bound] {k}: {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}, "
             f"{100 * bound_ms / r['ms']:.1f}% of its time){note}; launches on its path {paths[k][k]}; {gpu}")
+        # the chain kernels at the vote path's shapes: every row with its own bound
+        if "chains" in r:
+            entries[-1]["chains"] = []
+            for row in r["chains"]:
+                b_ms, b_by = bound(row["work"], probes["res"]["rates"])
+                entries[-1]["chains"].append(dict({k2: row[k2] for k2 in (
+                    "lanes", "times", "max_abs_err", "ms", "device_ms", "plain_ms")}, bound_ms=b_ms, bound_by=b_by))
+                log(f"[bound] {k} at {row['lanes']} lanes x {row['times']}: {row['ms']:.4f} ms a call, device "
+                    f"{_ms(row['device_ms'])} a launch, plain {row['plain_ms']:.3f} ms, against a bound of "
+                    f"{b_ms:.5f} ms ({b_by}); {gpu}")
     log(f"[done] {time.perf_counter() - t_all:.1f} s (kernel build {kl.build_seconds:.1f} s)")
     log(gpu)
     print(json.dumps({"kernels": entries}), flush=True)

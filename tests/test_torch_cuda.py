@@ -5,9 +5,10 @@ only the port is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Each kernel (K1 in Fq and Fr in each multiplier mode, K2-K4, K3d and K5/K6
-in G1 and G2) must equal its plain PyTorch version limb for limb on the
-special lanes of ``vote_saver_tpu_torch.testing``; a scheduled MSM must
+Each kernel (K1 in Fq and Fr in each multiplier mode and as the Fermat
+inversion, K2-K4, K4 with a count of doublings, K3d and K5/K6 in G1 and G2)
+must equal its plain PyTorch version limb for limb on the special lanes of
+``vote_saver_tpu_torch.testing``, in one launch per call; a scheduled MSM must
 equal the native host MSM, and so must a G2 MSM's buckets combined through
 the flagged distinct add K6; the probes K7-K10 must pass their host-oracle
 parity; a proof made on the card must be byte-identical to the same proof
@@ -82,6 +83,41 @@ def test_curve_kernels_match_plain(dev, g2):
     # in place, as the bucket scan runs it
     out, exc = madd(A, QA, S, ACT, out=tuple(c.clone() for c in A))
     assert all(torch.equal(x, y) for x, y in zip(out, mo)) and torch.equal(exc, me)
+
+
+@pytest.mark.parametrize("name,N", [("fq", Q), ("fr", R)])
+def test_mont_inv_matches_plain(dev, name, N):
+    """The Fermat chain in one launch, at the device witness's 16 lanes and
+    at 2^16 lanes."""
+    spec = lb.spec_for(name)
+    rnd = random.Random(10)
+    for lanes in (16, 1 << 16):
+        xs = [0, 1, N - 1, spec.mont_r % N] + [rnd.randrange(N) for _ in range(lanes - 4)]
+        a = lb.ints_to_tensor(xs, spec, dev)
+        before = hf.launches[f"mont_inv_{name}"]
+        got = hf.mont_inv(name, a)
+        assert hf.launches[f"mont_inv_{name}"] == before + 1
+        assert torch.equal(got, hf.mont_inv_plain(name, a))
+        assert list(lb.tensor_to_ints(got[:64], spec)) == [pow(x, N - 2, N) for x in xs[:64]]
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_double_times_matches_plain(dev, g2):
+    """Ten doublings in one launch: the plain version's ten formulas and ten
+    single launches, canonical infinity (lane 0) included."""
+    p, *_ = special_lanes(g2, 480, random.Random(11 + g2))
+    P = tuple(lb.ints_to_tensor([pt[i] for pt in p], lb.FQ, dev) for i in range(3))
+    dbl = hf.g2_double if g2 else hf.g1_double
+    name = "g2_double" if g2 else "g1_double"
+    before = hf.launches[name]
+    got = dbl(P, times=10)
+    assert hf.launches[name] == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(got, hf.double_plain(g2, P, 10)))
+    single = P
+    for _ in range(10):
+        single = dbl(single)
+    assert all(torch.equal(x, y) for x, y in zip(got, single))
+    assert not got[2][0].any()
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])

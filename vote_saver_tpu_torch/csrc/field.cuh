@@ -40,19 +40,31 @@ __constant__ uint32_t kFrN[8] = {
 __constant__ uint32_t kFrOne[8] = {
     0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
     0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
+// N - 2, the Fermat inversion's exponent (381 bits, 229 set in Fq; 255 and
+// 164 in Fr)
+__constant__ uint32_t kFqNm2[12] = {
+    0xffffaaa9u, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
+    0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+__constant__ uint32_t kFrNm2[8] = {
+    0xffffffffu, 0xfffffffeu, 0xfffe5bfeu, 0x53bda402u,
+    0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
 
 struct FqParams {
   static constexpr int L = 12;
   static constexpr uint32_t N0INV = 0xfffcfffdu;  // -N^-1 mod 2^32
+  static constexpr int NM2_BITS = 381;
   __device__ static __forceinline__ uint32_t n(int i) { return kFqN[i]; }
   __device__ static __forceinline__ uint32_t one(int i) { return kFqOne[i]; }
+  __device__ static __forceinline__ uint32_t nm2(int i) { return kFqNm2[i]; }
 };
 
 struct FrParams {
   static constexpr int L = 8;
   static constexpr uint32_t N0INV = 0xffffffffu;
+  static constexpr int NM2_BITS = 255;
   __device__ static __forceinline__ uint32_t n(int i) { return kFrN[i]; }
   __device__ static __forceinline__ uint32_t one(int i) { return kFrOne[i]; }
+  __device__ static __forceinline__ uint32_t nm2(int i) { return kFrNm2[i]; }
 };
 
 template <class P>

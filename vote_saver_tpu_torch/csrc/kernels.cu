@@ -1,9 +1,14 @@
-// The port's four Hopper kernels and their extern "C" launchers.
+// The port's kernels K1-K4 and their extern "C" launchers.
 //
 //   K1 k_mont_mul<P>  <- pallas_field._mul_call / mont_mul_pallas (Fq, Fr)
+//      k_mont_inv<P>  <- the same call, repeated by field_ops.FieldOps.inv's
+//                        lax.scan: the whole Fermat inversion in one launch
 //   K2 k_madd<E>      <- pallas_field._g1_madd_call / _g2_madd_call
 //   K3 k_add<E>       <- pallas_field._g1_add_call / _g2_add_call (complete)
-//   K4 k_double<E>    <- pallas_field._g1_dbl_call / _g2_dbl_call
+//   K4 k_double<E>    <- pallas_field._g1_dbl_call / _g2_dbl_call, with a
+//                        count: the fori_loop of doublings that msm_sched's
+//                        _horner and curve_ops' scalar_mul_windowed wrap
+//                        around the call, in one launch
 //
 // Each is one thread per lane over (B, L) / (B, 2, L) int32 tensors read as
 // uint32_t*, with every limb in registers.  The Pallas kernels tile the
@@ -43,6 +48,39 @@ __global__ void __launch_bounds__(kThreads)
   load(x, a, i);
   load(y, b, i);
   store(out, i, M::mul(x, y));
+}
+
+// a^(N - 2) = a^-1 for canonical a != 0 (0 maps to 0), by square-and-multiply
+// over the bits of N - 2, MSB first, as FieldOps.inv scans them; the top bit
+// seeds the result with a itself.  Fr: 254 squares + 163 multiplies, Fq:
+// 380 + 228, all on K1's CIOS body (field.cuh mul) with the state in
+// registers; one load and one store per lane.
+//
+// What bounds it on the main path: latency.  The callers invert 16 lanes
+// (the device witness, one per voter) to a few hundred (the ballot tail's
+// affine conversion): one to four warps on 132 SMs, each running 417 (Fr)
+// or 608 (Fq) dependent multiplies.  Before this kernel each multiply was a
+// launch of its own, and the chain cost its launches, not its arithmetic.
+// A fixed 4-bit window would cut the multiplies to about 64 / 97, but its
+// 16-entry table (128 / 192 registers) would spill, so the binary chain was
+// built: it keeps the registers of k_mont_mul.  The next step is to split
+// one lane's multiply across threads (limb products spread over a warp,
+// carries by shuffles), so that a chain of 16 lanes fills more than one
+// warp's issue slots.
+template <class P>
+__global__ void __launch_bounds__(kThreads)
+    k_mont_inv(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fp<P> x;
+  load(x, a, i);
+  Fp<P> r = x;
+#pragma unroll 1
+  for (int k = P::NM2_BITS - 2; k >= 0; --k) {
+    r = sq(r);
+    if ((P::nm2(k >> 5) >> (k & 31)) & 1u) r = mul(r, x);
+  }
+  store(out, i, r);
 }
 
 // In-place safe: every lane reads all of its inputs before it writes.
@@ -88,20 +126,31 @@ __global__ void __launch_bounds__(kThreads)
   store(oz, i, r.z);
 }
 
+// `times` >= 1 doublings of each lane, in registers between one load and one
+// store.  Canonical infinity (1, 1, 0) doubles to itself through the
+// formula, so `times` doublings here give the limbs of `times` launches.
+//
+// What bounds it on the main path: latency.  Horner's step runs 10
+// doublings on `parts` = 16 lanes per MSM, the ballot tail's windowed
+// multiplies 4 on 32-480 lanes: 1 to 4 blocks on 132 SMs, each doubling 7
+// dependent Fq multiplies (G2: 7 Fq2 products).  One launch per doubling
+// paid a launch and a global round trip for each; `times` pays them once
+// per chain.
 template <class E, class M = MulLoop>
 __global__ void __launch_bounds__(kThreads)
     k_double(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
-             uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n) {
+             uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n, int times) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Jac<E> p;
   load(p.x, px, i);
   load(p.y, py, i);
   load(p.z, pz, i);
-  const Jac<E> r = jac_double<E, M>(p);
-  store(ox, i, r.x);
-  store(oy, i, r.y);
-  store(oz, i, r.z);
+#pragma unroll 1
+  for (int t = 0; t < times; ++t) p = jac_double<E, M>(p);
+  store(ox, i, p.x);
+  store(oy, i, p.y);
+  store(oz, i, p.z);
 }
 
 using u32p = const uint32_t*;
@@ -154,17 +203,27 @@ int vs_add(int g2, const void* px, const void* py, const void* pz, const void* q
   return (int)cudaGetLastError();
 }
 
+int vs_mont_inv(int field, const void* a, void* out, long long n, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (field == 0) {
+    k_mont_inv<FqParams><<<blocks_for(n), kThreads, 0, s>>>((u32p)a, (uint32_t*)out, n);
+  } else {
+    k_mont_inv<FrParams><<<blocks_for(n), kThreads, 0, s>>>((u32p)a, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
 int vs_double(int g2, const void* px, const void* py, const void* pz, void* ox, void* oy,
-              void* oz, long long n, void* stream) {
+              void* oz, long long n, int times, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (g2) {
     k_double<Fq2><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz,
                                                      (uint32_t*)ox, (uint32_t*)oy,
-                                                     (uint32_t*)oz, n);
+                                                     (uint32_t*)oz, n, times);
   } else {
     k_double<Fq><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz,
                                                     (uint32_t*)ox, (uint32_t*)oy,
-                                                    (uint32_t*)oz, n);
+                                                    (uint32_t*)oz, n, times);
   }
   return (int)cudaGetLastError();
 }

@@ -36,7 +36,8 @@ UNITS = {
         "vs_mont_mul": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
         "vs_madd": [ctypes.c_int] + [_VP] * 11 + [_LL, _VP],
         "vs_add": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
-        "vs_double": [ctypes.c_int] + [_VP] * 6 + [_LL, _VP],
+        "vs_mont_inv": [ctypes.c_int, _VP, _VP, _LL, _VP],
+        "vs_double": [ctypes.c_int] + [_VP] * 6 + [_LL, ctypes.c_int, _VP],
     },
     "add_distinct.cu": {
         "vs_add_distinct": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],

@@ -72,8 +72,9 @@ class JacobianOps:
 
     # -- group law ----------------------------------------------------------
 
-    def double(self, p):
-        return hf.g2_double(p) if self.is_fq2 else hf.g1_double(p)
+    def double(self, p, times: int = 1):
+        """`times` doublings in one launch of kernel K4."""
+        return hf.g2_double(p, times) if self.is_fq2 else hf.g1_double(p, times)
 
     def add(self, p, q):
         """Complete Jacobian addition (kernel K3)."""
@@ -98,7 +99,8 @@ class JacobianOps:
         """p * k with k as (..., W) base-2^window digits, LSB window first.
 
         A 2^window-entry multiples table (table[d] = d * p), then W steps of
-        `window` doublings + one table-lookup add, MSB window first."""
+        `window` doublings (one K4 launch) + one table-lookup add, MSB window
+        first."""
         digits = torch.as_tensor(digits_lsb_first, device=p[0].device).to(torch.int64)
         lead = torch.broadcast_shapes(digits.shape[:-1], p[0].shape[: p[0].dim() - self.tail])
         digits = digits.expand(tuple(lead) + digits.shape[-1:])
@@ -115,9 +117,7 @@ class JacobianOps:
 
         acc = self.infinity_like(p[0])
         for w in range(digits.shape[-1] - 1, -1, -1):
-            for _ in range(window):
-                acc = self.double(acc)
-            acc = self.add(acc, lookup(digits[..., w]))
+            acc = self.add(self.double(acc, times=window), lookup(digits[..., w]))
         return acc
 
     def sum_reduce(self, p, axis: int = 0, distinct: bool = False):
@@ -175,20 +175,20 @@ class EdwardsOps:
 
     def add(self, p, q):
         """Hisil-Wong-Carter-Dawson a = -1 extended addition (complete on
-        the odd-order subgroup): 9 multiplies (kernel K1 on the card)."""
+        the odd-order subgroup): 9 multiplies in 3 stacked K1 launches on
+        the card, the 4 independent products, then * 2d, then the 4
+        outputs."""
         f = self.f
-        x1, y1, z1, t1 = p
-        x2, y2, z2, t2 = q
-        a = f.mul(f.sub(y1, x1), f.sub(y2, x2))
-        b = f.mul(f.add(y1, x1), f.add(y2, x2))
-        c = f.mul(f.mul(t1, t2), self._k2d(t1.device))
-        d = f.mul(z1, z2)
+        x1, y1, z1, t1, x2, y2, z2, t2 = torch.broadcast_tensors(*p, *q)
+        a, b, tt, d = f.mul(torch.stack([f.sub(y1, x1), f.add(y1, x1), t1, z1]),
+                            torch.stack([f.sub(y2, x2), f.add(y2, x2), t2, z2])).unbind(0)
+        c = f.mul(tt, self._k2d(t1.device))
         d = f.add(d, d)
         e = f.sub(b, a)
         ff = f.sub(d, c)
         g = f.add(d, c)
         h = f.add(b, a)
-        return (f.mul(e, ff), f.mul(g, h), f.mul(ff, g), f.mul(e, h))
+        return tuple(f.mul(torch.stack([e, g, ff, e]), torch.stack([ff, h, g, h])).unbind(0))
 
     def sum_reduce(self, p, axis: int = 0):
         """Log-depth Hillis-Steele sum over `axis` (complete addition, so

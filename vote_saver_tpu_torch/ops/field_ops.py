@@ -1,7 +1,8 @@
 """Batched Montgomery field arithmetic on int32 limb tensors (Fr, Fq).
 
 Counterpart of ``vote_saver_tpu/ops/field_ops.py``.  ``mul`` is kernel K1
-(``hopper_field.mont_mul``) on CUDA tensors and its plain version on CPU;
+(``hopper_field.mont_mul``) on CUDA tensors and its plain version on CPU,
+``inv`` K1's Fermat chain in one launch (``hopper_field.mont_inv``);
 add/sub/neg/reduce_lazy are plain PyTorch on 16-bit half-limbs with
 vectorised carry resolution (a few dozen tensor ops each, no per-limb
 loop).  The JAX package's f32-matmul column-sum multiply is a TPU device
@@ -32,7 +33,6 @@ class FieldOps:
             "r2": spec.mont_r2,
         }
         self._dev: dict = {}
-        self.inv_bits = [int(b) for b in bin(spec.modulus - 2)[2:]]  # MSB first
 
     def const(self, name: str, device) -> torch.Tensor:
         """A field constant as an (L,) int32 tensor on `device`."""
@@ -81,15 +81,10 @@ class FieldOps:
         return hf._pack(self.half.redc(half))
 
     def inv(self, a):
-        """Fermat inversion a^(N-2), square-and-multiply over the exponent's
-        bits; garbage on zero input, as in the JAX package (callers mask
-        zeros)."""
-        res = self.const("one_mont", a.device).expand_as(a)
-        for bit in self.inv_bits:
-            res = self.sq(res)
-            if bit:
-                res = self.mul(res, a)
-        return res
+        """Fermat inversion a^(N-2) (``hopper_field.mont_inv``: the whole
+        square-and-multiply chain in one K1 launch on the card); zero maps
+        to zero, as in the JAX package (callers mask zeros)."""
+        return hf.mont_inv(self.name, a)
 
 
 @functools.cache

@@ -4,11 +4,13 @@ Counterpart of ``vote_saver_tpu/ops/pallas_field.py``.  Each public function
 keeps the signature and layout of its Pallas entry point:
 
   K1 ``mont_mul(name, a, b, mode="loop")``         <- mont_mul_pallas
+     ``mont_inv(name, a)``: a^(N-2), the Fermat chain of K1 in one launch
   K2 ``g1_madd``/``g2_madd(acc, q_affine, sign, active) -> (acc', exc)``
                                                     <- g1/g2_madd_pallas
   K3 ``g1_add``/``g2_add(p, q)`` (complete)         <- g1/g2_add_pallas
   K3d ``g1_add_distinct``/``g2_add_distinct(p, q)`` <- g1/g2_add_pallas(complete=False)
-  K4 ``g1_double``/``g2_double(p)``                 <- g1/g2_double_pallas
+  K4 ``g1_double``/``g2_double(p, times=1)``        <- g1/g2_double_pallas,
+     ``times`` doublings in one launch
   K5/K6 ``g1_addx``/``g2_addx(p, q) -> (coords, exc)`` <- g1/g2_addx_pallas
 
 K1's multiplier mode is an argument (the JAX package reads ``VSTPU_MUL``):
@@ -46,7 +48,7 @@ KERNELS = (
     "g1_add", "g2_add", "g1_double", "g2_double",
     "g1_add_distinct", "g2_add_distinct",
     "mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold",
-    "g1_addx", "g2_addx",
+    "g1_addx", "g2_addx", "mont_inv_fq", "mont_inv_fr",
 )
 # file:line of the pallas_call each instance replaces
 REPLACES = {
@@ -66,6 +68,9 @@ REPLACES = {
     "mont_mul_fr_fold": "vote_saver_tpu/ops/pallas_field.py:786",
     "g1_addx": "vote_saver_tpu/ops/pallas_field.py:626",
     "g2_addx": "vote_saver_tpu/ops/pallas_field.py:656",
+    # the K1 call that FieldOps.inv's scan (vote_saver_tpu/ops/field_ops.py:221) repeats
+    "mont_inv_fq": "vote_saver_tpu/ops/pallas_field.py:786",
+    "mont_inv_fr": "vote_saver_tpu/ops/pallas_field.py:786",
 }
 # the csrc/ translation unit each kernel is built from
 SOURCES = dict.fromkeys(KERNELS, "vote_saver_tpu_torch/csrc/kernels.cu")
@@ -401,6 +406,24 @@ def mont_mul_plain(name: str, a, b, mode: str = "loop"):
     return _pack(HALF[name].mul(_half(a), _half(b)))
 
 
+def inv_bits(name: str) -> list[int]:
+    """The bits of N - 2, MSB first: the Fermat inversion's exponent."""
+    return [int(b) for b in bin(spec_for(name).modulus - 2)[2:]]
+
+
+def mont_inv_plain(name: str, a):
+    """k_mont_inv's chain over HALF[name].mul: the top bit of N - 2 seeds
+    the result with a, then one square per further bit and one multiply by
+    a per set bit."""
+    f, h = HALF[name], _half(a)
+    res = h
+    for bit in inv_bits(name)[1:]:
+        res = f.sq(res)
+        if bit:
+            res = f.mul(res, h)
+    return _pack(res)
+
+
 def madd_plain(g2: bool, acc, q_affine, sign, active):
     """Inactive lanes keep acc with exc 0, so only active lanes are computed."""
     live = torch.nonzero(active.to(torch.bool)).flatten()
@@ -432,8 +455,11 @@ def addx_plain(g2: bool, p, q):
     return tuple(_pack(c) for c in out), exc.to(torch.int32)
 
 
-def double_plain(g2: bool, p):
-    return tuple(_pack(c) for c in jac_double(_field(g2), tuple(map(_half, p))))
+def double_plain(g2: bool, p, times: int = 1):
+    p = tuple(map(_half, p))
+    for _ in range(times):
+        p = jac_double(_field(g2), p)
+    return tuple(map(_pack, p))
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +550,23 @@ def mont_mul(name: str, a: torch.Tensor, b: torch.Tensor, mode: str = "loop") ->
                 upload_fold_matrix(lib.vs_mont_mul_fold_upload, field, a.device)
             rc = lib.vs_mont_mul_mode(field, MODES.index(mode), a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                       n, _stream(a.device))
+        _raise_on(rc, kname)
+        launches[kname] += 1
+    return out.reshape(shape)
+
+
+def mont_inv(name: str, a: torch.Tensor) -> torch.Tensor:
+    """K1's Fermat chain: a^(N-2) on (..., L) Montgomery limbs ('fq' or
+    'fr') in one launch; 0 maps to 0 (callers mask zeros)."""
+    if not _on_cuda(a):
+        return mont_inv_plain(name, a)
+    L = spec_for(name).num_limbs
+    (a,), shape, n = _flat((a,), 1)
+    _check((a,), (L,), n, a.device)
+    out = torch.empty_like(a)
+    kname = f"mont_inv_{name}"
+    if n:
+        rc = _lib().vs_mont_inv(0 if name == "fq" else 1, a.data_ptr(), out.data_ptr(), n, _stream(a.device))
         _raise_on(rc, kname)
         launches[kname] += 1
     return out.reshape(shape)
@@ -628,9 +671,11 @@ def g2_addx(p, q):
     return _addx(True, p, q)
 
 
-def _double(g2: bool, p):
+def _double(g2: bool, p, times: int):
+    if int(times) != times or times < 1:
+        raise ValueError(f"times must be an integer >= 1, got {times!r}")
     if not _on_cuda(p[0]):
-        return double_plain(g2, p)
+        return double_plain(g2, p, times)
     tail = (2, _L) if g2 else (_L,)
     coords, shape, n = _flat(p, len(tail))
     _check(coords, tail, n, coords[0].device)
@@ -638,16 +683,16 @@ def _double(g2: bool, p):
     name = "g2_double" if g2 else "g1_double"
     if n:
         ptrs = [c.data_ptr() for c in (*coords, *out)]
-        _raise_on(_lib().vs_double(int(g2), *ptrs, n, _stream(coords[0].device)), name)
+        _raise_on(_lib().vs_double(int(g2), *ptrs, n, int(times), _stream(coords[0].device)), name)
         launches[name] += 1
     return tuple(o.reshape(shape) for o in out)
 
 
-def g1_double(p):
-    """K4: Jacobian doubling (a = 0); coords (..., L)."""
-    return _double(False, p)
+def g1_double(p, times: int = 1):
+    """K4: `times` Jacobian doublings (a = 0) in one launch; coords (..., L)."""
+    return _double(False, p, times)
 
 
-def g2_double(p):
+def g2_double(p, times: int = 1):
     """K4 over Fq2; coords (..., 2, L)."""
-    return _double(True, p)
+    return _double(True, p, times)

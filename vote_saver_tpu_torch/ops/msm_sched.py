@@ -13,9 +13,9 @@ the same algebra on torch tensors:
   * orphan runs: segmented-tree rounds of K3 on the live lanes only, then
     one K3 round adding each run head into its canonical bucket;
   * combination: Hillis-Steele suffix sums over the bucket axis (twice),
-    then a Horner pass over windows (w K4 doublings + one add each), over
-    the adder ``_addx`` gives: the complete add K3 (``msm_device``'s) or the
-    flagged distinct add K5/K6.  ``bucket_phase`` and ``combination_phase``
+    then a Horner pass over windows (one K4 launch of w doublings + one
+    add each), over the adder ``_addx`` gives: the complete add K3
+    (``msm_device``'s) or the flagged distinct add K5/K6.  ``bucket_phase`` and ``combination_phase``
     are the two halves, so one set of buckets can go through either adder.
 
 Lane padding is the port's own: 128 lanes (one CUDA thread block of the
@@ -374,9 +374,7 @@ def _horner(ops, addx, window_sums, w: int, parts: int, top: int):
     acc = ops.infinity_like(coords[0][:, 0])
     exc = None
     for j in range(top, -1, -1):
-        for _ in range(w):
-            acc = ops.double(acc)
-        acc, flag = addx(acc, tuple(c[:, j] for c in coords))
+        acc, flag = addx(ops.double(acc, times=w), tuple(c[:, j] for c in coords))
         exc = _or_flag(exc, flag)
     return acc, exc
 
