@@ -12,9 +12,11 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      lanes, the FixedBaseTable width, in G1 and G2), special lanes
      included; exact equality; both timed.  The chain kernels (K1's Fermat
      inversion ``mont_inv``, K4 with a count of doublings) also at the
-     widths and counts the vote path gives them (``CHAIN_SHAPES``), each
-     row timed per call with CUDA events and per launch on the device with
-     torch.profiler;
+     widths and counts the vote path gives them (``CHAIN_SHAPES``), and
+     the MSM kernels (K2's bucket scan ``madd_scan``, K3's suffix round
+     ``add_shift``) at the shapes of the vote path's MSMs and at 2^14 lanes
+     (``MSM_SHAPES``), each row timed per call with CUDA events and per
+     launch on the device with torch.profiler;
   4. a 2^16-point G1 MSM with uniform scalars at w = 10 against the native
      host MSM; then the same buckets, and those of a 2^14-point G2 MSM,
      through the combination phase once with the complete adder (K3) and
@@ -40,8 +42,10 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
 Every count of kernel launches is set to 0 just before a path runs (setup,
 the combination phase through K5/K6, the probes, the timed device-arm
 batches, the host-witness batch) and read just after it; the ``kernels``
-line reports each kernel's count on its path.  A kernel of a path that
-launched 0 times fails the run.  Each kernel's ``bound_ms`` is the larger of
+line reports each kernel's count on its path, and its registers and spill
+bytes from ptxas's report.  A kernel of a path that launched 0 times fails
+the run, and so does a launch of K2's single-row form on the vote path,
+which runs the scan.  Each kernel's ``bound_ms`` is the larger of
 its bytes over 3.35 TB/s and its operations over the card's rate for their
 type: 32x32->64 multiply-adds (counted per lane from the formulas), 32-bit
 multiplies and issued instructions over documented per-SM rates times the
@@ -73,8 +77,10 @@ K1_LANES, CURVE_LANES, FB_LANES = 1 << 16, 1 << 14, 1 << 16
 MSM_N, MSM_W, MSM_G2_N = 1 << 16, 10, 1 << 14
 # the kernels each path runs (a kernel of a path that never launched fails)
 SETUP_KERNELS = ("g1_add_distinct", "g2_add_distinct", "mont_mul_fq", "mont_inv_fq")
-VOTE_KERNELS = ("mont_mul_fq", "mont_mul_fr", "g1_madd", "g2_madd", "g1_add", "g2_add", "g1_double", "g2_double",
-                "mont_inv_fq", "mont_inv_fr")
+VOTE_KERNELS = ("mont_mul_fq", "mont_mul_fr", "g1_madd_scan", "g2_madd_scan", "g1_add_shift", "g2_add_shift",
+                "g1_add", "g2_add", "g1_double", "g2_double", "mont_inv_fq", "mont_inv_fr")
+# K2's single-row form: checked in [kernels], launched no time on the vote path
+OFF_VOTE_PATH = ("g1_madd", "g2_madd")
 # the host-witness arm inverts nothing in Fr on the card (its witness is the host's)
 HOST_ARM_KERNELS = tuple(k for k in VOTE_KERNELS if k != "mont_inv_fr")
 COMBINE_KERNELS = ("g1_addx", "g2_addx")
@@ -101,6 +107,19 @@ CHAIN_SHAPES = {
     "g1_double": ((16, 10), (480, 4), (480, 10)),
     "g2_double": ((16, 10), (32, 4), (480, 10)),
 }
+# the MSM kernels at the vote path's shapes, the first of each being its
+# kernels-line row: the bucket scan over the h MSM's schedule (16 parts of
+# 2^15 - 1 scalars at w = 10: 80 rows of 248,832 lanes; None = every lane)
+# and, in G2, its first 32 rows, the shape of the b2 MSM's; the suffix
+# round over the 16 x 27 windows of 512 buckets at the smallest and largest
+# shift.  Also 2^14 lanes of each, for the kernel table.
+MSM_SHAPES = {
+    "g1_madd_scan": ((80, None), (80, 1 << 14)),
+    "g2_madd_scan": ((32, None), (32, 1 << 14)),
+    "g1_add_shift": ((432, 512, 1), (432, 512, 256), (32, 512, 1)),
+    "g2_add_shift": ((432, 512, 1), (432, 512, 256), (32, 512, 1)),
+}
+H_POINTS = (1 << 15) - 1  # the h query's points: the affine table the scan reads
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -172,7 +191,7 @@ def device_ms(fn, reps: int, family: str):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -352,7 +371,103 @@ def check_kernels(rnd) -> dict:
     for kname, rows in check_chains(rnd, points).items():
         main = {k: rows[0][k] for k in ("equal", "max_abs_err", "ms", "plain_ms", "lanes", "work")}
         results.setdefault(kname, main)["chains"] = rows
+    for kname, rows in check_msm_kernels(rnd).items():
+        results[kname] = dict({k: rows[0][k] for k in ("equal", "max_abs_err", "ms", "plain_ms", "lanes", "work")},
+                              shapes=rows)
     return results
+
+
+def _msm_inputs(g2: bool, rnd, dev):
+    """The scan's table and codes and the suffix grid, on the card: the h
+    schedule's codes over a table of H_POINTS random field elements, with
+    testing.scan_lanes' special lanes in lanes 0-6 (their points at the
+    table's first indices); a grid of random finite points with
+    testing.shift_grid's special lanes in the first 16 of row 0."""
+    import torch
+
+    from vote_saver_tpu_torch import testing
+    from vote_saver_tpu_torch.micro import random_limbs
+    from vote_saver_tpu_torch.ops import msm_sched as ms
+
+    L = 12
+    gen = torch.Generator(device=dev).manual_seed(SEED + g2)
+    tail = (2, L) if g2 else (L,)
+    table = [random_limbs("fq", H_POINTS * len(tail), dev, gen).reshape((H_POINTS,) + tail) for _ in range(2)]
+    spts, scodes = testing.scan_lanes(g2, 24, 7, 4, rnd)
+    sxy = (ms.g2_affine_to_device if g2 else ms.g1_affine_to_device)(spts, dev)
+    for t, s in zip(table, sxy):
+        t[: len(spts)] = s
+    codes = torch.from_numpy(testing.h_schedule(SEED).codes).to(dev)
+    codes[:, :7] = 0
+    codes[:4, :7] = torch.from_numpy(scodes).to(dev)
+    grid = [random_limbs("fq", 432 * 512 * len(tail), dev, gen).reshape((432, 512) + tail) for _ in range(3)]
+    special = testing.shift_grid(g2, 1, 16, rnd)
+    for k, c in enumerate(grid):
+        c[0, :16] = _to_dev([[pt[k] for pt in special]], dev)[0]
+    return tuple(table), codes, tuple(grid)
+
+
+def check_msm_kernels(rnd, dev="cuda") -> dict:
+    """The bucket scan and the suffix round at MSM_SHAPES against their
+    plain versions on the same inputs (the scan's special lanes must flag
+    as testing.SCAN_EXC): equality, the event-timed ms a call, the
+    profiler's device ms a launch, the plain version's ms (one call: at the
+    path's shapes it takes seconds) and the work the bound counts: the
+    scan's madds past each lane's first entry (which lifts its point) and
+    the rounds' adds with a partner."""
+    import torch
+
+    from vote_saver_tpu_torch.micro import time_ms, timed
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.testing import SCAN_EXC
+
+    out = {}
+    for g2 in (False, True):
+        pre = "g2" if g2 else "g1"
+        table, codes, grid = _msm_inputs(g2, rnd, torch.device(dev))
+        scan = hf.g2_madd_scan if g2 else hf.g1_madd_scan
+        shift_add = hf.g2_add_shift if g2 else hf.g1_add_shift
+        for kname in (f"{pre}_madd_scan", f"{pre}_add_shift"):
+            rows = []
+            for shape in MSM_SHAPES[kname]:
+                if kname.endswith("scan"):
+                    steps, lanes = shape
+                    c = codes[:steps, :lanes].contiguous()
+                    kern = lambda c=c: scan(table, c)  # noqa: E731
+                    plain = lambda c=c: hf.madd_scan_plain(g2, table, c)  # noqa: E731
+                    live = c != 0
+                    mads = _curve_mads("madd", g2, int(live.sum()) - int(live.any(dim=0).sum()))
+                    ins, lanes = (*table, c), c.shape[1]
+                    family, desc = "k_madd_scan", f"{steps} rows x {lanes} lanes"
+                else:
+                    nrows, bw, shift = shape
+                    gr = tuple(t[:nrows].contiguous() for t in grid)
+                    kern = lambda gr=gr, shift=shift: shift_add(gr, shift)  # noqa: E731
+                    plain = lambda gr=gr, shift=shift: hf.add_shift_plain(g2, gr, shift)  # noqa: E731
+                    fin = (gr[2] != 0).reshape(nrows, bw, -1).any(dim=-1)
+                    pairs = fin[:, : bw - shift] & fin[:, shift:] if shift < bw else fin[:, :0]
+                    mads = _curve_mads("add", g2, int(pairs.sum()))
+                    ins, lanes = gr, nrows * bw
+                    family, desc = "k_add_shift", f"{nrows} x {bw} shift {shift}"
+                got = kern()
+                exp, plain_ms = timed(plain)
+                if kname.endswith("scan"):
+                    got, exp = (*got[0], got[1]), (*exp[0], exp[1])
+                if kname.endswith("scan") and got[-1][: len(SCAN_EXC)].tolist() != SCAN_EXC:
+                    fail(f"{kname} exc flags on the special lanes: {got[-1][: len(SCAN_EXC)].tolist()}")
+                reps = 3 if lanes > (1 << 14) else 10
+                row = dict(shape=list(shape), lanes=lanes, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
+                           max_abs_err=_diff(got, exp), ms=time_ms(kern, reps),
+                           device_ms=device_ms(kern, reps, family), plain_ms=plain_ms,
+                           work=dict(bytes=_nbytes(*ins, *got), mads=mads))
+                log(f"[kernels] {kname}: {desc} equal={row['equal']} max_abs_err={row['max_abs_err']} kernel "
+                    f"{row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} a launch, plain {plain_ms:.1f} ms")
+                if not row["equal"]:
+                    fail(f"{kname} at {desc} disagrees with its plain version")
+                rows.append(row)
+                del got, exp
+            out[kname] = rows
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -425,15 +540,16 @@ def check_combination(cases) -> dict:
             fail(f"{group} bucket phase hit the madd doubling corner")
         r = {}
         for adder, distinct in (("complete", False), ("addx", True)):
-            addx = ms._addx(group, distinct=distinct)
+            # the complete adder's suffix rounds run as K3's shift form, as on the vote path
+            addx, add_shift = ms._addx(group, distinct=distinct), None if distinct else ms._add_shift(group)
             hf.reset_launches()
-            res, flag = ms.combination_phase(group, buckets, sched, addx)
+            res, flag = ms.combination_phase(group, buckets, sched, addx, add_shift)
             torch.cuda.synchronize()
             launches = {k: v for k, v in hf.launches.items() if v}
             times = []
             for _ in range(3):
                 t0 = time.perf_counter()
-                ms.combination_phase(group, buckets, sched, addx)
+                ms.combination_phase(group, buckets, sched, addx, add_shift)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
             flagged = 0
@@ -581,14 +697,43 @@ def check_golden() -> None:
 def kernel_key(name: str) -> str | None:
     """The port's kernel name (``hopper_field.KERNELS``) of a device kernel
     as the profiler names it (``(anonymous namespace)::k_double<Fq2,
-    MulLoop>(...)``), None for a kernel that is not the port's."""
-    m = re.search(r"\bk_(mont_mul|mont_inv|madd|add_distinct|addx|add|double)<([^,>]+)", name)
+    MulLoop>(...)``) or as ``_build.short_name`` shortens ptxas's name, None
+    for a kernel that is not in hopper_field."""
+    m = re.search(r"\bk_(mont_mul_mode|mont_mul|mont_inv|madd_scan|madd|add_distinct|addx|add_shift|add|double)"
+                  r"<([^,>]+)", name)
     if not m:
         return None
     fam, arg = m.groups()
+    if fam.startswith("mont_mul"):
+        fam = "mont_mul"
+        mode = "_v1" if "MulV1" in name else "_fold" if "MulFold" in name else ""
+        return f"{fam}_{'fq' if 'FqParams' in arg else 'fr'}{mode}"
     if fam.startswith("mont_"):
         return f"{fam}_{'fq' if 'FqParams' in arg else 'fr'}"
     return f"{'g2' if 'Fq2' in arg else 'g1'}_{fam}"
+
+
+def instance_name(short: str) -> str | None:
+    """The kernels-line name of a kernel in ptxas's report (shortened by
+    ``_build.short_name``): hopper_field's through kernel_key, the probes'
+    (``k_mul_chain<P,M,CHAINS,UNROLL>``, ``k_op<KIND,CHAINS>``) from
+    micro's tables; None for a device function."""
+    from vote_saver_tpu_torch import micro
+
+    key = kernel_key(short)
+    if key is not None:
+        return key
+    m = re.match(r"k_(mul_chain|op)<(.*)>$", short)
+    if not m:
+        return None
+    args = m.group(2).split(",")
+    if m.group(1) == "op":
+        return f"op_{list(micro.OP_KINDS)[int(args[0])]}" + ("_x8" if args[1] == "8" else "")
+    mode = {"MulLoop": "loop", "MulV1": "v1", "MulFold": "fold"}[args[1]]
+    for probe, (_idx, pmode, chains, unroll) in micro.CHAIN_PROBES.items():
+        if (pmode, chains, unroll) == (mode, int(args[2]), int(args[3])):
+            return f"mul_chain_{probe}"
+    return None
 
 
 def profile_batch(batch):
@@ -716,31 +861,9 @@ def run_slice(rnd, e: dict) -> dict:
         missing = [k for k in kernels if counts[k] == 0]
         if missing:
             fail(f"kernels of the {arm} vote arm never launched: {missing}")
-    return out
-
-
-def _short(mangled: str) -> str:
-    """k_add<Fq2,MulLoop>-style name of a mangled kernel or device function."""
-    m = re.search(r"(k_[a-z_]+|mul_fold|fq_mul_call)(I.*)?$", mangled)
-    if not m:
-        return mangled
-    args = re.findall(r"FqParams|FrParams|Fq2|MulLoop|MulV1|MulFold|Li\d+E", m.group(2) or "")
-    args = [a[2:-1] if a.startswith("Li") else a for a in args]
-    return m.group(1) + (f"<{','.join(args)}>" if args else "")
-
-
-def resource_lines(report: str) -> list[tuple[str, str, str]]:
-    """ptxas's report -> (function, registers, spill-store bytes) per
-    function."""
-    out, name, spill = [], None, "0"
-    for line in report.splitlines():
-        if "Function properties for" in line:
-            name = _short(line.split("for", 1)[1].strip())
-        elif "spill stores" in line:
-            spill = line.split("bytes spill stores")[0].split(",")[-1].strip()
-        elif "Used" in line and "registers" in line and name:
-            out.append((name, line.split("Used", 1)[1].split("registers")[0].strip(), spill))
-            name, spill = None, "0"
+        stray = {k: counts[k] for k in OFF_VOTE_PATH if counts[k]}
+        if stray or (prof and any(k in prof["port"] for k in OFF_VOTE_PATH)):
+            fail(f"the {arm} vote arm launched K2's single-row form: {stray}")
     return out
 
 
@@ -830,8 +953,10 @@ def main() -> None:
     if not nb.available():
         fail("the native host library did not build")
     log(f"[build] {', '.join(p.name for p in kl.paths)}: {kl.build_seconds:.1f} s")
-    for name, regs, spill in resource_lines(kl.resource_usage):
+    resources = {}
+    for name, regs, spill in _build.resource_lines(kl.resource_usage):
         log(f"[build] {name}: {regs} registers, {spill} B spill stores")
+        resources[instance_name(name)] = (regs, spill)
 
     rnd = random.Random(SEED)
     kern = check_kernels(rnd)
@@ -844,7 +969,7 @@ def main() -> None:
 
     kern.update(probe_entries(probes))
     paths = dict.fromkeys(SETUP_KERNELS, setup_launches)
-    paths.update(dict.fromkeys(VOTE_KERNELS, vote_launches))
+    paths.update(dict.fromkeys((*VOTE_KERNELS, *OFF_VOTE_PATH), vote_launches))
     paths.update(dict.fromkeys(COMBINE_KERNELS, {k: combine[k[:2]]["addx"]["launches"].get(k, 0)
                                                  for k in COMBINE_KERNELS}))
     paths.update(dict.fromkeys((*K1_MODE_KERNELS, *micro.KERNELS), probes["launches"]))
@@ -853,9 +978,11 @@ def main() -> None:
         src = hf if k in hf.KERNELS else micro
         r = kern[k]
         bound_ms, bound_by = bound(r["work"], probes["res"]["rates"])
+        regs, spill = resources.get(k, (None, None))
         entries.append(dict(name=k, route="cuda", source=src.SOURCES[k], replaces=src.REPLACES[k],
                             launches=paths[k][k], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                            plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                            registers=regs, spill_bytes=spill))
         # a kernel faster than its bound would mean a rate above is not the card's peak
         note = "; FASTER THAN ITS BOUND" if r["ms"] < bound_ms else ""
         log(f"[bound] {k}: {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}, "
@@ -870,6 +997,15 @@ def main() -> None:
                 log(f"[bound] {k} at {row['lanes']} lanes x {row['times']}: {row['ms']:.4f} ms a call, device "
                     f"{_ms(row['device_ms'])} a launch, plain {row['plain_ms']:.3f} ms, against a bound of "
                     f"{b_ms:.5f} ms ({b_by}); {gpu}")
+        # the MSM kernels at the vote path's shapes, each row with its own bound
+        if "shapes" in r:
+            entries[-1]["shapes"] = []
+            for row in r["shapes"]:
+                b_ms, b_by = bound(row["work"], probes["res"]["rates"])
+                entries[-1]["shapes"].append(dict({k2: row[k2] for k2 in (
+                    "shape", "lanes", "max_abs_err", "ms", "device_ms", "plain_ms")}, bound_ms=b_ms, bound_by=b_by))
+                log(f"[bound] {k} at {row['shape']}: {row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} "
+                    f"a launch, plain {row['plain_ms']:.1f} ms, against a bound of {b_ms:.5f} ms ({b_by}); {gpu}")
     log(f"[done] {time.perf_counter() - t_all:.1f} s (kernel build {kl.build_seconds:.1f} s)")
     log(gpu)
     print(json.dumps({"kernels": entries}), flush=True)

@@ -6,11 +6,13 @@ only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Each kernel (K1 in Fq and Fr in each multiplier mode and as the Fermat
-inversion, K2-K4, K4 with a count of doublings, K3d and K5/K6 in G1 and G2)
-must equal its plain PyTorch version limb for limb on the special lanes of
-``vote_saver_tpu_torch.testing``, in one launch per call; a scheduled MSM must
-equal the native host MSM, and so must a G2 MSM's buckets combined through
-the flagged distinct add K6; the probes K7-K10 must pass their host-oracle
+inversion, K2-K4, K4 with a count of doublings, K2's bucket scan, K3's
+suffix round, K3d and K5/K6 in G1 and G2) must equal its plain PyTorch
+version limb for limb on the special lanes of
+``vote_saver_tpu_torch.testing``, in one launch per call; a scheduled MSM,
+through one scan launch and the suffix rounds' shift form, must equal the
+native host MSM, and so must a G2 MSM's buckets combined through the flagged
+distinct add K6; the probes K7-K10 must pass their host-oracle
 parity; a proof made on the card must be byte-identical to the same proof
 made by the plain versions on the CPU; setup on the card must write the
 host-native arm's CRS.
@@ -34,7 +36,7 @@ from vote_saver_tpu_torch.protocol import groth16 as tg
 from vote_saver_tpu_torch.protocol import marshal as M
 from vote_saver_tpu_torch.refimpl import curves as rc
 from vote_saver_tpu_torch.refimpl import jacobian as rj
-from vote_saver_tpu_torch.testing import ADDX_EXC, MADD_EXC, special_lanes
+from vote_saver_tpu_torch.testing import ADDX_EXC, MADD_EXC, SCAN_EXC, scan_lanes, shift_grid, special_lanes
 from vote_saver_tpu_torch.utils.rng import FrRandom
 
 pytestmark = pytest.mark.cuda
@@ -202,9 +204,14 @@ def test_scheduled_msm_matches_native(dev, g2):
     scalars = [rnd.randrange(R) if i % 5 else rnd.choice((0, 1)) for i in range(512)]
     sched = ms.build_schedule(scalars, 8, np.array([p is None for p in pts]))
     to_dev = ms.g2_affine_to_device if g2 else ms.g1_affine_to_device
+    before = dict(hf.launches)
     res, exc = ms.msm_device(group, to_dev(pts, dev), sched)
     assert not bool(exc)
     assert (co.g2_from_device if g2 else co.g1_from_device)(res) == [nb.msm(pts, scalars, group=group)]
+    # one scan launch, no single-row madd, and 2 x 7 suffix rounds (w = 8: 128 buckets a window)
+    assert hf.launches[f"{group}_madd_scan"] == before[f"{group}_madd_scan"] + 1
+    assert hf.launches[f"{group}_madd"] == before[f"{group}_madd"]
+    assert hf.launches[f"{group}_add_shift"] == before[f"{group}_add_shift"] + 14
 
 
 def test_prove_on_card_matches_cpu(dev):
@@ -250,3 +257,57 @@ def test_setup_on_card_matches_host(dev):
     assert hf.launches["g1_add_distinct"] > before[0] and hf.launches["g2_add_distinct"] > before[1]
     hpk, hvk = tg.setup(cs, FrRandom(6), device="host")
     assert M.ser_groth16_pk(pk) == M.ser_groth16_pk(hpk) and M.ser_groth16_vk(vk) == M.ser_groth16_vk(hvk)
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_madd_scan_matches_plain_and_the_row_loop(dev, g2):
+    """The scan in one launch: its plain version, and the single-row kernel
+    launched once per row, give the same limbs and flags; a code naming no
+    point raises IndexError in both, before anything runs on the card."""
+    pts, codes = scan_lanes(g2, 64, 1024, 16, random.Random(12 + g2))
+    pxy = (ms.g2_affine_to_device if g2 else ms.g1_affine_to_device)(pts, dev)
+    c = torch.from_numpy(codes).to(dev)
+    scan, madd = (hf.g2_madd_scan, hf.g2_madd) if g2 else (hf.g1_madd_scan, hf.g1_madd)
+    name = "g2_madd_scan" if g2 else "g1_madd_scan"
+    before = hf.launches[name]
+    acc, exc = scan(pxy, c)
+    assert hf.launches[name] == before + 1
+    pacc, pexc = hf.madd_scan_plain(g2, pxy, c)
+    assert all(torch.equal(x, y) for x, y in zip(acc, pacc)) and torch.equal(exc, pexc)
+    assert exc[: len(SCAN_EXC)].tolist() == SCAN_EXC
+    loop = (co.g2_ops() if g2 else co.g1_ops()).infinity_like(torch.zeros_like(acc[0]))
+    lexc = torch.zeros_like(exc)
+    for row in c:
+        pidx = ((row & ((1 << 30) - 1)) - 1).clamp(min=0)
+        loop, e = madd(loop, (pxy[0].index_select(0, pidx), pxy[1].index_select(0, pidx)),
+                       ((row >> 30) & 1) != 0, row != 0, out=loop)
+        lexc |= e
+    assert all(torch.equal(x, y) for x, y in zip(acc, loop)) and torch.equal(exc, lexc)
+    bad = c.clone()
+    bad[3, 100] = len(pts) + 1
+    with pytest.raises(IndexError):
+        hf.madd_scan_plain(g2, pxy, bad)
+    with pytest.raises(IndexError):
+        scan(pxy, bad)
+    assert hf.launches[name] == before + 1
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_add_shift_matches_plain(dev, g2):
+    """One suffix round per launch over a 4 x 512 grid, at shifts below, at
+    and above the window, with equal, opposite and infinite operands."""
+    rows, bw = 4, 512
+    pts = shift_grid(g2, rows, bw, random.Random(13 + g2))
+    flat = tuple(lb.ints_to_tensor([pt[i] for pt in pts], lb.FQ, dev) for i in range(3))
+    grid = tuple(c.reshape((rows, bw) + tuple(c.shape[1:])) for c in flat)
+    add_shift = hf.g2_add_shift if g2 else hf.g1_add_shift
+    name = "g2_add_shift" if g2 else "g1_add_shift"
+    for shift in (1, 2, 4, 16, 256, 512, 700):
+        before = hf.launches[name]
+        got = add_shift(grid, shift)
+        assert hf.launches[name] == before + 1
+        assert all(torch.equal(x, y) for x, y in zip(got, hf.add_shift_plain(g2, grid, shift))), shift
+    out = tuple(torch.empty_like(c) for c in grid)
+    assert add_shift(grid, 8, out=out) is out
+    with pytest.raises(ValueError):
+        add_shift(grid, 1, out=grid)

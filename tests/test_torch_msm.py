@@ -10,6 +10,7 @@ with uniform scalars, 0/1-skewed scalars that spill into orphan lanes and
 equality throughout.
 """
 
+import inspect
 import random
 
 import jax.numpy as jnp
@@ -141,12 +142,25 @@ def test_doubling_corner_takes_var_base_fallback():
 
     def fallback():
         taken.append(True)
-        return ms.var_base_fallback("g1", pts, scalars)()
+        return ms.var_base_fallback("g1", pts, scalars, pxy[0].device)()
 
     res = ms.msm_scheduled("g1", pxy, sched, fallback=fallback)
     assert taken and co.g1_from_device(res) == [rc.g1_mul(p, 6)]
     with pytest.raises(RuntimeError):
         ms.msm_scheduled("g1", pxy, sched)
+
+
+def test_var_base_fallback_runs_on_the_device_it_is_given():
+    """The fallback has no default device (it used to default to the CPU,
+    so on the card a scheduled MSM's fallback quietly returned a CPU
+    result): its result lies on the device the caller names."""
+    assert inspect.signature(ms.var_base_fallback).parameters["device"].default is inspect.Parameter.empty
+    rnd = random.Random(7)
+    pts = [rc.g1_mul(rc.g1_gen, rnd.randrange(1, R)) for _ in range(3)]
+    for device in ("cpu", torch.device("cpu")):
+        res = ms.var_base_fallback("g1", pts, [5, 0, 7], device)()
+        assert all(c.device == torch.device(device) for c in res)
+        assert co.g1_from_device(res) == [rj.msm_host(pts, [5, 0, 7])]
 
 
 def test_var_base_msm_batches_parts():

@@ -24,6 +24,17 @@
 // so all three agree limb for limb.  The 64-bit accumulator form lets nvcc
 // pick IMAD.WIDE / IADD3 carry sequences; hand-scheduled PTX carry chains
 // (mad.lo.cc / madc.hi) are left to a later tuning change.
+//
+// Inlined or called: `mul` is inlined where it is used, except in the curve
+// kernels.  There each Fq multiply is a call of one out-of-line copy
+// (mul_modes.cuh: MulCall in the G1 kernels K2, its scan, K3, its shift
+// form and K4, all of kernels.cu; fq_mul_call inside the Fq2 multiply of
+// every G2 kernel).  Inlined, a G1 formula is 7-23 copies of a 300
+// multiply-add body: the call form ran 0.45-0.6x the inlined form's time
+// in each of those kernels on the card, at 16 lanes and at 248,832
+// (PERF.md, Findings), with fewer registers (K3 254 -> 234, the
+// scan 244 -> 198) and half the ptxas time.  The distinct adds K3d and K5/K6
+// (add_distinct.cu) and K1 keep the inlined form.
 #pragma once
 
 #include <cstdint>
@@ -269,6 +280,20 @@ __device__ __forceinline__ void store(uint32_t* base, int64_t i, const Fp<P>& x)
 __device__ __forceinline__ void load(Fq2& x, const uint32_t* base, int64_t i) {
   load(x.c0, base, 2 * i);
   load(x.c1, base, 2 * i + 1);
+}
+
+// Read-only loads (ld.global.nc) of a table that stays in L2 for the whole
+// kernel, such as the bucket scan's affine points.
+template <class P>
+__device__ __forceinline__ void load_ro(Fp<P>& x, const uint32_t* __restrict__ base, int64_t i) {
+  const uint32_t* p = base + i * P::L;
+#pragma unroll
+  for (int j = 0; j < P::L; ++j) x.v[j] = __ldg(p + j);
+}
+
+__device__ __forceinline__ void load_ro(Fq2& x, const uint32_t* __restrict__ base, int64_t i) {
+  load_ro(x.c0, base, 2 * i);
+  load_ro(x.c1, base, 2 * i + 1);
 }
 
 __device__ __forceinline__ void store(uint32_t* base, int64_t i, const Fq2& x) {

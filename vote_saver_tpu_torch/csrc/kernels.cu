@@ -4,7 +4,12 @@
 //      k_mont_inv<P>  <- the same call, repeated by field_ops.FieldOps.inv's
 //                        lax.scan: the whole Fermat inversion in one launch
 //   K2 k_madd<E>      <- pallas_field._g1_madd_call / _g2_madd_call
+//      k_madd_scan<E> <- the same call, repeated by msm_sched._msm_device's
+//                        lax.scan over schedule rows: the bucket scan in one
+//                        launch
 //   K3 k_add<E>       <- pallas_field._g1_add_call / _g2_add_call (complete)
+//      k_add_shift<E> <- the same call in _suffix_and_total's rounds, with
+//                        the roll and select of its partner inside
 //   K4 k_double<E>    <- pallas_field._g1_dbl_call / _g2_dbl_call, with a
 //                        count: the fori_loop of doublings that msm_sched's
 //                        _horner and curve_ops' scalar_mul_windowed wrap
@@ -17,7 +22,9 @@
 // Bound and design notes: field.cuh (arithmetic), mul_modes.cuh (the
 // multiplier modes) and curve.cuh (formulas).  Every kernel takes the
 // multiplier mode as a template parameter; here each is instantiated in the
-// default `loop` mode only (K1's v1 and fold instances: mont_mul_modes.cu).
+// default `loop` mode only (K1's v1 and fold instances: mont_mul_modes.cu),
+// its CIOS body inlined or, in the G1 curve kernels (MulCall), called out of
+// line: field.cuh says why.
 // Register use and spills per kernel are printed by `nvcc --resource-usage`
 // at build time (ops/_build.py keeps the report beside the library).
 //
@@ -33,6 +40,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int32_t kIdxMask = (1 << 30) - 1;
 
 __host__ __forceinline__ unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -126,6 +134,108 @@ __global__ void __launch_bounds__(kThreads)
   store(oz, i, r.z);
 }
 
+// The affine point `code` names in the table, or (0, 0) for an idle code.
+// The wrapper (hopper_field._madd_scan) has checked that every code names a
+// point of the table.
+template <class E>
+__device__ __forceinline__ void scan_point(int32_t code, const uint32_t* __restrict__ px,
+                                           const uint32_t* __restrict__ py, E& x, E& y) {
+  if (code == 0) {
+    x = zero_of<E>();
+    y = zero_of<E>();
+    return;
+  }
+  const long long k = max((code & kIdxMask) - 1, 0);
+  load_ro(x, px, k);
+  load_ro(y, py, k);
+}
+
+// K2's bucket scan: the whole (steps, lanes) schedule in one launch.  Each
+// thread owns one bucket lane: it starts from canonical infinity (1, 1, 0),
+// keeps the Jacobian accumulator and the OR of its doubling-corner flags in
+// registers across every row, and writes both once.  Row s: code =
+// codes[s, lane] (0 idle, else (pidx + 1) | sign << 30), the affine point
+// pidx read from the table, jac_madd as k_madd runs it.  Each lane runs the
+// same madds in the same order as one k_madd launch per row, so the limbs
+// and exc are those of the row loop (msm_sched.bucket_phase before the scan).
+//
+// What bounds it: the madd's 11 Fq multiplies (G1; G2 29) per entry, as in
+// k_madd.  What it removes: per row and lane, k_madd read and wrote the
+// 144 B (G1) accumulator and read a 96 B point that an index_select had
+// gathered and written, and each row paid a launch plus five decode ops and
+// two gathers.  Here a row costs a 4 B coalesced code and a read of the
+// point table (at most 2^15 points: 3.1 MB in G1, 6.3 MB in G2), which
+// stays in L2.  Row s + 1's loads are issued before row s's multiplies, so
+// their L2 latency hides behind the arithmetic, at the cost of a second
+// point in registers (G1 198 registers against 194 without; 1-4% faster on
+// the card at the vote path's schedules, PERF.md).
+template <class E, class M>
+__global__ void __launch_bounds__(kThreads)
+    k_madd_scan(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                const int32_t* __restrict__ codes, int steps, long long lanes, uint32_t* ox,
+                uint32_t* oy, uint32_t* oz, int32_t* exc) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= lanes) return;
+  Jac<E> acc = jac_infinity<E>();
+  uint32_t e = 0u;
+  int32_t code = steps > 0 ? __ldg(codes + i) : 0;
+  E x2, y2;
+  scan_point(code, px, py, x2, y2);
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    const int32_t next = s + 1 < steps ? __ldg(codes + (long long)(s + 1) * lanes + i) : 0;
+    E nx, ny;
+    scan_point(next, px, py, nx, ny);
+    e |= jac_madd<E, M>(acc, x2, y2, ((code >> 30) & 1) != 0, code != 0);
+    code = next;
+    x2 = nx;
+    y2 = ny;
+  }
+  store(ox, i, acc.x);
+  store(oy, i, acc.y);
+  store(oz, i, acc.z);
+  exc[i] = (int32_t)e;
+}
+
+// K3 in the form the MSM's suffix rounds run it: over the (rows, bw) bucket
+// grid flattened to n = rows * bw lanes,
+//   out[w, b] = add(in[w, b], b + shift < bw ? in[w, b + shift] : infinity)
+// with the complete jac_add; a lane with no partner keeps in[w, b], or
+// becomes canonical infinity (1, 1, 0) if it is infinite, which is what
+// jac_add(p, infinity) gives.  The partner is read here, so a round runs no
+// roll or select before it and allocates nothing (the caller ping-pongs two
+// buffers; out must not alias in).
+//
+// Each round stays one launch (9 a pass, 18 per MSM): a form that ran all
+// rounds in one launch would hold a window's 512 partial sums (72 KB in G1,
+// 147 KB in G2) between rounds behind a block-wide barrier, and at this
+// kernel's 234 registers (G1; G2 255 and 1,520 B of spill stores, ptxas)
+// a block of 512 threads would need 119,808 of the SM's 65,536.
+template <class E, class M>
+__global__ void __launch_bounds__(kThreads)
+    k_add_shift(const uint32_t* px, const uint32_t* py, const uint32_t* pz, uint32_t* ox,
+                uint32_t* oy, uint32_t* oz, long long n, int bw, int shift) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Jac<E> p;
+  load(p.x, px, i);
+  load(p.y, py, i);
+  load(p.z, pz, i);
+  Jac<E> r;
+  if ((long long)(i % bw) + shift < bw) {
+    Jac<E> q;
+    load(q.x, px, i + shift);
+    load(q.y, py, i + shift);
+    load(q.z, pz, i + shift);
+    r = jac_add<E, M>(p, q);
+  } else {
+    r = is_zero(p.z) ? jac_infinity<E>() : p;
+  }
+  store(ox, i, r.x);
+  store(oy, i, r.y);
+  store(oz, i, r.z);
+}
+
 // `times` >= 1 doublings of each lane, in registers between one load and one
 // store.  Canonical infinity (1, 1, 0) doubles to itself through the
 // formula, so `times` doublings here give the limbs of `times` launches.
@@ -180,7 +290,7 @@ int vs_madd(int g2, const void* ax, const void* ay, const void* az, const void* 
         (u32p)ax, (u32p)ay, (u32p)az, (u32p)qx, (u32p)qy, (const uint8_t*)sign,
         (const uint8_t*)active, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int32_t*)exc, n);
   } else {
-    k_madd<Fq><<<blocks_for(n), kThreads, 0, s>>>(
+    k_madd<Fq, MulCall><<<blocks_for(n), kThreads, 0, s>>>(
         (u32p)ax, (u32p)ay, (u32p)az, (u32p)qx, (u32p)qy, (const uint8_t*)sign,
         (const uint8_t*)active, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int32_t*)exc, n);
   }
@@ -196,9 +306,9 @@ int vs_add(int g2, const void* px, const void* py, const void* pz, const void* q
                                                   (u32p)qy, (u32p)qz, (uint32_t*)ox,
                                                   (uint32_t*)oy, (uint32_t*)oz, n);
   } else {
-    k_add<Fq><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz, (u32p)qx,
-                                                 (u32p)qy, (u32p)qz, (uint32_t*)ox,
-                                                 (uint32_t*)oy, (uint32_t*)oz, n);
+    k_add<Fq, MulCall><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz, (u32p)qx,
+                                                            (u32p)qy, (u32p)qz, (uint32_t*)ox,
+                                                            (uint32_t*)oy, (uint32_t*)oz, n);
   }
   return (int)cudaGetLastError();
 }
@@ -221,9 +331,40 @@ int vs_double(int g2, const void* px, const void* py, const void* pz, void* ox, 
                                                      (uint32_t*)ox, (uint32_t*)oy,
                                                      (uint32_t*)oz, n, times);
   } else {
-    k_double<Fq><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz,
-                                                    (uint32_t*)ox, (uint32_t*)oy,
-                                                    (uint32_t*)oz, n, times);
+    k_double<Fq, MulCall><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz,
+                                                               (uint32_t*)ox, (uint32_t*)oy,
+                                                               (uint32_t*)oz, n, times);
+  }
+  return (int)cudaGetLastError();
+}
+
+// points (npts, L) / (npts, 2, L), every code naming one of them; codes
+// (steps, lanes) int32; out (lanes, ...) x3 and exc (lanes,) int32.
+int vs_madd_scan(int g2, const void* px, const void* py, const void* codes, int steps,
+                 long long lanes, void* ox, void* oy, void* oz, void* exc, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (g2) {
+    k_madd_scan<Fq2, MulLoop><<<blocks_for(lanes), kThreads, 0, s>>>(
+        (u32p)px, (u32p)py, (const int32_t*)codes, steps, lanes, (uint32_t*)ox, (uint32_t*)oy,
+        (uint32_t*)oz, (int32_t*)exc);
+  } else {
+    k_madd_scan<Fq, MulCall><<<blocks_for(lanes), kThreads, 0, s>>>(
+        (u32p)px, (u32p)py, (const int32_t*)codes, steps, lanes, (uint32_t*)ox, (uint32_t*)oy,
+        (uint32_t*)oz, (int32_t*)exc);
+  }
+  return (int)cudaGetLastError();
+}
+
+// coordinates (rows * bw, ...) in and out, 1 <= shift; out must not alias in.
+int vs_add_shift(int g2, const void* px, const void* py, const void* pz, void* ox, void* oy,
+                 void* oz, long long n, int bw, int shift, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (g2) {
+    k_add_shift<Fq2, MulLoop><<<blocks_for(n), kThreads, 0, s>>>(
+        (u32p)px, (u32p)py, (u32p)pz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, bw, shift);
+  } else {
+    k_add_shift<Fq, MulCall><<<blocks_for(n), kThreads, 0, s>>>(
+        (u32p)px, (u32p)py, (u32p)pz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, bw, shift);
   }
   return (int)cudaGetLastError();
 }

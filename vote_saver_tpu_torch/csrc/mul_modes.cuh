@@ -17,8 +17,10 @@
 // A mode is a type with `template <class P> static Fp<P> mul(a, b)`.  The
 // kernels take it as a template parameter: K1 is instantiated in all three
 // modes (kernels.cu: loop; mont_mul_modes.cu: v1 and fold), the curve
-// kernels K2-K6 in loop only, and the probes of micro.cu in the modes they
-// compare.  All three return the same canonical value, limb for limb.
+// kernels K2-K6 in loop only (kernels.cu's G1 curve kernels as MulCall,
+// loop's body called out of line), and the probes of micro.cu in the modes
+// they compare.  All three return the same
+// canonical value, limb for limb.
 //
 // What bounds each: loop and v1, the 2L^2 + L 32x32->64 multiply-adds (Fq:
 // 300, Fr: 136) plus their carry chains.  Fold, per Fq multiply, 2,304 fp32
@@ -41,6 +43,21 @@ struct MulLoop {
   template <class P>
   __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
     return ::mul(a, b);
+  }
+};
+
+// MulLoop's body as a real call (one copy per kernel) instead of inlined at
+// every multiply: the G1 curve kernels' form (kernels.cu; field.cuh says
+// why), as G2's Karatsuba already calls its Fq multiply.  Same limbs.
+template <class P>
+__device__ __noinline__ Fp<P> mul_call(const Fp<P> a, const Fp<P> b) {
+  return ::mul(a, b);
+}
+
+struct MulCall {
+  template <class P>
+  __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
+    return mul_call<P>(a, b);
   }
 };
 

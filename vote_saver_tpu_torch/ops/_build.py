@@ -7,7 +7,7 @@ its own library, and their nvcc processes run at once, so the build takes
 as long as the slowest unit.  A library's name carries a digest of its
 sources and flags, so an edited source rebuilds and a stale library is
 never loaded.  ``ptxas`` resource usage (registers, spills) is kept beside
-each library in ``<lib>.resource.txt``.
+each library in ``<lib>.resource.txt``; ``resource_lines`` reads it.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -38,6 +39,8 @@ UNITS = {
         "vs_add": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
         "vs_mont_inv": [ctypes.c_int, _VP, _VP, _LL, _VP],
         "vs_double": [ctypes.c_int] + [_VP] * 6 + [_LL, ctypes.c_int, _VP],
+        "vs_madd_scan": [ctypes.c_int, _VP, _VP, _VP, ctypes.c_int, _LL] + [_VP] * 5,
+        "vs_add_shift": [ctypes.c_int] + [_VP] * 6 + [_LL, ctypes.c_int, ctypes.c_int, _VP],
     },
     "add_distinct.cu": {
         "vs_add_distinct": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
@@ -139,6 +142,33 @@ def compile_seconds(unit: str, defines: tuple[str, ...] = ()) -> tuple[float, st
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {unit} {defines}:\n{proc.stdout}\n{proc.stderr}")
     return secs, proc.stdout + proc.stderr
+
+
+def short_name(mangled: str) -> str:
+    """k_add<Fq2,MulLoop>-style name of a mangled kernel or device function
+    (template arguments: the field, the multiplier mode, integer
+    constants)."""
+    m = re.search(r"(k_[a-z_]+|mul_fold|mul_call|fq_mul_call)(I.*)?$", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"FqParams|FrParams|Fq2|MulLoop|MulV1|MulFold|MulCall|Li\d+E", m.group(2) or "")
+    args = [a[2:-1] if a.startswith("Li") else a for a in args]
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def resource_lines(report: str) -> list[tuple[str, int, int]]:
+    """ptxas's report -> (short_name, registers, spill-store bytes) per
+    kernel or out-of-line device function."""
+    out, name, spill = [], None, 0
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            name = short_name(line.split("for", 1)[1].strip())
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1].strip())
+        elif "Used" in line and "registers" in line and name:
+            out.append((name, int(line.split("Used", 1)[1].split("registers")[0].strip()), spill))
+            name, spill = None, 0
+    return out
 
 
 @functools.cache

@@ -7,7 +7,11 @@ keeps the signature and layout of its Pallas entry point:
      ``mont_inv(name, a)``: a^(N-2), the Fermat chain of K1 in one launch
   K2 ``g1_madd``/``g2_madd(acc, q_affine, sign, active) -> (acc', exc)``
                                                     <- g1/g2_madd_pallas
+     ``g1_madd_scan``/``g2_madd_scan(points_xy, codes) -> (acc, exc)``: the
+     bucket scan, every schedule row of an MSM in one launch
   K3 ``g1_add``/``g2_add(p, q)`` (complete)         <- g1/g2_add_pallas
+     ``g1_add_shift``/``g2_add_shift(coords, shift)``: one suffix round of
+     the MSM's combination phase, its partner read in the kernel
   K3d ``g1_add_distinct``/``g2_add_distinct(p, q)`` <- g1/g2_add_pallas(complete=False)
   K4 ``g1_double``/``g2_double(p, times=1)``        <- g1/g2_double_pallas,
      ``times`` doublings in one launch
@@ -17,7 +21,8 @@ K1's multiplier mode is an argument (the JAX package reads ``VSTPU_MUL``):
 ``loop`` (CIOS, every kernel's default), ``v1`` (separated operand
 scanning) or ``fold`` (digit columns and a constant-matrix fold,
 ``ops/fold_mul.py``); all three give the same canonical limbs.  The curve
-kernels run in ``loop``.
+kernels run in ``loop`` (the G1 ones of ``csrc/kernels.cu`` calling one
+out-of-line copy of its body).
 
 Coordinates are int32 tensors ``(..., L)`` (G1, Fq/Fr) or ``(..., 2, L)``
 (G2) of 32-bit Montgomery limbs.  On a CUDA tensor a wrapper launches its
@@ -49,6 +54,7 @@ KERNELS = (
     "g1_add_distinct", "g2_add_distinct",
     "mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold",
     "g1_addx", "g2_addx", "mont_inv_fq", "mont_inv_fr",
+    "g1_madd_scan", "g2_madd_scan", "g1_add_shift", "g2_add_shift",
 )
 # file:line of the pallas_call each instance replaces
 REPLACES = {
@@ -71,6 +77,12 @@ REPLACES = {
     # the K1 call that FieldOps.inv's scan (vote_saver_tpu/ops/field_ops.py:221) repeats
     "mont_inv_fq": "vote_saver_tpu/ops/pallas_field.py:786",
     "mont_inv_fr": "vote_saver_tpu/ops/pallas_field.py:786",
+    # the K2 call that _msm_device's row scan (vote_saver_tpu/ops/msm_sched.py:543-553) repeats
+    "g1_madd_scan": "vote_saver_tpu/ops/pallas_field.py:890",
+    "g2_madd_scan": "vote_saver_tpu/ops/pallas_field.py:923",
+    # the K3 call of _suffix_and_total's rounds (vote_saver_tpu/ops/msm_sched.py:492-505)
+    "g1_add_shift": "vote_saver_tpu/ops/pallas_field.py:517",
+    "g2_add_shift": "vote_saver_tpu/ops/pallas_field.py:570",
 }
 # the csrc/ translation unit each kernel is built from
 SOURCES = dict.fromkeys(KERNELS, "vote_saver_tpu_torch/csrc/kernels.cu")
@@ -462,6 +474,65 @@ def double_plain(g2: bool, p, times: int = 1):
     return tuple(map(_pack, p))
 
 
+def _infinity(g2: bool, lead: tuple, device):
+    """Canonical infinity (1, 1, 0) as int32 limbs with leading dims `lead`."""
+    L = FQ.num_limbs
+    x = torch.zeros(tuple(lead) + ((2, L) if g2 else (L,)), dtype=torch.int32, device=device)
+    one = _pack(HALF["fq"]._const("_one", device))
+    if g2:
+        x[..., 0, :] = one
+    else:
+        x[...] = one
+    return (x, x.clone(), torch.zeros_like(x))
+
+
+_IDX_MASK = (1 << 30) - 1
+
+
+def _check_codes(codes, npts: int):
+    """IndexError where a scan code names a point past a table of `npts`
+    (one reduction, read on the host): the kernel reads the table unchecked,
+    and a gather past it on the card is a device-side assert."""
+    if codes.numel() and int(torch.bitwise_and(codes, _IDX_MASK).amax()) > npts:
+        raise IndexError(f"a code names a point past the table of {npts}")
+
+
+def madd_scan_plain(g2: bool, points_xy, codes):
+    """The bucket scan as the row loop it replaces: from canonical infinity,
+    one madd_plain per row of `codes` ((steps, lanes) int32: 0 idle, else
+    (pidx + 1) | sign << 30) on the gathered points; exc is the OR of the
+    rows' flags.  A code naming a point past the table raises IndexError."""
+    px, py = points_xy
+    _check_codes(codes, px.shape[0])
+    lanes = codes.shape[1]
+    acc = _infinity(g2, (lanes,), px.device)
+    exc = torch.zeros((lanes,), dtype=torch.int32, device=px.device)
+    for row in codes:
+        active = row != 0
+        sign = ((row >> 30) & 1) != 0
+        pidx = ((row & _IDX_MASK) - 1).clamp(min=0)
+        acc, e = madd_plain(g2, acc, (px.index_select(0, pidx), py.index_select(0, pidx)), sign, active)
+        exc |= e
+    return acc, exc
+
+
+def shift_partner(coords, shift: int, inf):
+    """The suffix round's partners over a (rows, bw, ...) grid: coords[w, b
+    + shift] where b + shift < bw, else `inf` (coordinates of the grid's
+    shape)."""
+    bw = coords[0].shape[1]
+    valid = (torch.arange(bw, device=coords[0].device) + shift < bw).reshape((1, bw) + (1,) * (coords[0].dim() - 2))
+    return tuple(torch.where(valid, torch.roll(c, -shift, dims=1), i) for c, i in zip(coords, inf))
+
+
+def add_shift_plain(g2: bool, coords, shift: int):
+    """One suffix round as the combination phase ran it before k_add_shift:
+    the partners rolled in, canonical infinity past the window's end, then
+    add_plain."""
+    inf = _infinity(g2, tuple(coords[0].shape[:2]), coords[0].device)
+    return add_plain(g2, coords, shift_partner(coords, shift, inf))
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -604,6 +675,83 @@ def g1_madd(acc, q_affine, sign, active, out=None):
 def g2_madd(acc, q_affine, sign, active, out=None):
     """G2 variant: coords (B, 2, L)."""
     return _madd(True, acc, q_affine, sign, active, out)
+
+
+def _madd_scan(g2: bool, points_xy, codes):
+    px, py = points_xy
+    if not _on_cuda(px):
+        return madd_scan_plain(g2, points_xy, codes)
+    tail = (2, _L) if g2 else (_L,)
+    dev = px.device
+    npts = px.shape[0]
+    _check((px, py), tail, npts, dev)
+    if codes.dtype != torch.int32 or codes.device != dev or codes.dim() != 2 or not codes.is_contiguous():
+        raise ValueError(f"codes must be a contiguous (steps, lanes) int32 tensor on {dev}")
+    _check_codes(codes, npts)
+    steps, lanes = codes.shape
+    out = tuple(torch.empty((lanes,) + tail, dtype=torch.int32, device=dev) for _ in range(3))
+    exc = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    name = "g2_madd_scan" if g2 else "g1_madd_scan"
+    if lanes:
+        ptrs = [t.data_ptr() for t in (*out, exc)]
+        rc = _lib().vs_madd_scan(int(g2), px.data_ptr(), py.data_ptr(), codes.data_ptr(), steps, lanes,
+                                 *ptrs, _stream(dev))
+        _raise_on(rc, name)
+        launches[name] += 1
+    return out, exc
+
+
+def g1_madd_scan(points_xy, codes):
+    """K2's bucket scan: points_xy (x, y) (n, L) affine, (0, 0) for
+    infinity; codes (steps, lanes) int32 -> (Jacobian (lanes, L) x3, the
+    (lanes,) int32 OR of each lane's doubling-corner flags).  A code naming
+    no point of the table raises IndexError."""
+    return _madd_scan(False, points_xy, codes)
+
+
+def g2_madd_scan(points_xy, codes):
+    """G2 variant: points (n, 2, L)."""
+    return _madd_scan(True, points_xy, codes)
+
+
+def _add_shift(g2: bool, coords, shift: int, out=None):
+    if int(shift) != shift or shift < 1:
+        raise ValueError(f"shift must be an integer >= 1, got {shift!r}")
+    if not _on_cuda(coords[0]):
+        res = add_shift_plain(g2, coords, shift)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return out
+    tail = (2, _L) if g2 else (_L,)
+    dev = coords[0].device
+    coords = tuple(c.contiguous() for c in coords)
+    rows, bw = coords[0].shape[:2]
+    _check(coords, (bw,) + tail, rows, dev)
+    out = tuple(torch.empty_like(c) for c in coords) if out is None else out
+    _check(out, (bw,) + tail, rows, dev)
+    if any(o.data_ptr() == c.data_ptr() for o in out for c in coords):
+        raise ValueError("add_shift's output must not alias its input")
+    name = "g2_add_shift" if g2 else "g1_add_shift"
+    if rows * bw:
+        ptrs = [c.data_ptr() for c in (*coords, *out)]
+        _raise_on(_lib().vs_add_shift(int(g2), *ptrs, rows * bw, bw, min(int(shift), bw), _stream(dev)), name)
+        launches[name] += 1
+    return out
+
+
+def g1_add_shift(coords, shift: int, out=None):
+    """K3 as one suffix round over the (rows, bw, L) bucket grid:
+    out[w, b] = add(in[w, b], in[w, b + shift] if b + shift < bw else
+    infinity), complete; `out` (the same shape, not aliasing coords) is
+    written and returned when given."""
+    return _add_shift(False, coords, shift, out)
+
+
+def g2_add_shift(coords, shift: int, out=None):
+    """G2 variant: coords (rows, bw, 2, L)."""
+    return _add_shift(True, coords, shift, out)
 
 
 def _add(g2: bool, p, q, complete: bool = True):

@@ -7,16 +7,19 @@ signed digits, the conflict-free schedule (native ``sched_pass1/2`` from
 orphan sub-bucket merge plans and shape unification.  The device half runs
 the same algebra on torch tensors:
 
-  * bucket scan: one K2 (mixed add) launch per schedule row, after an
-    ``index_select`` gather of the row's affine points (code = pidx+1 |
-    sign << 30; 0 = idle lane), updating the accumulator in place;
+  * bucket scan: every schedule row in one launch of K2's scan form
+    (``hopper_field.g1_madd_scan``; code = pidx+1 | sign << 30, 0 = idle
+    lane), the JAX package's ``lax.scan`` of one K2 call per row;
   * orphan runs: segmented-tree rounds of K3 on the live lanes only, then
     one K3 round adding each run head into its canonical bucket;
   * combination: Hillis-Steele suffix sums over the bucket axis (twice),
     then a Horner pass over windows (one K4 launch of w doublings + one
     add each), over the adder ``_addx`` gives: the complete add K3
-    (``msm_device``'s) or the flagged distinct add K5/K6.  ``bucket_phase`` and ``combination_phase``
-    are the two halves, so one set of buckets can go through either adder.
+    (``msm_device``'s, whose suffix rounds run as K3's shift form
+    ``_add_shift``, one launch a round that reads its partner itself) or
+    the flagged distinct add K5/K6.  ``bucket_phase`` and
+    ``combination_phase`` are the two halves, so one set of buckets can go
+    through either adder.
 
 Lane padding is the port's own: 128 lanes (one CUDA thread block of the
 kernels), the same granularity the JAX package uses off the TPU, so the two
@@ -35,7 +38,6 @@ from . import curve_ops as co
 from . import hopper_field as hf
 from . import limbs as lb
 
-_IDX_MASK = (1 << 30) - 1
 _LANE_PAD = 128
 _MROUNDS = 10  # segmented-tree merge rounds
 _MAX_CHUNKS = 1 << _MROUNDS  # per-bucket chunk cap; beyond it `steps` escalates
@@ -278,8 +280,8 @@ def _ops(group: str) -> co.JacobianOps:
     return co.g1_ops() if group == "g1" else co.g2_ops()
 
 
-def _madd(group: str):
-    return hf.g1_madd if group == "g1" else hf.g2_madd
+def _madd_scan(group: str):
+    return hf.g1_madd_scan if group == "g1" else hf.g2_madd_scan
 
 
 def _live_add(ops, coords, partner_pos: np.ndarray):
@@ -316,6 +318,12 @@ def _addx(group: str, distinct: bool = False):
     return addc
 
 
+def _add_shift(group: str):
+    """K3's suffix-round form: one round of the complete add in one launch,
+    its partner read in the kernel (``hopper_field.g1_add_shift``)."""
+    return hf.g1_add_shift if group == "g1" else hf.g2_add_shift
+
+
 def _or_flag(exc, flag):
     """exc | (flag != 0).any(), where None stands for a flag that never fires."""
     if flag is None:
@@ -324,7 +332,7 @@ def _or_flag(exc, flag):
     return hit if exc is None else exc | hit
 
 
-def _suffix_and_total(ops, addx, acc, K: int, bw: int):
+def _suffix_and_total(ops, addx, acc, K: int, bw: int, add_shift=None):
     """acc coords with leading dim K*bw -> (per-window weighted sums
     S_w = sum_b (b+1) acc[w, b] as coords (K, ...), the OR of the adder's
     flags as a () bool tensor, None where the adder gave none).  Two
@@ -335,20 +343,23 @@ def _suffix_and_total(ops, addx, acc, K: int, bw: int):
     The adder must handle EQUAL operands: an empty bucket below a non-empty
     one makes two adjacent suffix partials equal, so pass the complete add
     (no flag) unless every bucket below a window's top is known to be
-    non-empty."""
+    non-empty.
+
+    `add_shift` (``_add_shift(group)``, the complete add) runs each round in
+    one launch that reads its partner itself, into one of two buffers
+    allocated once (the buckets are not written), and `addx` is not used;
+    without it each round rolls and selects its partners and calls `addx`."""
     coords = tuple(c[: K * bw].reshape((K, bw) + tuple(c.shape[1:])) for c in acc)
     exc = None
-    if bw > 1:
-        idx = torch.arange(bw, device=coords[0].device)
+    if bw > 1 and add_shift is not None:
+        bufs = [tuple(torch.empty_like(c) for c in coords) for _ in range(2)]
+        for r, s in enumerate(2 * list(range((bw - 1).bit_length()))):
+            coords = add_shift(coords, 1 << s, out=bufs[r % 2])
+    elif bw > 1:
         inf = ops.infinity_like(coords[0])
         for _ in range(2):
             for s in range((bw - 1).bit_length()):
-                shift = 1 << s
-                valid = (idx + shift < bw).reshape((1, bw) + (1,) * (coords[0].dim() - 2))
-                rolled = tuple(
-                    torch.where(valid, torch.roll(c, -shift, dims=1), i) for c, i in zip(coords, inf)
-                )
-                coords, flag = addx(coords, rolled)
+                coords, flag = addx(coords, hf.shift_partner(coords, 1 << s, inf))
                 exc = _or_flag(exc, flag)
     return tuple(c[:, 0] for c in coords), exc
 
@@ -380,27 +391,15 @@ def _horner(ops, addx, window_sums, w: int, parts: int, top: int):
 
 
 def bucket_phase(group: str, points_xy, sched: Schedule):
-    """The scheduled MSM's bucket phase: the scan of schedule rows (K2, in
-    place), then the orphan runs folded into their canonical buckets (K3 on
-    the live lanes).  Returns (bucket coords with leading dim canon =
-    windows * parts * 2^(w-1), the madd doubling-corner flag tensor () bool)."""
+    """The scheduled MSM's bucket phase: the scan of every schedule row (one
+    K2 scan launch), then the orphan runs folded into their canonical
+    buckets (K3 on the live lanes).  Returns (bucket coords with leading dim
+    canon = windows * parts * 2^(w-1), the madd flag tensor () bool)."""
     ops = _ops(group)
-    madd = _madd(group)
-    px, py = points_xy
-    dev = px.device
-    lanes = sched.codes.shape[1]
+    dev = points_xy[0].device
     canon = sched.merge_gather.shape[0]
-    tail = tuple(px.shape[1:])
-    acc = ops.infinity_like(torch.zeros((lanes,) + tail, dtype=torch.int32, device=dev))
-    exc = torch.zeros((lanes,), dtype=torch.int32, device=dev)
-    codes = torch.from_numpy(np.ascontiguousarray(sched.codes)).to(dev)
-    for row in codes:
-        active = row != 0
-        sign = ((row >> 30) & 1) != 0
-        pidx = ((row & _IDX_MASK) - 1).clamp(min=0)
-        q = (px.index_select(0, pidx), py.index_select(0, pidx))
-        acc, e = madd(acc, q, sign, active, out=acc)
-        exc |= e
+    codes = torch.from_numpy(np.ascontiguousarray(sched.codes, dtype=np.int32)).to(dev)
+    acc, exc = _madd_scan(group)(points_xy, codes)
     # fold orphan runs into their heads, then heads into canonical lanes
     # (complete adds on the live lanes; idle rounds are skipped on the host)
     can = tuple(c[:canon] for c in acc)
@@ -417,15 +416,17 @@ def bucket_phase(group: str, points_xy, sched: Schedule):
     return can, (exc != 0).any()
 
 
-def combination_phase(group: str, buckets, sched: Schedule, addx):
+def combination_phase(group: str, buckets, sched: Schedule, addx, add_shift=None):
     """Buckets (``bucket_phase``'s coords) -> (Jacobian coords with leading
     dim (parts,), the OR of `addx`'s flags as a () bool tensor, or None for
     the complete adder, which gives none): the suffix rounds, then Horner
     from the highest non-empty window.  `addx` is ``_addx(group)`` or
-    ``_addx(group, distinct=True)``."""
+    ``_addx(group, distinct=True)``; `add_shift`, when given
+    (``_add_shift(group)``), runs the suffix rounds in its stead
+    (``_suffix_and_total``)."""
     ops = _ops(group)
     bw = 1 << (sched.window_bits - 1)
-    sums, exc_s = _suffix_and_total(ops, addx, buckets, sched.num_windows * sched.num_parts, bw)
+    sums, exc_s = _suffix_and_total(ops, addx, buckets, sched.num_windows * sched.num_parts, bw, add_shift)
     res, exc_h = _horner(ops, addx, sums, sched.window_bits, sched.num_parts, _top_window(sched))
     return res, _or_flag(exc_s, exc_h)
 
@@ -434,10 +435,12 @@ def msm_device(group: str, points_xy, sched: Schedule):
     """Run one scheduled MSM on the points' device (the JAX package's
     ``_msm_device`` + ``msm_scheduled_async``: launches only, the exception
     flag stays on the device).  The combination phase takes the complete
-    adder, as the JAX package's does.  Returns (Jacobian coords with leading
-    dim (parts,), exceptional flag tensor () bool)."""
+    adder, as the JAX package's does, its suffix rounds through K3's shift
+    form.  Returns (Jacobian coords with leading dim (parts,), exceptional
+    flag tensor () bool)."""
     buckets, exc = bucket_phase(group, points_xy, sched)
-    res, _ = combination_phase(group, buckets, sched, _addx(group))  # the complete adder gives no flag
+    # the complete adder gives no flag
+    res, _ = combination_phase(group, buckets, sched, _addx(group), _add_shift(group))
     return res, exc
 
 
@@ -453,8 +456,10 @@ def msm_scheduled(group: str, points_xy, sched: Schedule, fallback=None):
     return res
 
 
-def var_base_fallback(group: str, points_host, scalars, device="cpu"):
-    """Zero-arg fallback: complete-formula var-base MSM of int scalars."""
+def var_base_fallback(group: str, points_host, scalars, device):
+    """Zero-arg fallback: complete-formula var-base MSM of int scalars on
+    `device` (no default: the caller names it, as groth16._var_base_batch
+    does, so a fallback never computes on another device than its MSM)."""
 
     def run():
         from . import msm as msm_mod

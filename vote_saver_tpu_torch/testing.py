@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 import random
 
+import numpy as np
 import torch
 
 from .params import Q
@@ -39,6 +40,12 @@ MADD_ACTIVE = [True, True, True, False, True, True, True, True]
 MADD_EXC = [0, 0, 0, 0, 1, 0, 0, 0]
 # flagged distinct add (K5/K6) of p + q on the same lanes: p = q (lanes 3, 4)
 ADDX_EXC = [0, 0, 0, 1, 1, 0, 0, 0]
+
+
+# bucket-scan lanes 0-6 (scan_lanes): idle, the doubling corner, opposite
+# then lifted again, only the (0, 0) point, (0, 0) between points, signs,
+# idle rows between entries
+SCAN_EXC = [0, 1, 0, 0, 0, 0, 0]
 
 
 def neg_y(y, g2: bool):
@@ -85,3 +92,73 @@ def special_lanes(g2: bool, n: int, rnd: random.Random):
     acc[5] = jacobian(qm[5], rz(), g2)
     acc[6] = jacobian((qm[6][0], neg_y(qm[6][1], g2)), rz(), g2)
     return p, q, acc, qm, sign, active
+
+
+def scan_lanes(g2: bool, npts: int, lanes: int, steps: int, rnd: random.Random):
+    """(affine points, (steps, lanes) int32 codes) for the bucket scan.
+
+    Point 1 is None ((0, 0) on the device).  Lanes 0-6 as SCAN_EXC says,
+    over the first four rows; lane 1 adds point 2 twice, so its second madd
+    is the doubling corner.  Every other entry is a random sign and a point
+    that appears at most once in its lane (no further corner), with about
+    one idle row in five.  Needs npts >= max(16, steps + 2) and steps >= 4."""
+    gen, group = (rc.g2_gen, "g2") if g2 else (rc.g1_gen, "g1")
+    pts = rj.FixedBaseHost(gen, group).mul_many([rnd.randrange(1, 1 << 255) for _ in range(npts)])
+    pts[1] = None
+
+    def enc(p, neg=False):
+        return (p + 1) | (int(neg) << 30)
+
+    codes = np.zeros((steps, lanes), np.int64)
+    for lane in range(7, lanes):
+        for s, p in enumerate(rnd.sample(range(2, npts), steps)):
+            if rnd.random() < 0.8:
+                codes[s, lane] = enc(p, rnd.random() < 0.5)
+    special = {
+        1: [enc(2), enc(2), enc(14, True), enc(15)],
+        2: [enc(3), enc(3, True), enc(4), enc(5, True)],
+        3: [enc(1), enc(1, True), 0, enc(1)],
+        4: [enc(6), enc(1), enc(7, True), enc(8)],
+        5: [enc(9, True), enc(10, True), enc(11), 0],
+        6: [0, enc(12), 0, enc(13)],
+    }
+    for lane, col in special.items():
+        codes[:4, lane] = col
+        codes[4:, lane] = 0
+    codes[:, 0] = 0
+    return pts, codes.astype(np.int32)
+
+
+def shift_grid(g2: bool, rows: int, bw: int, rnd: random.Random):
+    """rows * bw Jacobian int points (random Z) for the suffix round, row 0
+    holding the special lanes (bw >= 16): 0 and 1 the same point with other
+    Z (equal operands at shift 1), 2 and 4 the same limbs (shift 2), 3 and
+    7 opposite (shift 4), 5 canonical infinity, 6 infinity with random x
+    and y, and lane bw - 1 infinity (no partner at any shift)."""
+    gen, group = (rc.g2_gen, "g2") if g2 else (rc.g1_gen, "g1")
+    one, zero = ((1, 0), (0, 0)) if g2 else (1, 0)
+
+    def rz():
+        return (rnd.randrange(1, Q), rnd.randrange(Q)) if g2 else rnd.randrange(1, Q)
+
+    aff = rj.FixedBaseHost(gen, group).mul_many([rnd.randrange(1, 1 << 255) for _ in range(rows * bw)])
+    pts = [jacobian(a, rz(), g2) for a in aff]
+    pts[1] = jacobian(aff[0], rz(), g2)
+    pts[4] = pts[2]
+    pts[7] = jacobian((aff[3][0], neg_y(aff[3][1], g2)), rz(), g2)
+    pts[5] = (one, one, zero)
+    pts[6] = (rz(), rz(), zero)
+    pts[bw - 1] = (one, one, zero)
+    return pts
+
+
+def h_schedule(seed: int, parts: int = 16, n: int = (1 << 15) - 1, w: int = 10):
+    """A schedule of the depth-6 B = 16 vote path's h MSM: `parts` vectors
+    of n uniform scalars below 2^254 over one point set, w = 10, which
+    _fit_shape sizes to 80 rows of 248,832 lanes (16 x 27 x 512 bucket
+    lanes and 27,648 orphan lanes)."""
+    from .ops import msm_sched as ms
+
+    limbs = np.random.default_rng(seed).integers(0, 1 << 32, (parts, n, 8), dtype=np.uint32)
+    limbs[..., 7] &= 0x3FFFFFFF
+    return ms.build_schedule_multi(list(limbs), w)
