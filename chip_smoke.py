@@ -29,15 +29,24 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
   5. admin key generation for the depth-6 election on the card (Groth16
      setup through FixedBaseTable and K3d): its five blobs byte-identical to
      the host-native arm's, both arms timed;
+  5b. the int8 matmul NTT (``ops/ntt_mxu.py``) at the vote path's shape,
+     B = 16 rows of a 2^15 domain: each of the four kinds exactly equal to
+     the radix-2 path on the card, both timed with CUDA events; each int8
+     product (``torch._int_mm``, a library call: step A, step C, the fold)
+     timed alone against its bound, its device kernels named by
+     torch.profiler; one fold's device launches counted;
   6. depth-2 ballots for voters [0, 1, 2] of the committed election, byte
      for byte against ``tests/golden/torch_slice_d2.json``, through the
-     default (device) vote arm and the host-witness arm;
+     default (device) vote arm and the host-witness arm, both on the
+     default NTT path (the matmul NTT on the card);
   7. the vote phase at depth 6 with B = 16 voters (election cached under
      ``.torch_cache/``) through the device arm: one warm-up and two timed
-     batches, every ballot verified, per-stage seconds and launches, then
-     one timed batch of the host-witness arm for comparison; then one more
-     device-arm batch under torch.profiler: device time and launches per
-     kernel, and the device's busy share.
+     batches, every ballot verified, per-stage seconds, launches, int8
+     products and peak device memory, then one timed batch of the
+     host-witness arm and one of the device arm on the radix-2 NTT for
+     comparison; then one more device-arm batch under torch.profiler:
+     device time and launches per kernel, the int8 products' device time
+     as library calls, and the device's busy share.
 
 Every count of kernel launches is set to 0 just before a path runs (setup,
 the combination phase through K5/K6, the probes, the timed device-arm
@@ -120,6 +129,11 @@ MSM_SHAPES = {
     "g2_add_shift": ((432, 512, 1), (432, 512, 256), (32, 512, 1)),
 }
 H_POINTS = (1 << 15) - 1  # the h query's points: the affine table the scan reads
+# the matmul NTT at the vote path's shape: B = 16 rows of the depth-6 2^15 domain;
+# a batch runs 3 inv + 3 fwd_coset + 1 inv_coset transforms
+NTT_N, NTT_B = 1 << 15, 16
+NTT_KINDS = (("fwd", "ntt"), ("inv", "intt"), ("fwd_coset", "coset_ntt"), ("inv_coset", "coset_intt"))
+NTT_PER_BATCH = 7
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -667,6 +681,141 @@ def check_setup(e: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: the int8 matmul NTT against the radix-2 path
+# ---------------------------------------------------------------------------
+
+
+def _profile_events(fn):
+    """[(name, device us)] of the device kernels of one call of fn."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def check_ntt(gpu: str) -> tuple[dict, set]:
+    """Each kind of the matmul NTT at NTT_B x NTT_N against the radix-2
+    path on the same inputs (random elements, the first row led by values
+    that saturate digit columns and fold boundaries): exact equality, both
+    timed a call; then each int8 product at the path's shapes timed alone
+    with CUDA events and by the profiler, against the larger of its int8
+    operations over INT8_OPS and its bytes (operands read once, the int32
+    result written once) over HBM_BPS; one fold and one whole transform
+    under the profiler (launches, and the products' share).  Returns the
+    rows and the names of the product's device kernels."""
+    import torch
+
+    from vote_saver_tpu_torch.micro import random_limbs, time_ms
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import limbs as lb
+    from vote_saver_tpu_torch.ops import ntt as tntt
+    from vote_saver_tpu_torch.ops import ntt_mxu
+    from vote_saver_tpu_torch.params import R
+
+    # the index named, as on the path's tensors: the plans cache their tables by str(device)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = random_limbs("fr", NTT_B * NTT_N, dev, gen).reshape(NTT_B, NTT_N, 8)
+    x[0, :8] = lb.ints_to_tensor([0, 1, R - 1, R - 2, (1 << 254) - 1, R - (1 << 200), 2, R // 2], lb.FR, dev)
+    x[1, :4] = lb.ints_to_tensor([R - 1] * 4, lb.FR, dev)
+    t0 = time.perf_counter()
+    mm = tntt.get_ntt(NTT_N, "matmul")
+    for kind, _ref in NTT_KINDS:
+        ntt_mxu.get_plan(NTT_N, kind)
+    plans_s = time.perf_counter() - t0
+    r2 = tntt.get_ntt(NTT_N, "radix2")
+    out = dict(n=NTT_N, batch=NTT_B, plans_host_s=plans_s, kinds={})
+    for kind, ref in NTT_KINDS:
+        ntt_mxu.reset_products()
+        hf.reset_launches()
+        t0 = time.perf_counter()
+        got = getattr(mm, ref)(x)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        prods, k1 = dict(ntt_mxu.products), hf.launches["mont_mul_fr"]
+        want = getattr(r2, ref)(x)
+        equal = torch.equal(got, want)
+        row = dict(equal=equal, max_abs_err=_diff((got,), (want,)), products=prods, k1_launches=k1,
+                   first_call_s=first_s, matmul_ms=time_ms(lambda: getattr(mm, ref)(x), 5),
+                   radix2_ms=time_ms(lambda: getattr(r2, ref)(x), 2))
+        out["kinds"][kind] = row
+        log(f"[ntt] {kind} n=2^15 x {NTT_B}: equal={equal} max_abs_err={row['max_abs_err']} matmul "
+            f"{row['matmul_ms']:.3f} ms a call (first call with the constants' upload {1e3 * first_s:.1f} ms), "
+            f"radix-2 {row['radix2_ms']:.3f} ms; int8 products {prods}, K1 Fr launches {k1}; {gpu}")
+        if not equal:
+            fail(f"the matmul NTT's {kind} disagrees with the radix-2 path")
+        del got, want
+    log(f"[ntt] host precompute of the four plans: {plans_s:.2f} s")
+    # each int8 product at the path's shapes, on the operands the path gives it
+    plan = ntt_mxu.get_plan(NTT_N, "inv")
+    n1, n2 = plan.n1, plan.n2
+    xa = x.reshape(NTT_B, n1, n2, 8).transpose(1, 2).reshape(NTT_B * n2, n1, 8)
+    xc = x.reshape(NTT_B, n1, n2, 8).reshape(NTT_B * n1, n2, 8)
+    cols = ntt_mxu._columns(plan.table("c", dev), xc, "int8", "step_c")
+    fold = ntt_mxu._consts("fold", dev)
+    pieces = torch.randint(0, 128, (cols.shape[0] * cols.shape[1], fold.shape[0]), dtype=torch.int8, device=dev,
+                           generator=gen)
+    cases = {
+        "step_a": (ntt_mxu._digits7_device(xa).reshape(NTT_B * n2, n1 * 37), plan.table("a", dev), 1),
+        "step_c": (ntt_mxu._digits7_device(xc).reshape(NTT_B * n1, n2 * 37), plan.table("c", dev), 1),
+        "fold": (pieces, fold, 2),
+    }
+    names: set = set()
+    prods = {}
+    for step, (a, b, per) in cases.items():
+        a = torch.nn.functional.pad(a, (0, b.shape[0] - a.shape[1]))
+        fn = lambda a=a, b=b: torch._int_mm(a, b)  # noqa: E731
+        events = [(n, us) for n, us in _profile_events(fn) if not n.startswith(("Memset", "Memcpy"))]
+        names |= {n for n, _us in events}
+        M, K, N = a.shape[0], b.shape[0], b.shape[1]
+        ops, nbytes = 2 * M * K * N, M * K + K * N + 4 * M * N
+        bound_ms = max(ops / INT8_OPS, nbytes / HBM_BPS) * 1e3
+        # the constant operand is column-major (ntt_mxu._toeplitz_t_host); its row-major copy beside it
+        b_rows = b.contiguous()
+        row = dict(shape=[M, K, N], per_transform=per, ms=time_ms(fn, 10),
+                   device_ms=sum(us for _n, us in events) / 1e3 if events else None, kernels=len(events),
+                   bound_ms=bound_ms,
+                   bound_by="operations" if ops / INT8_OPS >= nbytes / HBM_BPS else "bytes",
+                   row_major_ms=time_ms(lambda a=a, b=b_rows: torch._int_mm(a, b), 3))
+        prods[step] = row
+        del b_rows
+        log(f"[ntt] _int_mm {step} ({M} x {K} x {N} int8, {per} a transform): {row['ms']:.4f} ms a call, device "
+            f"{_ms(row['device_ms'])} in {len(events)} kernel(s) seen by the profiler, bound {bound_ms:.4f} ms "
+            f"({row['bound_by']}, {100 * bound_ms / row['ms']:.1f}%); the constant row-major {row['row_major_ms']:.4f} "
+            f"ms; {gpu}")
+    # a batch's products from the event-timed calls (the profiler may see no cuBLASLt kernel)
+    per_batch = NTT_PER_BATCH * sum(r["per_transform"] * r["ms"] for r in prods.values())
+    bound_ac = NTT_PER_BATCH * sum(prods[s]["bound_ms"] for s in ("step_a", "step_c"))
+    bound_all = NTT_PER_BATCH * sum(r["per_transform"] * r["bound_ms"] for r in prods.values())
+    log(f"[ntt] _int_mm ms a batch ({NTT_PER_BATCH} transforms, event-timed calls): {per_batch:.3f} ms against a "
+        f"bound of {bound_ac:.3f} ms (steps A and C) / {bound_all:.3f} ms (with the folds); profiler kernel names "
+        f"{sorted(names)}")
+    fold_ev = _profile_events(lambda: ntt_mxu._fold_mod_r(cols))
+    tr_ev = _profile_events(lambda: mm.intt(x))
+    tr_lib = sum(us for n, us in tr_ev if n in names) / 1e3
+    tr_k1 = sum(us for n, us in tr_ev if kernel_key(n)) / 1e3
+    tr_all = sum(us for _n, us in tr_ev) / 1e3
+    fold_ms = time_ms(lambda: ntt_mxu._fold_mod_r(cols), 5)
+    log(f"[ntt] one fold at step C's shape ({cols.shape[0] * cols.shape[1]} rows): {fold_ms:.3f} ms a call; "
+        f"{len(fold_ev)} device launches seen by the profiler, {sum(us for _n, us in fold_ev) / 1e3:.3f} ms on the "
+        f"device")
+    log(f"[ntt] one inverse transform: {len(tr_ev)} device launches seen by the profiler, {tr_all:.3f} ms on the "
+        f"device: _int_mm {tr_lib:.3f} ms, K1 {tr_k1:.3f} ms, the rest {tr_all - tr_lib - tr_k1:.3f} ms")
+    out.update(products=prods, int_mm_ms_per_batch=per_batch, bound_ms_per_batch=bound_ac,
+               bound_ms_per_batch_with_folds=bound_all, fold_launches=len(fold_ev), fold_ms=fold_ms,
+               transform=dict(launches=len(tr_ev), device_ms=tr_all, int_mm_ms=tr_lib, k1_ms=tr_k1))
+    del x, cols, pieces, cases
+    torch.cuda.empty_cache()
+    return out, names
+
+
+# ---------------------------------------------------------------------------
 # Phases 6-7: the vote phase
 # ---------------------------------------------------------------------------
 
@@ -736,13 +885,14 @@ def instance_name(short: str) -> str | None:
     return None
 
 
-def profile_batch(batch):
+def profile_batch(batch, library: set):
     """One device-arm batch under torch.profiler (CUDA activity only) ->
     (the batch's result, its profile): launches and device seconds per
-    kernel of the port, the plain PyTorch kernels' device seconds (the five
-    largest by name), and the device's busy share of the batch's wall time
-    under the profiler; the profile is empty where the profiler recorded no
-    device kernel."""
+    kernel of the port, those of the library calls whose device kernels
+    are named in `library` (the NTT's int8 products), the plain PyTorch
+    kernels' device seconds (the five largest by name), and the device's
+    busy share of the batch's wall time under the profiler; the profile is
+    empty where the profiler recorded no device kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -754,33 +904,46 @@ def profile_batch(batch):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ours: dict = {}
+    lib = [0, 0.0]
     other: dict = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
         key = kernel_key(e.name)
-        if key is None:
+        if e.name in library:
+            lib[0] += 1
+            lib[1] += us
+        elif key is None:
             other[e.name] = other.get(e.name, 0.0) + us
         else:
             n, t = ours.get(key, (0, 0.0))
             ours[key] = (n + 1, t + us)
     if not ours and not other:
         return result, {}
-    busy = sum(t for _n, t in ours.values()) + sum(other.values())
+    busy = sum(t for _n, t in ours.values()) + lib[1] + sum(other.values())
     return result, dict(wall_s=wall, busy_s=busy / 1e6, port={k: dict(launches=n, device_s=t / 1e6) for k, (n, t) in ours.items()},
-                plain_s=sum(other.values()) / 1e6,
+                library=dict(launches=lib[0], device_s=lib[1] / 1e6), plain_s=sum(other.values()) / 1e6,
                 top_plain={k: v / 1e6 for k, v in sorted(other.items(), key=lambda kv: -kv[1])[:5]})
+
+
+def _plan_bytes() -> int:
+    """Bytes of the matmul NTT's constants on the card (every plan built)."""
+    from vote_saver_tpu_torch.ops import ntt_mxu
+
+    plans = [ntt_mxu.get_plan(NTT_N, kind) for kind, _ref in NTT_KINDS]
+    return sum(t.numel() * t.element_size() for p in plans for (_n, d), t in p._dev.items() if d.startswith("cuda"))
 
 
 def _stages(timer, n: int) -> str:
     return ", ".join(f"{k} {v / n:.3f}" for k, v in timer.seconds.items())
 
 
-def run_slice(rnd, e: dict) -> dict:
+def run_slice(rnd, e: dict, library: set) -> dict:
     import torch
 
     from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import ntt_mxu
     from vote_saver_tpu_torch.protocol import groth16, phases
     from vote_saver_tpu_torch.utils.rng import FrRandom
 
@@ -794,21 +957,27 @@ def run_slice(rnd, e: dict) -> dict:
     sks = [v[1] for v in e["voters"]]
     rng = FrRandom(SEED + 1)
 
-    def batch(timer=None, host_witness=False):
+    def batch(timer=None, host_witness=False, ntt=None):
         votes = [rnd.randrange(25) for _ in idx]
-        return votes, phases.vote_with_context(ctx, idx, votes, sks, rng, timer=timer, host_witness=host_witness)
+        return votes, phases.vote_with_context(ctx, idx, votes, sks, rng, timer=timer, host_witness=host_witness,
+                                               ntt=ntt)
 
     t0 = time.perf_counter()
     warm = [batch()]
     torch.cuda.synchronize()
     log(f"[slice] device arm warm-up batch (B={BATCH}): {time.perf_counter() - t0:.2f} s")
     hf.reset_launches()
+    ntt_mxu.reset_products()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     timer = groth16.StageTimer("cuda")
     t0 = time.perf_counter()
     timed = [batch(timer), batch(timer)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(hf.launches)
+    products = dict(ntt_mxu.products)
+    peak = torch.cuda.max_memory_allocated()
 
     hf.reset_launches()
     host_timer = groth16.StageTimer("cuda")
@@ -818,20 +987,36 @@ def run_slice(rnd, e: dict) -> dict:
     host_wall = time.perf_counter() - t0
     host_launches = dict(hf.launches)
 
-    profiled, prof = profile_batch(batch)
+    # the device arm on the radix-2 NTT, the path of every batch before the matmul NTT
+    hf.reset_launches()
+    ntt_mxu.reset_products()
+    torch.cuda.reset_peak_memory_stats()
+    r2_held = torch.cuda.memory_allocated()
+    r2_timer = groth16.StageTimer("cuda")
+    t0 = time.perf_counter()
+    radix2 = [batch(r2_timer, ntt="radix2")]
+    torch.cuda.synchronize()
+    r2_wall = time.perf_counter() - t0
+    r2_launches, r2_products = dict(hf.launches), dict(ntt_mxu.products)
+    r2_peak = torch.cuda.max_memory_allocated()
+
+    profiled, prof = profile_batch(batch, library)
 
     n_ok = 0
-    for _votes, ballots in warm + timed + [profiled] + host:
+    for _votes, ballots in warm + timed + [profiled] + host + radix2:
         for b in ballots:
             n_ok += phases.verify_ballot(b[0], b[1], b[2], vk_eid, vk_crs)
-    n_total = BATCH * (len(warm) + len(timed) + 1 + len(host))
+    n_total = BATCH * (len(warm) + len(timed) + 1 + len(host) + len(radix2))
     out = dict(
         depth=DEPTH, batch=BATCH, proofs_per_s=BATCH * len(timed) / wall, batch_s=wall / len(timed),
         stages_s={k: v / len(timed) for k, v in timer.seconds.items()},
         stage_launches={k: v / len(timed) for k, v in timer.launches.items()},
         fallbacks=timer.counts.get("fallbacks", 0), launches=launches,
+        int8_products={k: v / len(timed) for k, v in products.items()}, peak_bytes=peak, held_bytes=held,
+        plan_bytes=_plan_bytes(),
         host_arm_batch_s=host_wall, host_arm_stages_s=dict(host_timer.seconds),
-        ballots_verified=n_ok, ballots_total=n_total, profile=prof,
+        radix2_batch_s=r2_wall, radix2_stages_s=dict(r2_timer.seconds), radix2_stage_launches=dict(r2_timer.launches),
+        radix2_peak_bytes=r2_peak, radix2_held_bytes=r2_held, ballots_verified=n_ok, ballots_total=n_total, profile=prof,
     )
     log(f"[slice] device arm, depth {DEPTH}, B={BATCH}: {out['batch_s']:.3f} s/batch = "
         f"{out['proofs_per_s']:.3f} proofs/s; var-base fallbacks {out['fallbacks']}")
@@ -839,14 +1024,25 @@ def run_slice(rnd, e: dict) -> dict:
     log("[slice] device arm per-batch kernel launches by stage: "
         + ", ".join(f"{k} {v:.0f}" for k, v in out["stage_launches"].items()))
     log(f"[slice] device arm launches over the two timed batches: {launches}")
+    log(f"[slice] device arm int8 products a batch (matmul NTT): {out['int8_products']}; peak device memory "
+        f"{peak / 2**20:.1f} MiB over the two timed batches, {(peak - held) / 2**20:.1f} MiB above the "
+        f"{held / 2**20:.1f} MiB held before them (the matmul NTT's constants {out['plan_bytes'] / 2**20:.1f} MiB)")
     log(f"[slice] host-witness arm, same call: {host_wall:.3f} s/batch = {BATCH / host_wall:.3f} proofs/s; "
         f"var-base fallbacks {host_timer.counts.get('fallbacks', 0)}")
     log("[slice] host-witness arm stage seconds: " + _stages(host_timer, 1))
     log(f"[slice] host-witness arm launches: {host_launches}")
+    log(f"[slice] device arm on the radix-2 NTT, same call: {r2_wall:.3f} s/batch; peak device memory "
+        f"{r2_peak / 2**20:.1f} MiB, {(r2_peak - r2_held) / 2**20:.1f} MiB above the {r2_held / 2**20:.1f} MiB "
+        f"held before it; int8 products {r2_products}")
+    log("[slice] radix-2 NTT batch stage seconds: " + _stages(r2_timer, 1))
+    log("[slice] radix-2 NTT batch kernel launches by stage: "
+        + ", ".join(f"{k} {v}" for k, v in r2_timer.launches.items()))
     if prof:
         log(f"[profile] one device-arm batch under torch.profiler: {prof['wall_s']:.3f} s wall, device busy "
             f"{prof['busy_s']:.3f} s = {100 * prof['busy_s'] / prof['wall_s']:.1f}%; plain PyTorch kernels "
-            f"{prof['plain_s']:.3f} s")
+            f"{prof['plain_s']:.3f} s; library calls (the NTT's _int_mm) "
+            + (f"{1e3 * prof['library']['device_s']:.3f} ms in {prof['library']['launches']} launches"
+               if prof["library"]["launches"] else "not measured (the profiler recorded none of their kernels)"))
         for k, v in sorted(prof["port"].items(), key=lambda kv: -kv[1]["device_s"]):
             log(f"[profile] {k}: {v['launches']} launches, {1e3 * v['device_s']:.3f} ms on the device, "
                 f"{1e6 * v['device_s'] / v['launches']:.2f} us a launch")
@@ -854,9 +1050,13 @@ def run_slice(rnd, e: dict) -> dict:
             log(f"[profile] plain: {1e3 * v:.3f} ms {k[:120]}")
     else:
         log("[profile] device time per kernel on the vote path: not measured (the profiler recorded no device kernel)")
-    log(f"[slice] ballots verified: {n_ok}/{n_total} (device arm {BATCH * 4}, host-witness arm {BATCH})")
+    log(f"[slice] ballots verified: {n_ok}/{n_total} (device arm {BATCH * 4}, host-witness arm {BATCH}, "
+        f"radix-2 NTT {BATCH})")
     if n_ok != n_total:
         fail("a depth-6 ballot failed verify_ballot")
+    if products != {"step_a": 2 * NTT_PER_BATCH, "step_c": 2 * NTT_PER_BATCH, "fold": 4 * NTT_PER_BATCH} or any(
+            r2_products.values()):
+        fail(f"the vote path's NTTs did not run as chosen: matmul {products}, radix-2 {r2_products}")
     for arm, counts, kernels in (("device", launches, VOTE_KERNELS), ("host-witness", host_launches, HOST_ARM_KERNELS)):
         missing = [k for k in kernels if counts[k] == 0]
         if missing:
@@ -964,8 +1164,9 @@ def main() -> None:
     probes = run_probes(gpu)
     e = election(DEPTH)
     setup_launches = check_setup(e)["launches"]
+    _ntt, library = check_ntt(gpu)
     check_golden()
-    vote_launches = run_slice(rnd, e)["launches"]
+    vote_launches = run_slice(rnd, e, library)["launches"]
 
     kern.update(probe_entries(probes))
     paths = dict.fromkeys(SETUP_KERNELS, setup_launches)

@@ -15,7 +15,8 @@ native host MSM, and so must a G2 MSM's buckets combined through the flagged
 distinct add K6; the probes K7-K10 must pass their host-oracle
 parity; a proof made on the card must be byte-identical to the same proof
 made by the plain versions on the CPU; setup on the card must write the
-host-native arm's CRS.
+host-native arm's CRS; the int8 matmul NTT must equal the radix-2 path on
+the card for each of its four kinds.
 """
 
 import random
@@ -311,3 +312,26 @@ def test_add_shift_matches_plain(dev, g2):
     assert add_shift(grid, 8, out=out) is out
     with pytest.raises(ValueError):
         add_shift(grid, 1, out=grid)
+
+
+@pytest.mark.parametrize("kind,ref", [("fwd", "ntt"), ("inv", "intt"), ("fwd_coset", "coset_ntt"),
+                                      ("inv_coset", "coset_intt")])
+def test_matmul_ntt_matches_radix2(dev, kind, ref):
+    """The int8 matmul NTT at n = 2^12 (four rows, the first led by values
+    that saturate digit columns and fold boundaries) equals the radix-2 path
+    on the card and the int64 product form on the CPU: two ``_int_mm``
+    products and two folds a transform, one K1 launch for the twiddle."""
+    from vote_saver_tpu_torch.ops import ntt as tntt
+    from vote_saver_tpu_torch.ops import ntt_mxu
+
+    n = 1 << 12
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = micro.random_limbs("fr", 4 * n, dev, gen).reshape(4, n, 8)
+    x[0, :8] = lb.ints_to_tensor([0, 1, R - 1, R - 2, (1 << 254) - 1, R - (1 << 200), 2, R // 2], lb.FR, dev)
+    before, k1 = dict(ntt_mxu.products), hf.launches["mont_mul_fr"]
+    got = getattr(tntt.get_ntt(n, "matmul"), ref)(x)
+    torch.cuda.synchronize()
+    assert {k: ntt_mxu.products[k] - before[k] for k in before} == {"step_a": 1, "step_c": 1, "fold": 2}
+    assert hf.launches["mont_mul_fr"] == k1 + 1
+    assert torch.equal(got, getattr(tntt.get_ntt(n, "radix2"), ref)(x))
+    assert torch.equal(got.cpu(), ntt_mxu.get_plan(n, kind).apply(x.cpu(), "int64"))

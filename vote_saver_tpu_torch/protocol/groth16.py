@@ -12,7 +12,10 @@ Counterpart of ``vote_saver_tpu/protocol/groth16.py``:
     ``index_add_`` of int64 lazy limb columns, one ``reduce_lazy`` per row),
     the R1CS check, 3 iNTT + 3 coset NTT + 1 coset iNTT for H, then five
     scheduled MSMs (a/b1/l/h in G1, b2 in G2) with the B voters batched as
-    parts and the var-base fallback on a flagged doubling corner.
+    parts and the var-base fallback on a flagged doubling corner.  The NTT
+    path is an argument, ``ntt``: None takes ``ntt.choose_path``'s rule
+    (the int8 matmul NTT on the card for domains of at least 2^12, else
+    radix-2), "radix2" or "matmul" that path.
     ``prove_msms_device`` stops there and leaves the MSM outputs on the
     device for the device ballot tail; ``prove`` (the host-witness arm)
     brings them to the host and blinds and assembles the proofs there;
@@ -39,7 +42,7 @@ from ..ops import limbs as lb
 from ..ops import msm as msm_mod
 from ..ops import msm_sched as ms
 from ..ops.field_ops import fr_ops
-from ..ops.ntt import get_ntt
+from ..ops.ntt import choose_path, get_ntt
 
 
 @dataclasses.dataclass
@@ -264,11 +267,12 @@ def _abc_coo_device(pk: ProvingKey, device):
     return _cache(pk, ("abc_coo", str(device)), build)
 
 
-def _abc_h_w(pk: ProvingKey, w_mont: torch.Tensor):
+def _abc_h_w(pk: ProvingKey, w_mont: torch.Tensor, ntt: str | None = None):
     """Montgomery witness (B, m, L) -> (h_std (B, domain-1, L), w_std
-    (B, m, L), sat (B,) bool): COO matvec + R1CS check + coset division."""
+    (B, m, L), sat (B,) bool): COO matvec + R1CS check + coset division,
+    the transforms on the NTT path `ntt` (``choose_path``)."""
     f = fr_ops()
-    ntt = get_ntt(pk.domain)
+    tr = get_ntt(pk.domain, choose_path(ntt, pk.domain, w_mont.device))
     coo = _abc_coo_device(pk, w_mont.device)
     n = pk.domain
     B = w_mont.shape[0]
@@ -285,11 +289,11 @@ def _abc_h_w(pk: ProvingKey, w_mont: torch.Tensor):
     a_ev, b_ev, c_ev = matvec("a"), matvec("b"), matvec("c")
     # AB - C vanishes on every constraint row (past nc, B is identically 0)
     sat = f.is_zero(f.sub(f.mul(a_ev, b_ev), c_ev)).all(dim=-1)
-    ca = ntt.coset_ntt(ntt.intt(a_ev))
-    cb = ntt.coset_ntt(ntt.intt(b_ev))
-    cc = ntt.coset_ntt(ntt.intt(c_ev))
-    h_ev = f.mul(f.sub(f.mul(ca, cb), cc), ntt.table("zh_coset_inv", w_mont.device))
-    h = ntt.coset_intt(h_ev)
+    ca = tr.coset_ntt(tr.intt(a_ev))
+    cb = tr.coset_ntt(tr.intt(b_ev))
+    cc = tr.coset_ntt(tr.intt(c_ev))
+    h_ev = f.mul(f.sub(f.mul(ca, cb), cc), tr.table("zh_coset_inv", w_mont.device))
+    h = tr.coset_intt(h_ev)
     return f.from_mont(h)[:, : n - 1], f.from_mont(w_mont), sat
 
 
@@ -370,12 +374,12 @@ def msms_from_device(outs: dict):
 
 
 def prove_msms_device(pk: ProvingKey, w_mont: torch.Tensor, window_bits: int = ms.DEFAULT_WINDOW_BITS,
-                      timer: StageTimer | None = None):
+                      timer: StageTimer | None = None, ntt: str | None = None):
     """Montgomery witness (B, m, L) on the device -> (the five query MSMs as
     device Jacobian coords with leading dim (B,), w_std (B, m, L) standard
-    form on the device).  Raises ValueError if an assignment fails the
-    R1CS."""
-    h_std, w_std, sat = _abc_h_w(pk, w_mont)
+    form on the device), the NTTs on path `ntt`.  Raises ValueError if an
+    assignment fails the R1CS."""
+    h_std, w_std, sat = _abc_h_w(pk, w_mont, ntt)
     if not bool(sat.all()):
         raise ValueError("witness does not satisfy the R1CS")
     if timer:
@@ -387,11 +391,13 @@ def prove_msms_device(pk: ProvingKey, w_mont: torch.Tensor, window_bits: int = m
 
 
 def prove(pk: ProvingKey, wvals: np.ndarray, rng: FrRandom, device="cuda",
-          window_bits: int = ms.DEFAULT_WINDOW_BITS, timer: StageTimer | None = None) -> list[Proof]:
-    """wvals: (B, num_vars) object ints (full assignments, column 0 == 1)."""
+          window_bits: int = ms.DEFAULT_WINDOW_BITS, timer: StageTimer | None = None,
+          ntt: str | None = None) -> list[Proof]:
+    """wvals: (B, num_vars) object ints (full assignments, column 0 == 1);
+    `ntt` the NTT path (``choose_path``)."""
     device = lb.device_of(device)
     w_mont = fr_ops().to_mont(lb.ints_to_tensor(wvals, lb.FR, device, mont=False))
-    outs, _w_std = prove_msms_device(pk, w_mont, window_bits, timer)
+    outs, _w_std = prove_msms_device(pk, w_mont, window_bits, timer, ntt)
     proofs = _blind_and_assemble(pk, *msms_from_device(outs), rng)
     if timer:
         timer.mark("proof_assembly")

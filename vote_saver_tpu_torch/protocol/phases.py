@@ -122,10 +122,14 @@ def _finish_host(spk, vk, pk, proofs, prim, B: int, rng: FrRandom):
 
 def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[int],
                       sk_blobs: list[bytes], rng: FrRandom | None = None,
-                      timer: groth16.StageTimer | None = None, host_witness: bool = False):
+                      timer: groth16.StageTimer | None = None, host_witness: bool = False,
+                      ntt: str | None = None):
     """Per voter (proof_blob, pinput_blob, ct_blob, sn_blob), as the JAX
     package's vote_with_context.  ``host_witness`` selects the host-witness
-    + host-tail arm; ``timer`` records per-stage seconds."""
+    + host-tail arm; ``ntt`` the prover's NTT path (None: the int8 matmul
+    NTT on the card for domains of at least 2^12, else radix-2; or
+    "radix2" / "matmul", ``ops.ntt.choose_path``); ``timer`` records
+    per-stage seconds."""
     rng = rng or FrRandom()
     B = len(voter_indices)
     if len(votes) != B or len(sk_blobs) != B:
@@ -142,7 +146,7 @@ def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[in
         )
         if timer:
             timer.mark("witness")
-        proofs = groth16.prove(ctx.pk, wit.values, rng, ctx.device, timer=timer)
+        proofs = groth16.prove(ctx.pk, wit.values, rng, ctx.device, timer=timer, ntt=ntt)
         prim = wit.primary(circ.cs.num_primary)
         rerand = _finish_host(ctx.spk, ctx.vk, ctx.pk, proofs, prim, B, rng)
         stage = "tail"
@@ -152,7 +156,7 @@ def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[in
         )
         if timer:
             timer.mark("witness")
-        outs, w_std = groth16.prove_msms_device(ctx.pk, w_mont, timer=timer)
+        outs, w_std = groth16.prove_msms_device(ctx.pk, w_mont, timer=timer, ntt=ntt)
         prim = lb.tensor_to_ints(w_std[:, 1 : 1 + circ.cs.num_primary], lb.FR, mont=False)
         rerand = ballot_dev.finalize_ballots_device(ctx.pk, ctx.spk, ctx.vk, outs, votes, rng)
         stage = "ballot_tail"
