@@ -46,11 +46,30 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      host-witness arm and one of the device arm on the radix-2 NTT for
      comparison; then one more device-arm batch under torch.profiler:
      device time and launches per kernel, the int8 products' device time
-     as library calls, and the device's busy share.
+     as library calls, and the device's busy share;
+  8. the tally of the first timed batch's 16 ballots (``tally_admin_phase``,
+     ``tally_voter_phase``; host code): the counts equal that batch's
+     votes, the proof verifies, a forged result is rejected, and no kernel
+     of the port launches;
+  9. the pipelined vote stream (``vote_with_context_stream``) over
+     phase 7's three device-arm batches and STREAM_EXTRA more, under phase
+     7's seed: byte-identical to phase 7's ballots and to sequential
+     ``vote_with_context`` calls, timed against them in turns (sequential,
+     stream, stream, sequential), the same kernel launches a pass; the
+     synchronizing CUDA calls a batch of each, counted under
+     ``torch.cuda.set_sync_debug_mode`` (and sequential calls' count with
+     the vote path's uploads made blocking, as before the stream); one
+     stream pass under torch.profiler (the device's busy share);
+  10. ``vote_phase_batch`` (blobs in, ballots out) twice on the depth-6
+     election from an empty parse cache: the seconds of each call's
+     parse (the second parses nothing) and of each call, every ballot
+     verified.
 
 Every count of kernel launches is set to 0 just before a path runs (setup,
 the combination phase through K5/K6, the probes, the timed device-arm
-batches, the host-witness batch) and read just after it; the ``kernels``
+batches, the host-witness batch, the tally, each pass of the stream and of
+its sequential comparison, each ``vote_phase_batch`` call) and read just
+after it; the ``kernels``
 line reports each kernel's count on its path, and its registers and spill
 bytes from ptxas's report.  A kernel of a path that launched 0 times fails
 the run, and so does a launch of K2's single-row form on the vote path,
@@ -78,6 +97,8 @@ import re
 import sys
 import threading
 import time
+import warnings
+from collections import Counter
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0xC41B5
@@ -134,6 +155,9 @@ H_POINTS = (1 << 15) - 1  # the h query's points: the affine table the scan read
 NTT_N, NTT_B = 1 << 15, 16
 NTT_KINDS = (("fwd", "ntt"), ("inv", "intt"), ("fwd_coset", "coset_ntt"), ("inv_coset", "coset_intt"))
 NTT_PER_BATCH = 7
+# [stream]: batches past [slice]'s three device-arm ones, and the batches
+# whose synchronizing calls are counted
+STREAM_EXTRA, SYNC_BATCHES = 2, 2
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -718,8 +742,7 @@ def check_ntt(gpu: str) -> tuple[dict, set]:
     from vote_saver_tpu_torch.ops import ntt_mxu
     from vote_saver_tpu_torch.params import R
 
-    # the index named, as on the path's tensors: the plans cache their tables by str(device)
-    dev = torch.device("cuda", torch.cuda.current_device())
+    dev = lb.device_of("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     x = random_limbs("fr", NTT_B * NTT_N, dev, gen).reshape(NTT_B, NTT_N, 8)
     x[0, :8] = lb.ints_to_tensor([0, 1, R - 1, R - 2, (1 << 254) - 1, R - (1 << 200), 2, R // 2], lb.FR, dev)
@@ -1017,6 +1040,7 @@ def run_slice(rnd, e: dict, library: set) -> dict:
         host_arm_batch_s=host_wall, host_arm_stages_s=dict(host_timer.seconds),
         radix2_batch_s=r2_wall, radix2_stages_s=dict(r2_timer.seconds), radix2_stage_launches=dict(r2_timer.launches),
         radix2_peak_bytes=r2_peak, radix2_held_bytes=r2_held, ballots_verified=n_ok, ballots_total=n_total, profile=prof,
+        device_batches=warm + timed,
     )
     log(f"[slice] device arm, depth {DEPTH}, B={BATCH}: {out['batch_s']:.3f} s/batch = "
         f"{out['proofs_per_s']:.3f} proofs/s; var-base fallbacks {out['fallbacks']}")
@@ -1065,6 +1089,203 @@ def run_slice(rnd, e: dict, library: set) -> dict:
         if stray or (prof and any(k in prof["port"] for k in OFF_VOTE_PATH)):
             fail(f"the {arm} vote arm launched K2's single-row form: {stray}")
     return out
+
+
+def _path_launches(kernels, what: str) -> dict:
+    """The launches since the last reset; fails if a kernel of the path ran no time."""
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+
+    counts = dict(hf.launches)
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        fail(f"kernels of {what} never launched: {missing}")
+    return counts
+
+
+def run_tally(e: dict, seq: list, gpu: str) -> dict:
+    """[slice]'s first timed batch tallied: its 16 ciphertexts aggregated
+    and decrypted by tally_admin_phase, the result checked by
+    tally_voter_phase; host code, so no kernel of the port may launch."""
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import ntt_mxu
+    from vote_saver_tpu_torch.params import MSG_SIZE
+    from vote_saver_tpu_torch.protocol import marshal as M
+    from vote_saver_tpu_torch.protocol import phases
+
+    pk_crs, vk_crs, _pk_eid, sk_eid, vk_eid = e["keys"]
+    votes, ballots = seq[1]
+    cts = [b[2] for b in ballots]
+    hf.reset_launches()
+    ntt_mxu.reset_products()
+    t0 = time.perf_counter()
+    dec_proof, result = phases.tally_admin_phase(DEPTH, cts, sk_eid, vk_eid, pk_crs, vk_crs)
+    admin_s = time.perf_counter() - t0
+    counts = M.de_scalar_vector(result)
+    want = [votes.count(c) for c in range(MSG_SIZE)]
+    if counts != want:
+        fail(f"the tally's counts {counts} are not the batch's votes {want}")
+    t0 = time.perf_counter()
+    ok = phases.tally_voter_phase(DEPTH, cts, vk_eid, pk_crs, vk_crs, result, dec_proof)
+    voter_s = time.perf_counter() - t0
+    forged = list(counts)
+    top = max(range(MSG_SIZE), key=lambda c: counts[c])
+    forged[top] -= 1
+    forged[(top + 1) % MSG_SIZE] += 1
+    rejected = not phases.tally_voter_phase(DEPTH, cts, vk_eid, pk_crs, vk_crs, M.ser_scalar_vector(forged),
+                                            dec_proof)
+    launched = {k: v for k, v in hf.launches.items() if v}
+    log(f"[tally] {len(cts)} ballots of depth {DEPTH}: counts {counts} equal the batch's votes; tally_admin_phase "
+        f"{admin_s:.3f} s, tally_voter_phase {voter_s:.3f} s (host); verified {ok}, forged result rejected "
+        f"{rejected}; kernel launches {launched or 0}, int8 products {sum(ntt_mxu.products.values())}; {gpu}")
+    if not ok or not rejected:
+        fail("the tally did not verify, or a forged result passed")
+    if launched or any(ntt_mxu.products.values()):
+        fail("the tally (host code) launched device kernels")
+    return dict(admin_s=admin_s, voter_s=voter_s)
+
+
+def count_syncs(fn) -> Counter:
+    """fn()'s synchronizing CUDA calls (torch.cuda.set_sync_debug_mode),
+    counted by the line of the port that made each."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return Counter(f"{pathlib.Path(w.filename).relative_to(ROOT) if w.filename.startswith(str(ROOT)) else w.filename}"
+                   f":{w.lineno}" for w in rec if "synchroniz" in str(w.message))
+
+
+def run_stream(e: dict, seq: list, rnd, library: set, gpu: str) -> dict:
+    """[slice]'s device-arm batches (its seed, voters and votes) and
+    STREAM_EXTRA more through vote_with_context_stream and through
+    sequential vote_with_context calls, in turns; every pass byte-identical
+    to [slice]'s ballots and to each other, with the same launches."""
+    import numpy as np
+    import torch
+
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import limbs as lb
+    from vote_saver_tpu_torch.protocol import phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
+
+    pk_crs, vk_crs, pk_eid, _sk_eid, vk_eid = e["keys"]
+    eid, rt, tree = e["data"]
+    ctx = phases.prepare_vote_context(DEPTH, EID_BITS, tree, rt, eid, pk_eid, pk_crs, vk_crs, device="cuda")
+    idx = list(range(BATCH))
+    sks = [v[1] for v in e["voters"]]
+    votes = [v for v, _b in seq] + [[rnd.randrange(25) for _ in idx] for _ in range(STREAM_EXTRA)]
+    batches = [(idx, v, sks) for v in votes]
+
+    def sequential(bs=batches):
+        rng = FrRandom(SEED + 1)
+        return [phases.vote_with_context(ctx, *b, rng) for b in bs]
+
+    def stream(bs=batches):
+        return list(phases.vote_with_context_stream(ctx, bs, FrRandom(SEED + 1)))
+
+    secs: dict = {"sequential": [], "stream": []}
+    passes = []
+    for name, fn in (("sequential", sequential), ("stream", stream), ("stream", stream), ("sequential", sequential)):
+        hf.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        secs[name].append((time.perf_counter() - t0) / len(batches))
+        passes.append((name, got, _path_launches(VOTE_KERNELS, f"the {name} vote pass")))
+    expect = [b for _v, b in seq]
+    for name, got, counts in passes:
+        if got[: len(seq)] != expect or got != passes[0][1]:
+            fail(f"a {name} pass's ballots differ from [slice]'s sequential ones")
+        if counts != passes[0][2]:
+            fail(f"a {name} pass launched {counts}, the sequential pass {passes[0][2]}")
+    syncs = {name: count_syncs(lambda fn=fn: fn(batches[:SYNC_BATCHES])) for name, fn in
+             (("sequential", sequential), ("stream", stream))}
+    # what the pinned, non-blocking uploads save: the same count with a plain .to() of pageable memory
+    upload = lb.upload
+    lb.upload = lambda a, device: torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
+    try:
+        syncs["sequential, blocking uploads"] = count_syncs(lambda: sequential(batches[:SYNC_BATCHES]))
+    finally:
+        lb.upload = upload
+    profiled, prof = profile_batch(lambda: stream(batches[:3]), library)
+    if profiled != expect[:3]:
+        fail("the profiled stream pass's ballots differ from [slice]'s")
+    # the first batches are [slice]'s, verified there
+    n_ok = sum(phases.verify_ballot(b[0], b[1], b[2], vk_eid, vk_crs) for bs in passes[0][1][len(seq):] for b in bs)
+    per_batch = {k: v / len(batches) for k, v in passes[0][2].items() if v}
+    log(f"[stream] {len(batches)} batches of B={BATCH} at depth {DEPTH}, byte-identical to [slice]'s sequential "
+        f"ballots in every pass; pipelined {' / '.join(f'{x:.3f}' for x in secs['stream'])} s/batch against "
+        f"sequential {' / '.join(f'{x:.3f}' for x in secs['sequential'])} s/batch, same call (turns: sequential, "
+        f"stream, stream, sequential); {gpu}")
+    log(f"[stream] kernel launches a batch, every pass: {sum(per_batch.values()):.0f} ({per_batch})")
+    for name, c in syncs.items():
+        log(f"[stream] {name}: {sum(c.values()) / SYNC_BATCHES:.1f} synchronizing CUDA calls a batch over "
+            f"{SYNC_BATCHES} batches; by line: {dict(c.most_common())}")
+    if prof:
+        log(f"[stream] one stream pass of 3 batches under torch.profiler: {prof['wall_s']:.3f} s wall, device busy "
+            f"{prof['busy_s']:.3f} s = {100 * prof['busy_s'] / prof['wall_s']:.1f}% (the NTT's _int_mm "
+            + (f"{1e3 * prof['library']['device_s']:.3f} ms included)" if prof["library"]["launches"]
+               else "not seen by the profiler)"))
+    else:
+        log("[stream] device busy share: not measured (the profiler recorded no device kernel)")
+    log(f"[stream] ballots of the {STREAM_EXTRA} batches past [slice]'s verified: {n_ok}/{BATCH * STREAM_EXTRA}")
+    if n_ok != BATCH * STREAM_EXTRA:
+        fail("a stream ballot failed verify_ballot")
+    return dict(stream_s=secs["stream"], sequential_s=secs["sequential"],
+                syncs={k: sum(c.values()) / SYNC_BATCHES for k, c in syncs.items()}, profile=prof)
+
+
+def run_api(e: dict, rnd, gpu: str) -> dict:
+    """vote_phase_batch, blobs in and ballots out, twice from an empty parse
+    cache: the first call parses the depth-6 keys, the second finds them
+    (and the device constants cached on the proving key)."""
+    import torch
+
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.protocol import marshal as M
+    from vote_saver_tpu_torch.protocol import phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
+
+    pk_crs, vk_crs, pk_eid, _sk_eid, vk_eid = e["keys"]
+    eid, rt, tree = e["data"]
+    idx = list(range(BATCH))
+    sks = [v[1] for v in e["voters"]]
+    parse_s: list = []
+    prepare = phases.prepare_vote_context
+
+    def timed_prepare(*args, **kwargs):
+        t0 = time.perf_counter()
+        ctx = prepare(*args, **kwargs)
+        parse_s.append(time.perf_counter() - t0)
+        return ctx
+
+    M._DE_CACHE.clear()  # as in a fresh process
+    phases.prepare_vote_context = timed_prepare
+    calls = []
+    try:
+        for k in range(2):
+            votes = [rnd.randrange(25) for _ in idx]
+            hf.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ballots = phases.vote_phase_batch(DEPTH, EID_BITS, idx, votes, tree, rt, eid, sks, pk_eid, pk_crs,
+                                              vk_crs, FrRandom(SEED + 4 + k))
+            calls.append(time.perf_counter() - t0)
+            _path_launches(VOTE_KERNELS, f"vote_phase_batch call {k + 1}")
+            n_ok = sum(phases.verify_ballot(b[0], b[1], b[2], vk_eid, vk_crs) for b in ballots)
+            if n_ok != BATCH:
+                fail(f"vote_phase_batch call {k + 1}: {n_ok}/{BATCH} ballots verified")
+    finally:
+        phases.prepare_vote_context = prepare
+    log(f"[api] vote_phase_batch x2 (B={BATCH}, depth {DEPTH}) from an empty parse cache: parse {parse_s[0]:.3f} / "
+        f"{parse_s[1]:.3f} s, call {calls[0]:.3f} / {calls[1]:.3f} s; {2 * BATCH}/{2 * BATCH} ballots verified; {gpu}")
+    return dict(parse_s=parse_s, call_s=calls)
 
 
 def bound(work: dict, rates: dict) -> tuple[float, str]:
@@ -1166,7 +1387,11 @@ def main() -> None:
     setup_launches = check_setup(e)["launches"]
     _ntt, library = check_ntt(gpu)
     check_golden()
-    vote_launches = run_slice(rnd, e, library)["launches"]
+    vote = run_slice(rnd, e, library)
+    vote_launches = vote["launches"]
+    run_tally(e, vote["device_batches"], gpu)
+    run_stream(e, vote["device_batches"], rnd, library, gpu)
+    run_api(e, rnd, gpu)
 
     kern.update(probe_entries(probes))
     paths = dict.fromkeys(SETUP_KERNELS, setup_launches)

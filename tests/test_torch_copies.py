@@ -3,7 +3,8 @@ originals.
 
 The port imports nothing of ``vote_saver_tpu``: it keeps its own copies of
 ``params``, ``refimpl/``, ``utils/rng``, ``circuit/{r1cs,gadgets,voting}``,
-the byte helpers and writers of ``protocol/marshal`` and ``native_bridge``
+the byte helpers, writers and parse cache of ``protocol/marshal`` and
+``native_bridge``
 (which builds ``native/vs_native.cpp`` into the port's own build
 directory).  Each copy must give exactly what its original gives: the
 constants, the seeded ``FrRandom`` streams, the depth-2 voting circuit's
@@ -12,7 +13,9 @@ oracle pairing and Pedersen hash, and the native MSM, fixed-base products
 and MSM schedules.
 """
 
+import inspect
 import random
+import types
 
 import numpy as np
 
@@ -99,6 +102,21 @@ def test_marshal_copy_matches_on_the_election(election):
         assert M.de_g1(proof[:48]) == jM.de_g1(proof[:48]) and M.de_g2(proof[48:144]) == jM.de_g2(proof[48:144])
         assert M.ser_proof(keys.de_proof(proof)) == jM.ser_proof(jM.de_proof(proof)) == proof
         assert M.ser_ct(keys.de_ct(ct)) == jM.ser_ct(jM.de_ct(ct)) == ct
+
+
+def test_marshal_chain_vectors_dec_proof_and_parse_cache_match():
+    """The chain's 4-byte-prefix scalar vector, the prefix-agnostic reader,
+    the decryption-proof writer and the parse cache, against the originals."""
+    rnd = random.Random(64)
+    xs = [0, 1, params.R - 1] + [rnd.randrange(params.R) for _ in range(22)]
+    assert M.ser_scalar_vector_chain(xs) == jM.ser_scalar_vector_chain(xs)
+    for blob in (M.ser_scalar_vector(xs), M.ser_scalar_vector_chain(xs), M.ser_scalar_vector([])):
+        assert M.de_scalar_vector_any(blob) == jM.de_scalar_vector_any(blob)
+    assert M.de_scalar_vector_any(M.ser_scalar_vector_chain(xs)) == xs
+    dp = types.SimpleNamespace(d_pts=[None] + [rc.g1_mul(rc.g1_gen, x) for x in xs[1:20]])
+    assert M.ser_dec_proof(dp) == jM.ser_dec_proof(dp)
+    assert inspect.getsource(M._cached) == inspect.getsource(jM._cached)
+    assert M._DE_CACHE_MAX == jM._DE_CACHE_MAX
 
 
 def test_refimpl_pairing_and_pedersen_match():

@@ -243,6 +243,29 @@ def test_prove_on_card_matches_cpu(dev):
     assert all(tg.verify(vk, [int(w[i, 1])], p) for i, p in enumerate(on_card))
 
 
+def test_one_cache_entry_per_card(dev):
+    """"cuda" names the current card's index (limbs.device_of), so the
+    device constants a long-lived proving key and the NTT plans cache are
+    held once however the caller names the card."""
+    from vote_saver_tpu_torch.ops import ntt as tntt
+    from vote_saver_tpu_torch.ops import ntt_mxu
+
+    cs = ConstraintSystem()
+    out = cs.alloc()
+    cs.set_input_sizes(1)
+    x = cs.alloc()
+    cs.constrain(lc((x, 1)), lc((x, 1)), lc((out, 1)))
+    pk, _vk = tg.setup(cs, FrRandom(7), device="host")
+    indexed = torch.device("cuda", torch.cuda.current_device())
+    assert lb.device_of("cuda") == indexed
+    assert tg.devaff(pk, "a", "cuda") is tg.devaff(pk, "a", indexed) is tg.devaff(pk, "a", str(indexed))
+    assert [k for k in pk._dev if k[0] == "devaff"] == [("devaff", "a", str(indexed))]
+    plan = ntt_mxu.get_plan(1 << 8, "inv")
+    assert plan.table("t12", "cuda") is plan.table("t12", indexed)
+    ntt = tntt.get_ntt(1 << 8, "radix2")
+    assert ntt.table("zh_coset_inv", "cuda") is ntt.table("zh_coset_inv", indexed)
+
+
 def test_setup_on_card_matches_host(dev):
     """Setup through the device table on the card writes the host-native
     arm's CRS, byte for byte."""

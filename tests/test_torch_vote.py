@@ -24,8 +24,10 @@ from vote_saver_tpu_torch.testing import torch_threads
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
-def _host_msms(pk, w_std, h_std, window_bits=None, timer=None):
-    """prove_msms stand-in: native host MSMs, lifted to device coordinates."""
+def _host_msms(pk, w_std, h_std, window_bits=None, timer=None, defer=False):
+    """prove_msms stand-in: native host MSMs, lifted to device coordinates;
+    (outs, or with defer a zero-arg finish giving them, and the host copy
+    of w_std)."""
     w = lb.tensor_to_ints(w_std, lb.FR, mont=False)
     h = lb.tensor_to_ints(h_std, lb.FR, mont=False)
     scal = {"a": w, "b1": w, "b2": w, "l": w[:, pk.num_primary + 1 :], "h": h}
@@ -35,7 +37,7 @@ def _host_msms(pk, w_std, h_std, window_bits=None, timer=None):
         group = "g2" if name == "b2" else "g1"
         outs[name] = (co.g2_to_device if name == "b2" else co.g1_to_device)(
             [nb.msm(pts, [int(x) for x in row], group=group) for row in s])
-    return outs, 0
+    return ((lambda: outs) if defer else outs), lb.from_tensor(w_std)
 
 
 def test_default_vote_arm_matches_golden(monkeypatch):

@@ -224,10 +224,10 @@ class _Collector:
         one = f.const("one_mont", device)
         wit = torch.zeros((B, num_vars, f.L), dtype=torch.int32, device=device)
         wit[:, 0, :] = one
-        bi = torch.from_numpy(np.concatenate(self.bit_idx)).to(device)
+        bi = lb.upload(np.concatenate(self.bit_idx), device)
         bv = torch.cat(self.bit_vals, dim=1).to(torch.int32)
         wit[:, bi, :] = bv[..., None] * one
-        fi = torch.from_numpy(np.concatenate(self.field_idx)).to(device)
+        fi = lb.upload(np.concatenate(self.field_idx), device)
         wit[:, fi, :] = torch.cat(self.field_vals, dim=1)
         return wit
 
@@ -287,7 +287,7 @@ def _decompose_core(f: FieldOps, x_mont, lt_positions):
     bits = std_limbs_to_bits(f.from_mont(x_mont), DIGEST_BITS)
     t_vals = None
     if lt_positions is not None and lt_positions.size:
-        gathered = bits[:, torch.from_numpy(lt_positions).to(bits.device)]
+        gathered = bits[:, lb.upload(lt_positions, bits.device)]
         t_vals = torch.cumprod(gathered, dim=1)
     return bits, t_vals
 
@@ -361,7 +361,7 @@ def generate_witness_device(circ, vote_idx, eid_bits_le, sk_bits, voter_idx, sib
     vidx = np.asarray(voter_idx, np.int64).reshape(-1)
     addr = (vidx[:, None] >> np.arange(circ.tree_depth)[None, :]) & 1
     sib = np.asarray(sib_bits).astype(np.int64).reshape(B, circ.tree_depth, DIGEST_BITS)
-    return _wgen(prog, *(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (vote, eid, sk, addr, sib)))
+    return _wgen(prog, *(lb.upload(a, device) for a in (vote, eid, sk, addr, sib)))
 
 
 def witness_to_host_ints(w_mont: torch.Tensor) -> np.ndarray:

@@ -41,6 +41,7 @@ it replaces.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -489,11 +490,21 @@ def _infinity(g2: bool, lead: tuple, device):
 _IDX_MASK = (1 << 30) - 1
 
 
-def _check_codes(codes, npts: int):
-    """IndexError where a scan code names a point past a table of `npts`
-    (one reduction, read on the host): the kernel reads the table unchecked,
-    and a gather past it on the card is a device-side assert."""
-    if codes.numel() and int(torch.bitwise_and(codes, _IDX_MASK).amax()) > npts:
+def check_codes(codes, npts: int) -> None:
+    """IndexError where a scan code (a tensor or a numpy array) names a
+    point past a table of `npts`: the kernel reads the table unchecked, and
+    a gather past it on the card is a device-side assert.  On a CUDA tensor
+    the check is one reduction read back on the host, so the vote path
+    checks its codes on the host before they go up
+    (``msm_sched.bucket_phase``) and tells the scan so."""
+    if isinstance(codes, torch.Tensor):
+        top = int((codes & _IDX_MASK).max()) if codes.numel() else 0
+    elif codes.size:  # row by row, so the masked copy stays in cache
+        buf = np.empty(codes.shape[-1], np.int32)
+        top = max(int(np.bitwise_and(row, _IDX_MASK, out=buf).max()) for row in codes.reshape(-1, codes.shape[-1]))
+    else:
+        top = 0
+    if top > npts:
         raise IndexError(f"a code names a point past the table of {npts}")
 
 
@@ -503,7 +514,7 @@ def madd_scan_plain(g2: bool, points_xy, codes):
     (pidx + 1) | sign << 30) on the gathered points; exc is the OR of the
     rows' flags.  A code naming a point past the table raises IndexError."""
     px, py = points_xy
-    _check_codes(codes, px.shape[0])
+    check_codes(codes, px.shape[0])
     lanes = codes.shape[1]
     acc = _infinity(g2, (lanes,), px.device)
     exc = torch.zeros((lanes,), dtype=torch.int32, device=px.device)
@@ -677,7 +688,7 @@ def g2_madd(acc, q_affine, sign, active, out=None):
     return _madd(True, acc, q_affine, sign, active, out)
 
 
-def _madd_scan(g2: bool, points_xy, codes):
+def _madd_scan(g2: bool, points_xy, codes, checked: bool):
     px, py = points_xy
     if not _on_cuda(px):
         return madd_scan_plain(g2, points_xy, codes)
@@ -687,7 +698,8 @@ def _madd_scan(g2: bool, points_xy, codes):
     _check((px, py), tail, npts, dev)
     if codes.dtype != torch.int32 or codes.device != dev or codes.dim() != 2 or not codes.is_contiguous():
         raise ValueError(f"codes must be a contiguous (steps, lanes) int32 tensor on {dev}")
-    _check_codes(codes, npts)
+    if not checked:
+        check_codes(codes, npts)
     steps, lanes = codes.shape
     out = tuple(torch.empty((lanes,) + tail, dtype=torch.int32, device=dev) for _ in range(3))
     exc = torch.empty((lanes,), dtype=torch.int32, device=dev)
@@ -701,17 +713,19 @@ def _madd_scan(g2: bool, points_xy, codes):
     return out, exc
 
 
-def g1_madd_scan(points_xy, codes):
+def g1_madd_scan(points_xy, codes, checked: bool = False):
     """K2's bucket scan: points_xy (x, y) (n, L) affine, (0, 0) for
     infinity; codes (steps, lanes) int32 -> (Jacobian (lanes, L) x3, the
     (lanes,) int32 OR of each lane's doubling-corner flags).  A code naming
-    no point of the table raises IndexError."""
-    return _madd_scan(False, points_xy, codes)
+    no point of the table raises IndexError; ``checked=True`` says the
+    caller has run ``check_codes`` on them already, and the kernel's
+    wrapper then reads nothing back from the card."""
+    return _madd_scan(False, points_xy, codes, checked)
 
 
-def g2_madd_scan(points_xy, codes):
+def g2_madd_scan(points_xy, codes, checked: bool = False):
     """G2 variant: points (n, 2, L)."""
-    return _madd_scan(True, points_xy, codes)
+    return _madd_scan(True, points_xy, codes, checked)
 
 
 def _add_shift(g2: bool, coords, shift: int, out=None):

@@ -28,10 +28,15 @@ def spec_for(name: str) -> FieldSpec:
 def device_of(device) -> torch.device:
     """The device an entry point runs on.  The entry points default to
     "cuda"; where there is no card that default raises here instead of
-    running on the CPU, which only a caller that names it gets."""
+    running on the CPU, which only a caller that names it gets.  "cuda"
+    becomes "cuda:<current index>", the name its tensors carry, so each
+    card has one name in every cache keyed by device."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the plain PyTorch versions")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the plain PyTorch versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -84,10 +89,25 @@ def mont_limbs_to_ints(limbs, spec: FieldSpec):
     return int(vals) * r_inv % n
 
 
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """Host array -> tensor on `device` without waiting for the device.  A
+    plain ``.to()`` of pageable memory onto a card synchronises its stream,
+    so the host would stop behind every kernel already queued; on a card
+    the array is copied into pinned memory and sent with
+    ``non_blocking=True`` instead (PyTorch's pinned allocator keeps the
+    block until the copy has run; `a` is free at once).  On the CPU the
+    tensor shares `a`'s memory."""
+    t = torch.from_numpy(np.require(a, requirements=["C", "W"]))
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
 def to_tensor(limbs: np.ndarray, device="cpu") -> torch.Tensor:
     """uint32 limb array -> int32 tensor with the same bit patterns."""
     a = np.ascontiguousarray(np.asarray(limbs).astype(np.uint32, copy=False))
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    return upload(a.view(np.int32).copy(), device)
 
 
 def from_tensor(t: torch.Tensor) -> np.ndarray:

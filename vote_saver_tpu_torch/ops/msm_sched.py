@@ -291,8 +291,8 @@ def _live_add(ops, coords, partner_pos: np.ndarray):
     if live.size == 0:
         return coords
     dev = coords[0].device
-    dst = torch.from_numpy(live).to(dev)
-    src = torch.from_numpy(partner_pos[live].astype(np.int64) - 1).to(dev)
+    dst = lb.upload(live, dev)
+    src = lb.upload(partner_pos[live].astype(np.int64) - 1, dev)
     added = ops.add(tuple(c.index_select(0, dst) for c in coords),
                     tuple(c.index_select(0, src) for c in coords))
     return tuple(c.index_copy(0, dst, a) for c, a in zip(coords, added))
@@ -394,12 +394,16 @@ def bucket_phase(group: str, points_xy, sched: Schedule):
     """The scheduled MSM's bucket phase: the scan of every schedule row (one
     K2 scan launch), then the orphan runs folded into their canonical
     buckets (K3 on the live lanes).  Returns (bucket coords with leading dim
-    canon = windows * parts * 2^(w-1), the madd flag tensor () bool)."""
+    canon = windows * parts * 2^(w-1), the madd flag tensor () bool).  A
+    code naming a point past the table raises IndexError before anything
+    is uploaded."""
     ops = _ops(group)
     dev = points_xy[0].device
     canon = sched.merge_gather.shape[0]
-    codes = torch.from_numpy(np.ascontiguousarray(sched.codes, dtype=np.int32)).to(dev)
-    acc, exc = _madd_scan(group)(points_xy, codes)
+    # checked here, on the host's copy: the scan then reads nothing back
+    hf.check_codes(sched.codes, points_xy[0].shape[0])
+    codes = lb.upload(np.asarray(sched.codes, dtype=np.int32), dev)
+    acc, exc = _madd_scan(group)(points_xy, codes, checked=True)
     # fold orphan runs into their heads, then heads into canonical lanes
     # (complete adds on the live lanes; idle rounds are skipped on the host)
     can = tuple(c[:canon] for c in acc)
@@ -408,8 +412,8 @@ def bucket_phase(group: str, points_xy, sched: Schedule):
         for part_row in sched.merge_part:
             orph = _live_add(ops, orph, part_row)
         live = np.nonzero(sched.merge_gather)[0]
-        dst = torch.from_numpy(live).to(dev)
-        src = torch.from_numpy(sched.merge_gather[live].astype(np.int64) - 1).to(dev)
+        dst = lb.upload(live, dev)
+        src = lb.upload(sched.merge_gather[live].astype(np.int64) - 1, dev)
         added = ops.add(tuple(c.index_select(0, dst) for c in can),
                         tuple(c.index_select(0, src) for c in orph))
         can = tuple(c.index_copy(0, dst, a) for c, a in zip(can, added))

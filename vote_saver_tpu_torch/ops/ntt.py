@@ -87,6 +87,7 @@ class NTT:
         self._host["n_inv"] = lb.ints_to_mont_limbs(self.n_inv, lb.FR)
 
     def table(self, name: str, device) -> torch.Tensor:
+        device = lb.device_of(device)
         key = (name, str(device))
         if key not in self._dev:
             arr = self._host[name]

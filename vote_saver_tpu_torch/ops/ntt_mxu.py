@@ -301,7 +301,9 @@ class MatmulNTTPlan:
 
     def table(self, name: str, device) -> torch.Tensor:
         """The step-A / step-C Toeplitz matrix ("a", "c") or the step-B
-        twiddles ("t12") on `device`, built once per device."""
+        twiddles ("t12") on `device`, built once per device (named by
+        ``lb.device_of``: "cuda" and "cuda:0" are one)."""
+        device = lb.device_of(device)
         key = (name, str(device))
         if key not in self._dev:
             if name == "t12":

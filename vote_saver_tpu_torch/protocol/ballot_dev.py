@@ -30,6 +30,7 @@ from ..refimpl import curves as rc
 from ..refimpl import jacobian as rj
 from ..utils.rng import FrRandom
 from ..ops import curve_ops as co
+from ..ops import limbs as lb
 from ..ops import msm as msm_mod
 from .groth16 import Proof, ProvingKey, VerificationKey
 from .saver import Ciphertext, SaverPublicKey, message_bases
@@ -125,7 +126,7 @@ def finalize_ballots_device(pk: ProvingKey, spk: SaverPublicKey, gvk: Verificati
         scal1 += [r_i % R, s_i % R, r_i * s_i % R] + [sc["u"][i]] * (n + 2)
     scal2 = sc["sz"] + [r % R for r, _ in sc["rs"]] + sc["z1inv"]
     scal_g2 = sc["z1"] + sc["z1sz"]
-    digits = [torch.from_numpy(msm_mod.scalars_to_window_digits(s)).to(device) for s in (scal1, scal2, scal_g2)]
+    digits = [lb.upload(msm_mod.scalars_to_window_digits(s), device) for s in (scal1, scal2, scal_g2)]
 
     # sparse message term E: slot 1+v gets P_v, the psi slot gets Y_v
     e_flat: list = []

@@ -17,7 +17,9 @@ Counterpart of ``vote_saver_tpu/protocol/groth16.py``:
     (the int8 matmul NTT on the card for domains of at least 2^12, else
     radix-2), "radix2" or "matmul" that path.
     ``prove_msms_device`` stops there and leaves the MSM outputs on the
-    device for the device ballot tail; ``prove`` (the host-witness arm)
+    device for the device ballot tail, their five flags read in one
+    deferred ``finish`` (``defer=True`` hands it to the caller, as the
+    pipelined vote stream needs); ``prove`` (the host-witness arm)
     brings them to the host and blinds and assembles the proofs there;
   * verify: the 4-term pairing check on the host.
 """
@@ -231,6 +233,8 @@ def setup(cs: ConstraintSystem, rng: FrRandom, device="cuda") -> tuple[ProvingKe
 
 
 def _cache(pk: ProvingKey, key, build):
+    """pk._dev[key], built once; keys name their device by
+    ``lb.device_of``, so "cuda" and "cuda:0" share one entry."""
     if key not in pk._dev:
         pk._dev[key] = build()
     return pk._dev[key]
@@ -264,6 +268,7 @@ def _abc_coo_device(pk: ProvingKey, device):
             )
         return out
 
+    device = lb.device_of(device)
     return _cache(pk, ("abc_coo", str(device)), build)
 
 
@@ -312,10 +317,12 @@ def devaff(pk: ProvingKey, name: str, device):
                 arrs = tuple(torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))]) for a in arrs)
         return tuple(a.to(device) for a in arrs)
 
+    device = lb.device_of(device)
     return _cache(pk, ("devaff", name, str(device)), build)
 
 
 def _jac_dev(pk: ProvingKey, name: str, device):
+    device = lb.device_of(device)
     conv = co.g2_to_device if name == "b2" else co.g1_to_device
     return _cache(pk, ("jac", name, str(device)), lambda: conv(getattr(pk, f"{name}_pts"), device))
 
@@ -328,10 +335,20 @@ def _var_base_batch(pk: ProvingKey, name: str, group: str, limbs_list, device):
 
 
 def prove_msms(pk: ProvingKey, w_std: torch.Tensor, h_std: torch.Tensor,
-               window_bits: int = ms.DEFAULT_WINDOW_BITS, timer: StageTimer | None = None):
+               window_bits: int = ms.DEFAULT_WINDOW_BITS, timer: StageTimer | None = None,
+               defer: bool = False):
     """Five scheduled MSMs for B voters (standard-form scalar limbs on the
-    device).  Returns ({query: Jacobian coords, leading dim (B,)}, number of
-    var-base fallbacks taken)."""
+    device).  Returns (outs, w_np): outs maps each query to its Jacobian
+    coords with leading dim (B,), w_np is the host copy of w_std that the
+    schedules were built from.
+
+    The MSMs are launched with their doubling-corner flags left on the
+    device.  ``finish()`` reads the five flags with one host read, runs the
+    complete-formula var-base MSM for each query whose flag is set
+    (counted in ``timer.counts["fallbacks"]``) and returns outs; the
+    timer's ``msm_*`` marks are made there.  defer=True returns
+    (finish, w_np), so a pipelined caller can do other host work before
+    the MSMs are waited for; defer=False returns (finish(), w_np)."""
     device = w_std.device
     w_np = lb.from_tensor(w_std)
     h_np = lb.from_tensor(h_std)
@@ -351,16 +368,23 @@ def prove_msms(pk: ProvingKey, w_std: torch.Tensor, h_std: torch.Tensor,
         ("l", "g1", sch_aux, aux_limbs),
         ("h", "g1", sch_h, h_limbs),
     )
-    outs, fallbacks = {}, 0
-    for name, group, sch, limbs_list in queries:
-        res, exc = ms.msm_device(group, devaff(pk, name, device), sch)
-        if bool(exc):  # madd doubling corner: recompute with complete formulas
-            fallbacks += 1
-            res = _var_base_batch(pk, name, group, limbs_list, device)
-        outs[name] = res
+    outs, excs = {}, []
+    for name, group, sch, _limbs in queries:
+        outs[name], exc = ms.msm_device(group, devaff(pk, name, device), sch)
+        excs.append(exc)
+
+    def finish():
+        flags = torch.stack(excs).tolist()  # the one host read of the five flags
+        for (name, group, _sch, limbs_list), hit in zip(queries, flags):
+            if hit:  # madd doubling corner: recompute with complete formulas
+                outs[name] = _var_base_batch(pk, name, group, limbs_list, device)
+            if timer:
+                timer.mark(f"msm_{name}")
         if timer:
-            timer.mark(f"msm_{name}")
-    return outs, fallbacks
+            timer.counts["fallbacks"] = timer.counts.get("fallbacks", 0) + sum(flags)
+        return outs
+
+    return (finish if defer else finish()), w_np
 
 
 def msms_from_device(outs: dict):
@@ -374,20 +398,21 @@ def msms_from_device(outs: dict):
 
 
 def prove_msms_device(pk: ProvingKey, w_mont: torch.Tensor, window_bits: int = ms.DEFAULT_WINDOW_BITS,
-                      timer: StageTimer | None = None, ntt: str | None = None):
+                      timer: StageTimer | None = None, ntt: str | None = None, defer: bool = False):
     """Montgomery witness (B, m, L) on the device -> (the five query MSMs as
     device Jacobian coords with leading dim (B,), w_std (B, m, L) standard
-    form on the device), the NTTs on path `ntt`.  Raises ValueError if an
-    assignment fails the R1CS."""
+    form on the device, w_np its host copy), the NTTs on path `ntt`.  With
+    defer=True the first item is ``prove_msms``'s zero-arg ``finish``, which
+    gives the MSMs.  Read the primary inputs from w_np: a read of w_std
+    would wait for the MSMs.  Raises ValueError if an assignment fails the
+    R1CS."""
     h_std, w_std, sat = _abc_h_w(pk, w_mont, ntt)
     if not bool(sat.all()):
         raise ValueError("witness does not satisfy the R1CS")
     if timer:
         timer.mark("abc_h")
-    outs, fallbacks = prove_msms(pk, w_std, h_std, window_bits, timer)
-    if timer:
-        timer.counts["fallbacks"] = timer.counts.get("fallbacks", 0) + fallbacks
-    return outs, w_std
+    outs, w_np = prove_msms(pk, w_std, h_std, window_bits, timer, defer=defer)
+    return outs, w_std, w_np
 
 
 def prove(pk: ProvingKey, wvals: np.ndarray, rng: FrRandom, device="cuda",
@@ -397,7 +422,7 @@ def prove(pk: ProvingKey, wvals: np.ndarray, rng: FrRandom, device="cuda",
     `ntt` the NTT path (``choose_path``)."""
     device = lb.device_of(device)
     w_mont = fr_ops().to_mont(lb.ints_to_tensor(wvals, lb.FR, device, mont=False))
-    outs, _w_std = prove_msms_device(pk, w_mont, window_bits, timer, ntt)
+    outs, _w_std, _w_np = prove_msms_device(pk, w_mont, window_bits, timer, ntt)
     proofs = _blind_and_assemble(pk, *msms_from_device(outs), rng)
     if timer:
         timer.mark("proof_assembly")

@@ -5,6 +5,10 @@ for their dataclasses; the byte-level helpers they use (``de_g1``,
 ``de_g2``, ``_de_g1_vec``, ``_de_g2_vec``, ``de_scalar_vector``) come from
 the port's copy of ``marshal``.  The ``ser_*`` writers are duck-typed and
 work on these dataclasses as they are.  Wire formats: docs/WIRE_FORMATS.md.
+
+The key parsers go through ``marshal._cached`` under the JAX package's kind
+names, as there: a blob parsed again returns the same object, so a proving
+key keeps the device constants cached on it across phase calls.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import struct
 
 from . import marshal as M
 from .groth16 import Proof, ProvingKey, VerificationKey
-from .saver import Ciphertext, SaverPublicKey, SaverSecretKey, SaverVerificationKey
+from .saver import Ciphertext, DecryptionProof, SaverPublicKey, SaverSecretKey, SaverVerificationKey
 
 G1, G2 = M.G1_SIZE, M.G2_SIZE
 
@@ -29,6 +33,10 @@ def de_proof(blob: bytes) -> Proof:
 
 
 def de_groth16_vk(blob: bytes) -> VerificationKey:
+    return M._cached("de_groth16_vk", blob, lambda: _de_groth16_vk(blob))
+
+
+def _de_groth16_vk(blob: bytes) -> VerificationKey:
     off = 0
     alpha = M.de_g1(blob[:G1])
     off += G1
@@ -39,9 +47,17 @@ def de_groth16_vk(blob: bytes) -> VerificationKey:
     return VerificationKey(alpha_g1=alpha, beta_g2=beta, gamma_g2=gamma, delta_g2=delta, ic=ic)
 
 
-def de_groth16_pk(blob: bytes, coo: dict) -> ProvingKey:
+def de_groth16_pk(blob: bytes, coo: dict | None) -> ProvingKey:
     """The constraint matrices are not in the blob: the caller passes the
-    COO of the circuit rebuilt for this tree depth."""
+    COO of the circuit rebuilt for this tree depth, which is set on the
+    cached key (None leaves it as it is)."""
+    pk = M._cached("g16pk", blob, lambda: _de_groth16_pk(blob))
+    if coo is not None:
+        pk.coo = coo
+    return pk
+
+
+def _de_groth16_pk(blob: bytes) -> ProvingKey:
     ni, nv, dom, nc = struct.unpack(">QQQQ", blob[:32])
     off = 32
     a, off = M._de_g1_vec(blob, off)
@@ -59,11 +75,15 @@ def de_groth16_pk(blob: bytes, coo: dict) -> ProvingKey:
         num_primary=ni, num_vars=nv, domain=dom,
         a_pts=a, b1_pts=b1, b2_pts=b2, h_pts=h, l_pts=l,
         alpha_g1=alpha, beta_g1=beta1, beta_g2=beta2, delta_g1=delta1, delta_g2=delta2,
-        coo=coo, num_constraints=nc,
+        coo=None, num_constraints=nc,
     )
 
 
 def de_saver_pk(blob: bytes) -> SaverPublicKey:
+    return M._cached("de_saver_pk", blob, lambda: _de_saver_pk(blob))
+
+
+def _de_saver_pk(blob: bytes) -> SaverPublicKey:
     s, off = M._de_g1_vec(blob, 0)
     x_psi = M.de_g1(blob[off : off + G1])
     off += G1
@@ -73,10 +93,14 @@ def de_saver_pk(blob: bytes) -> SaverPublicKey:
 
 
 def de_saver_sk(blob: bytes) -> SaverSecretKey:
-    return SaverSecretKey(s=M.de_scalar_vector(blob))
+    return M._cached("de_saver_sk", blob, lambda: SaverSecretKey(s=M.de_scalar_vector(blob)))
 
 
 def de_saver_vk(blob: bytes) -> SaverVerificationKey:
+    return M._cached("de_saver_vk", blob, lambda: _de_saver_vk(blob))
+
+
+def _de_saver_vk(blob: bytes) -> SaverVerificationKey:
     v, off = M._de_g2_vec(blob, 0)
     z, off = M._de_g2_vec(blob, off)
     gamma_s = M.de_g2(blob[off : off + G2])
@@ -88,3 +112,9 @@ def de_ct(blob: bytes) -> Ciphertext:
     pts, off = M._de_g1_vec(blob, 0)
     _expect(off == len(blob), "ct")
     return Ciphertext(points=pts)
+
+
+def de_dec_proof(blob: bytes) -> DecryptionProof:
+    pts, off = M._de_g1_vec(blob, 0)
+    _expect(off == len(blob), "decryption proof")
+    return DecryptionProof(d_pts=pts)

@@ -21,12 +21,14 @@ self-describing layouts — the reference's crypto3-marshalling layouts are
 not observable (submodules not vendored).
 
 The port's copy of ``vote_saver_tpu/protocol/marshal.py`` keeps the byte
-helpers and writers that ``protocol/keys.py`` and ``protocol/phases.py``
-call, verbatim; the key and proof parsers are in ``protocol/keys.py``.
+helpers, the writers and the parse cache that ``protocol/keys.py`` and
+``protocol/phases.py`` call, verbatim; the key and proof parsers are in
+``protocol/keys.py``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import struct
 
 from ..params import Q, R, DIGEST_BITS
@@ -64,6 +66,26 @@ def de_scalar_vector(blob: bytes) -> list[int]:
     return [de_fr(blob[SIZE_T + i * FR_SIZE : SIZE_T + (i + 1) * FR_SIZE]) for i in range(n)]
 
 
+def ser_scalar_vector_chain(xs) -> bytes:
+    """Chain-facing variant: 4-byte BE count prefix (the 804-byte
+    voting_result layout of reference wrapper.js:277-282: 4 + 25*32)."""
+    out = struct.pack(">I", len(xs))
+    for x in xs:
+        out += ser_fr(int(x))
+    return out
+
+
+def de_scalar_vector_any(blob: bytes) -> list[int]:
+    """Accept either prefix width (8-byte CLI format, 4-byte chain format) —
+    the reference carries both (notebook cell 0 vs wrapper.js:277-282)."""
+    rem = len(blob) % FR_SIZE
+    if rem == 4:
+        (n,) = struct.unpack(">I", blob[:4])
+        assert len(blob) == 4 + n * FR_SIZE, "bad scalar vector blob"
+        return [de_fr(blob[4 + i * FR_SIZE : 4 + (i + 1) * FR_SIZE]) for i in range(n)]
+    return de_scalar_vector(blob)
+
+
 # ---------------------------------------------------------------------------
 # bit arrays (big-octet-big-bit: bit j -> byte j//8, bit position 7-(j%8))
 # ---------------------------------------------------------------------------
@@ -90,6 +112,25 @@ def de_bitarray(blob: bytes, nbits: int) -> list[int]:
 _FLAG_COMPRESSED = 0x80
 _FLAG_INFINITY = 0x40
 _FLAG_SIGN = 0x20
+
+
+# -- deserialization cache ----------------------------------------------------
+# Compressed-point vectors pay a modular sqrt per point on parse (~1ms each in
+# python); phase functions are blob-in/blob-out (reference parity,
+# common.hpp:824-1293) and re-receive the same CRS blob every call.  Key the
+# parsed object (and its lazily-built device arrays) on the blob digest.
+
+_DE_CACHE: dict = {}
+_DE_CACHE_MAX = 8
+
+
+def _cached(kind: str, blob: bytes, build):
+    key = (kind, hashlib.sha256(blob).digest())
+    if key not in _DE_CACHE:
+        if len(_DE_CACHE) >= _DE_CACHE_MAX:
+            _DE_CACHE.pop(next(iter(_DE_CACHE)))
+        _DE_CACHE[key] = build()
+    return _DE_CACHE[key]
 
 
 def ser_g1(p) -> bytes:
@@ -241,6 +282,10 @@ def ser_saver_vk(svk) -> bytes:
 
 def ser_ct(ct) -> bytes:
     return _ser_g1_vec(ct.points)
+
+
+def ser_dec_proof(dp) -> bytes:
+    return _ser_g1_vec(dp.d_pts)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""The protocol phases: voter and admin setup, the vote phase and ballot
+"""The six protocol phases: voter and admin setup, the vote phase (single,
+batched, and as a pipelined stream of batches), the tally, and ballot
 verification.
 
-Counterpart of ``vote_saver_tpu/protocol/phases.py``.  Blob-in/blob-out as
+Counterpart of ``vote_saver_tpu/protocol/phases.py``, with every public
+function of that module but its ``mesh=`` arguments.  Blob-in/blob-out as
 there; the vote phase is batched over voters.  Admin key generation runs
 Groth16 setup on ``device`` (the card by default), or natively on the host
 with ``device="host"`` (the CRS is the same).
@@ -17,9 +19,16 @@ argument, never by the environment:
     ``VSTPU_HOST_WITNESS``: host witness (``circ.generate_witness``) ->
     device prover -> host blinding and host SAVER tail -> serialization.
 
+``vote_with_context_stream`` runs the device arm over a sequence of
+batches in the JAX package's pipelined order: batch i+1 is launched (its
+MSMs queued, their flags not read) before batch i's tail runs.  The tally
+(``tally_admin_phase``, ``tally_voter_phase``) runs on the host, as in the
+JAX package: aggregation, decryption and its proof are a few hundred group
+operations an election.
+
 Randomness comes from one seeded ``FrRandom`` drawn in exactly the JAX
-order, so both arms give ballots byte-identical to the JAX package's under
-the same seed.
+order, so both arms and the stream give ballots byte-identical to the JAX
+package's under the same seed.
 """
 
 from __future__ import annotations
@@ -111,6 +120,20 @@ def prepare_vote_context(tree_depth: int, eid_bits: int, merkle_tree_blob: bytes
     return VoteContext(tree_depth, eid_bits, circ, levels, eid_field, eid, spk, vk, pk, device)
 
 
+def vote_phase_batch(tree_depth: int, eid_bits: int, voter_indices: list[int], votes: list[int],
+                     merkle_tree_blob: bytes, rt_blob: bytes, eid_blob: bytes, sk_blobs: list[bytes],
+                     pk_eid_blob: bytes, proving_key_blob: bytes, verification_key_blob: bytes,
+                     rng: FrRandom | None = None, device="cuda"):
+    """Batched ballot generation on `device`.  Per voter returns
+    (proof_blob, pinput_blob, ct_blob, sn_blob): pinput is the primary
+    input from the eid offset on, sn the packed sn slice.  The keys parse
+    once per blob (``keys`` caches them), so the device constants built on
+    the proving key last across calls."""
+    ctx = prepare_vote_context(tree_depth, eid_bits, merkle_tree_blob, rt_blob, eid_blob, pk_eid_blob,
+                               proving_key_blob, verification_key_blob, device)
+    return vote_with_context(ctx, voter_indices, votes, sk_blobs, rng)
+
+
 def _finish_host(spk, vk, pk, proofs, prim, B: int, rng: FrRandom):
     """Host tail: SAVER encrypt + rerandomize; [(ct, proof)] per ballot."""
     m_fields = [[int(x) for x in prim[i, :MSG_SIZE]] for i in range(B)]
@@ -118,6 +141,37 @@ def _finish_host(spk, vk, pk, proofs, prim, B: int, rng: FrRandom):
     return saver.rerandomize_many(
         spk, pk.delta_g2, cts0, proofs, [[rng() for _ in range(3)] for _ in range(B)]
     )
+
+
+def _voter_inputs(ctx: VoteContext, voter_indices: list[int], votes: list[int], sk_blobs: list[bytes]):
+    """(secret-key bits, Merkle copaths) of a batch, after checking it."""
+    if len(votes) != len(voter_indices) or len(sk_blobs) != len(voter_indices):
+        raise ValueError("one vote and one secret key per voter index")
+    if any(not 0 <= idx < (1 << ctx.tree_depth) for idx in voter_indices):
+        raise ValueError("Voter index should be less than number of participants!")
+    sks = [M.de_bitarray(b, SECRET_KEY_BITS) for b in sk_blobs]
+    sib = np.stack([merkle.copath(ctx.levels, i) for i in voter_indices]).astype(object)
+    return sks, sib
+
+
+def _primary(ctx: VoteContext, w_np: np.ndarray):
+    """Primary inputs (B, num_primary) as ints, from the host copy of the
+    standard-form witness."""
+    return lb.limbs_to_ints(w_np[:, 1 : 1 + ctx.circ.cs.num_primary], lb.FR)
+
+
+def _serialize(ctx: VoteContext, rerand, prim) -> list[tuple[bytes, bytes, bytes, bytes]]:
+    out = []
+    sn_off = MSG_SIZE + len(ctx.eid_field)
+    for i, (ct, proof) in enumerate(rerand):
+        pinput = [int(x) for x in prim[i]]
+        out.append((
+            M.ser_proof(proof),
+            M.ser_scalar_vector(pinput[MSG_SIZE:]),
+            M.ser_ct(ct),
+            M.ser_scalar_vector(pinput[sn_off : sn_off + 2]),
+        ))
+    return out
 
 
 def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[int],
@@ -132,13 +186,8 @@ def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[in
     per-stage seconds."""
     rng = rng or FrRandom()
     B = len(voter_indices)
-    if len(votes) != B or len(sk_blobs) != B:
-        raise ValueError("one vote and one secret key per voter index")
-    if any(not 0 <= idx < (1 << ctx.tree_depth) for idx in voter_indices):
-        raise ValueError("Voter index should be less than number of participants!")
     circ = ctx.circ
-    sks = [M.de_bitarray(b, SECRET_KEY_BITS) for b in sk_blobs]
-    sib = np.stack([merkle.copath(ctx.levels, i) for i in voter_indices]).astype(object)
+    sks, sib = _voter_inputs(ctx, voter_indices, votes, sk_blobs)
     if host_witness:
         wit = circ.generate_witness(
             np.array(votes), np.array(ctx.eid, dtype=object), np.array(sks, dtype=object),
@@ -156,26 +205,95 @@ def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[in
         )
         if timer:
             timer.mark("witness")
-        outs, w_std = groth16.prove_msms_device(ctx.pk, w_mont, timer=timer, ntt=ntt)
-        prim = lb.tensor_to_ints(w_std[:, 1 : 1 + circ.cs.num_primary], lb.FR, mont=False)
+        outs, _w_std, w_np = groth16.prove_msms_device(ctx.pk, w_mont, timer=timer, ntt=ntt)
+        prim = _primary(ctx, w_np)
         rerand = ballot_dev.finalize_ballots_device(ctx.pk, ctx.spk, ctx.vk, outs, votes, rng)
         stage = "ballot_tail"
     if timer:
         timer.mark(stage)
-    out = []
-    sn_off = MSG_SIZE + len(ctx.eid_field)
-    for i in range(B):
-        ct, proof = rerand[i]
-        pinput = [int(x) for x in prim[i]]
-        out.append((
-            M.ser_proof(proof),
-            M.ser_scalar_vector(pinput[MSG_SIZE:]),
-            M.ser_ct(ct),
-            M.ser_scalar_vector(pinput[sn_off : sn_off + 2]),
-        ))
+    out = _serialize(ctx, rerand, prim)
     if timer:
         timer.mark("serialize")
     return out
+
+
+def vote_with_context_stream(ctx: VoteContext, batches, rng: FrRandom | None = None):
+    """Pipelined batched voting over (voter_indices, votes, sk_blobs)
+    batches: yields one ballot list per batch.
+
+    Batch i+1 is launched (device witness, A/B/C and H, the host copies of
+    w and h, its schedules, its five MSMs queued with their flags left on
+    the device) before batch i's tail runs (the one flag read, the device
+    ballot tail, serialization), so host work of one batch runs while the
+    device works on the other.  All randomness is drawn in the tails, in
+    batch order: the ballots are byte-identical to sequential
+    ``vote_with_context`` calls under the same seeded `rng`.  The device
+    arm only, on the context's device and its one CUDA stream; an
+    exception in a launch propagates."""
+    rng = rng or FrRandom()
+
+    def launch(batch):
+        voter_indices, votes, sk_blobs = batch
+        sks, sib = _voter_inputs(ctx, voter_indices, votes, sk_blobs)
+        w_mont = witness_dev.generate_witness_device(
+            ctx.circ, np.array(votes), ctx.eid, sks, np.array(voter_indices), sib, ctx.device,
+        )
+        finish, _w_std, w_np = groth16.prove_msms_device(ctx.pk, w_mont, defer=True)
+        return finish, _primary(ctx, w_np), votes
+
+    def tail(state):
+        finish, prim, votes = state
+        rerand = ballot_dev.finalize_ballots_device(ctx.pk, ctx.spk, ctx.vk, finish(), votes, rng)
+        return _serialize(ctx, rerand, prim)
+
+    pending = None
+    for batch in batches:
+        state = launch(batch)
+        if pending is not None:
+            yield tail(pending)
+        pending = state
+    if pending is not None:
+        yield tail(pending)
+
+
+def vote_phase(tree_depth: int, eid_bits: int, voter_idx: int, vote: int, merkle_tree_blob: bytes,
+               rt_blob: bytes, eid_blob: bytes, sk_blob: bytes, pk_eid_blob: bytes, proving_key_blob: bytes,
+               verification_key_blob: bytes, rng: FrRandom | None = None, device="cuda"):
+    """Single-voter wrapper with the reference's signature shape."""
+    return vote_phase_batch(tree_depth, eid_bits, [voter_idx], [vote], merkle_tree_blob, rt_blob, eid_blob,
+                            [sk_blob], pk_eid_blob, proving_key_blob, verification_key_blob, rng, device)[0]
+
+
+def _aggregate(tree_depth: int, cts_blobs: list[bytes]) -> saver.Ciphertext:
+    """The componentwise sum of at most 2^depth ballots' ciphertexts."""
+    if not cts_blobs or len(cts_blobs) > (1 << tree_depth):
+        raise ValueError(f"{len(cts_blobs)} ciphertexts for a depth-{tree_depth} tree: need 1 to {1 << tree_depth}")
+    cts = [keys.de_ct(b) for b in cts_blobs]
+    ct_agg = cts[0]
+    for ct in cts[1:]:
+        ct_agg = ct_agg + ct
+    return ct_agg
+
+
+def tally_admin_phase(tree_depth: int, cts_blobs: list[bytes], sk_eid_blob: bytes, vk_eid_blob: bytes,
+                      pk_crs_blob: bytes, vk_crs_blob: bytes) -> tuple[bytes, bytes]:
+    """Aggregate the ballots' ciphertexts, decrypt the per-candidate counts
+    and prove the decryption.  Returns (dec_proof_blob, voting_res_blob)."""
+    ct_agg = _aggregate(tree_depth, cts_blobs)
+    counts, dproof = saver.decrypt(keys.de_saver_sk(sk_eid_blob), keys.de_groth16_vk(vk_crs_blob), ct_agg,
+                                   max_count=len(cts_blobs))
+    if len(counts) != MSG_SIZE:
+        raise ValueError(f"{len(counts)} decrypted counts, not {MSG_SIZE}")
+    return M.ser_dec_proof(dproof), M.ser_scalar_vector(counts)
+
+
+def tally_voter_phase(tree_depth: int, cts_blobs: list[bytes], vk_eid_blob: bytes, pk_crs_blob: bytes,
+                      vk_crs_blob: bytes, voting_res_blob: bytes, dec_proof_blob: bytes) -> bool:
+    """Verify a published tally against the ballots' ciphertexts (the
+    result in either prefix width, 8-byte or the chain's 4-byte)."""
+    ct_agg = _aggregate(tree_depth, cts_blobs)
+    return saver.verify_decryption(keys.de_groth16_vk(vk_crs_blob), keys.de_saver_vk(vk_eid_blob), ct_agg,
+                                   M.de_scalar_vector_any(voting_res_blob), keys.de_dec_proof(dec_proof_blob))
 
 
 def verify_ballot(proof_blob: bytes, pinput_blob: bytes, ct_blob: bytes, vk_eid_blob: bytes,
@@ -185,3 +303,12 @@ def verify_ballot(proof_blob: bytes, pinput_blob: bytes, ct_blob: bytes, vk_eid_
         keys.de_groth16_vk(vk_crs_blob), keys.de_saver_vk(vk_eid_blob), keys.de_ct(ct_blob),
         keys.de_proof(proof_blob), M.de_scalar_vector(pinput_blob),
     )
+
+
+# The reference's process_encrypted_input_mode_* names (common.hpp:824-1293).
+process_encrypted_input_mode_init_voter_phase = init_voter_phase
+process_encrypted_input_mode_init_admin_phase_generate_keys = init_admin_phase_generate_keys
+process_encrypted_input_mode_init_admin_phase_generate_data = init_admin_phase_generate_data
+process_encrypted_input_mode_vote_phase = vote_phase
+process_encrypted_input_mode_tally_admin_phase = tally_admin_phase
+process_encrypted_input_mode_tally_voter_phase = tally_voter_phase

@@ -1,10 +1,14 @@
-"""SAVER verifiable encryption, host arm (keygen, batched encrypt and
-rerandomize, verify_encryption).
+"""SAVER verifiable encryption on the host: keygen, encrypt and
+rerandomize (single and batched), verify_encryption, and the tally's
+decrypt and verify_decryption.
 
 A jax-free copy of the host functions of ``vote_saver_tpu/protocol/
 saver.py`` (that module imports the JAX Groth16 module for its dataclasses),
-typed on this package's Groth16 dataclasses.  Group work runs on the native
-host kernels through ``refimpl.jacobian``; scheme spec: docs/SAVER_SPEC.md.
+typed on this package's Groth16 dataclasses.  Group work runs on the host
+oracle and the native host kernels through ``refimpl.jacobian``, as in the
+JAX package: these are per-election or per-ballot-constant costs, and the
+tally has no device work there either.  A count out of range raises
+ValueError where the JAX package asserts.  Scheme spec: docs/SAVER_SPEC.md.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from ..params import R
 from ..refimpl import curves as rc
 from ..refimpl import jacobian as rj
 from ..refimpl import pairing as rp
+from ..utils.rng import FrRandom
 from .groth16 import Proof, VerificationKey
 
 
@@ -52,6 +57,11 @@ class Ciphertext:
         return Ciphertext([rc.g1_add(a, b) for a, b in zip(self.points, other.points)])
 
 
+@dataclasses.dataclass
+class DecryptionProof:
+    d_pts: list  # D_i = c_0^{s_i}
+
+
 def message_bases(gvk: VerificationKey, n: int) -> list:
     """P_i = IC_i for the message wires (primary wires 1..n)."""
     return gvk.ic[1 : n + 1]
@@ -73,6 +83,19 @@ def keygen(gvk: VerificationKey, n: int, rnd: list[int]):
         SaverSecretKey(s=s),
         SaverVerificationKey(v_pts=g2_pts[:n], z_pts=g2_pts[n:], gamma_s=gamma_s),
     )
+
+
+def encrypt(pk: SaverPublicKey, gvk: VerificationKey, m: list[int], r: int) -> Ciphertext:
+    """m: length-n small message vector (one-hot ballot)."""
+    n = pk.n
+    p_bases = message_bases(gvk, n)
+    randomized = rj.g1_mul_many([rc.g1_gen] + pk.s_pts + [pk.x_psi], [r] * (n + 2))
+    c0, cs, psi = randomized[0], randomized[1 : n + 1], randomized[n + 1]
+    for i in range(n):
+        if m[i]:
+            cs[i] = rc.g1_add(cs[i], rc.g1_mul(p_bases[i], m[i]))
+            psi = rc.g1_add(psi, rc.g1_mul(pk.y_pts[i], m[i]))
+    return Ciphertext([c0] + cs + [psi])
 
 
 def encrypt_many(pk: SaverPublicKey, gvk: VerificationKey, ms: list[list[int]], rs: list[int]) -> list[Ciphertext]:
@@ -134,6 +157,23 @@ def rerandomize_many(pk: SaverPublicKey, delta_g2, cts: list[Ciphertext], proofs
     return outs
 
 
+def rerandomize(pk: SaverPublicKey, delta_g2, ct: Ciphertext, proof: Proof,
+                rnd: list[int]) -> tuple[Ciphertext, Proof]:
+    """3 fresh scalars (z1, z2, r'): re-blind the ciphertext with r' and the
+    Groth16 proof with (z1, z2)."""
+    z1, z2, r2 = (x % R for x in rnd[:3])
+    if z1 == 0:
+        z1 = 1
+    blind = rj.g1_mul_many([rc.g1_gen] + pk.s_pts + [pk.x_psi], [r2] * (pk.n + 2))
+    c0 = rc.g1_add(ct.points[0], blind[0])
+    cs = [rc.g1_add(ci, b) for ci, b in zip(ct.points[1:-1], blind[1:-1])]
+    psi = rc.g1_add(ct.points[-1], blind[-1])
+    a = rc.g1_mul(proof.a, pow(z1, R - 2, R))
+    b = rc.g2_add(rc.g2_mul(proof.b, z1), rc.g2_mul(delta_g2, z1 * z2 % R))
+    c = rc.g1_add(proof.c, rc.g1_mul(proof.a, z2))
+    return Ciphertext([c0] + cs + [psi]), Proof(a=a, b=b, c=c)
+
+
 def verify_encryption(gvk: VerificationKey, svk: SaverVerificationKey, ct: Ciphertext,
                       proof: Proof, rest_primary: list[int]) -> bool:
     """(1) encrypted-Groth16 pairing check and (2) ciphertext
@@ -159,3 +199,65 @@ def verify_encryption(gvk: VerificationKey, svk: SaverVerificationKey, ct: Ciphe
     pairs = [(rc.g1_neg(psi), rc.g2_gen), (c0, svk.z_pts[0])]
     pairs += [(ci, zi) for ci, zi in zip(cs, svk.z_pts[1:])]
     return rp.pairing_check(pairs)
+
+
+def _bsgs_dlog(base, target, bound: int) -> int | None:
+    """m with target == m * base, 0 <= m <= bound (baby-step giant-step)."""
+    if target is None:
+        return 0
+    step = max(1, int(bound**0.5) + 1)
+    baby = {}
+    cur = None
+    for j in range(step + 1):
+        baby[cur] = j
+        cur = rc.g1_add(cur, base)
+    giant_stride = rc.g1_neg(rc.g1_mul(base, step))
+    cur = target
+    for i in range(step + 2):
+        if cur in baby:
+            m = i * step + baby[cur]
+            if m <= bound:
+                return m
+        cur = rc.g1_add(cur, giant_stride)
+    return None
+
+
+def decrypt(sk: SaverSecretKey, gvk: VerificationKey, ct: Ciphertext,
+            max_count: int) -> tuple[list[int], DecryptionProof]:
+    """Per-slot counts of an (aggregated) ciphertext, each the discrete log
+    of c_i - c_0^{s_i} to base P_i in 0..max_count, and the proof D_i =
+    c_0^{s_i}.  Draws no randomness.  ValueError when the ciphertext has
+    the wrong size or a count lies out of range."""
+    n = len(sk.s)
+    if len(ct.points) != n + 2:
+        raise ValueError(f"a ciphertext of {len(ct.points)} points for {n} slots")
+    c0, cs = ct.points[0], ct.points[1:-1]
+    p_bases = message_bases(gvk, n)
+    d_pts = rj.g1_mul_many([c0] * n, sk.s)
+    counts = []
+    for i in range(n):
+        m_i = _bsgs_dlog(p_bases[i], rc.g1_add(cs[i], rc.g1_neg(d_pts[i])), max_count)
+        if m_i is None:
+            raise ValueError("decryption failed: count out of range")
+        counts.append(m_i)
+    return counts, DecryptionProof(d_pts=d_pts)
+
+
+def verify_decryption(gvk: VerificationKey, svk: SaverVerificationKey, ct: Ciphertext, counts: list[int],
+                      proof: DecryptionProof, rng: FrRandom | None = None) -> bool:
+    """The slot equations c_i - D_i == counts_i P_i, then one batched
+    pairing check e(sum rho_i D_i, h) == e(c_0, sum rho_i V_i) under random
+    rho_i from `rng`."""
+    n = len(svk.v_pts)
+    if len(ct.points) != n + 2 or len(counts) != n or len(proof.d_pts) != n:
+        return False
+    c0, cs = ct.points[0], ct.points[1:-1]
+    p_bases = message_bases(gvk, n)
+    for i in range(n):
+        if rc.g1_add(cs[i], rc.g1_neg(proof.d_pts[i])) != rc.g1_mul(p_bases[i], counts[i]):
+            return False
+    rng = rng or FrRandom()
+    rhos = [rng() for _ in range(n)]
+    d_comb = rj.msm_host(proof.d_pts, rhos)
+    v_comb = rj.msm_host(svk.v_pts, rhos, group="g2")
+    return rp.pairing_check([(d_comb, rc.g2_gen), (rc.g1_neg(c0), v_comb)])
