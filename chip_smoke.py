@@ -63,15 +63,28 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
   10. ``vote_phase_batch`` (blobs in, ballots out) twice on the depth-6
      election from an empty parse cache: the seconds of each call's
      parse (the second parses nothing) and of each call, every ballot
-     verified.
+     verified;
+  11. Merkle trees on the card (``merkle.build_tree``: one Pedersen call a
+     level, K1 in Fr) at depths 6 and 10, byte for byte against the oracle
+     arm, both timed, and at depth 14 on the card only, its root and
+     MERKLE_SAMPLES leaves and parents against the oracle: seconds,
+     hashes/s, peak device memory and launches a depth;
+  12. the port's CLI over a depth-6 election in a temporary workdir, phase
+     by phase (every voter's keys; setup and the tree on the card; one
+     vote call of B = 16; their verification; the tally and its check;
+     ``--phase bench``, B = 1), then on its artifacts the JSON service as a
+     subprocess on the card (generate_vote, verify_vote, verify_tally; its
+     stdout holding only response lines) and one generate_vote through the
+     C ABI's function pointers: every ballot verified, each step timed.
 
 Every count of kernel launches is set to 0 just before a path runs (setup,
 the combination phase through K5/K6, the probes, the timed device-arm
 batches, the host-witness batch, the tally, each pass of the stream and of
-its sequential comparison, each ``vote_phase_batch`` call) and read just
-after it; the ``kernels``
-line reports each kernel's count on its path, and its registers and spill
-bytes from ptxas's report.  A kernel of a path that launched 0 times fails
+its sequential comparison, each ``vote_phase_batch`` call, the Merkle
+trees, each CLI phase that votes or sets up, the C-ABI vote) and read
+just after it; the ``kernels`` line reports each kernel's count on its
+path (and K1 Fr's on the Merkle build, ``merkle_launches``), and its
+registers and spill bytes from ptxas's report.  A kernel of a path that launched 0 times fails
 the run, and so does a launch of K2's single-row form on the vote path,
 which runs the scan.  Each kernel's ``bound_ms`` is the larger of
 its bytes over 3.35 TB/s and its operations over the card's rate for their
@@ -113,6 +126,9 @@ VOTE_KERNELS = ("mont_mul_fq", "mont_mul_fr", "g1_madd_scan", "g2_madd_scan", "g
 OFF_VOTE_PATH = ("g1_madd", "g2_madd")
 # the host-witness arm inverts nothing in Fr on the card (its witness is the host's)
 HOST_ARM_KERNELS = tuple(k for k in VOTE_KERNELS if k != "mont_inv_fr")
+# a vote of B = 1 runs no K1 in Fq: its ballot tail's 2B + 27B = 29 affine
+# conversions are below curve_ops._DEVICE_AFFINE_MIN and run on the host
+B1_KERNELS = tuple(k for k in VOTE_KERNELS if k not in ("mont_mul_fq", "mont_inv_fq"))
 COMBINE_KERNELS = ("g1_addx", "g2_addx")
 K1_MODE_KERNELS = ("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold")
 # H100 SXM published peaks: HBM bytes/s, fp32 FLOP/s, int8 OP/s
@@ -158,6 +174,12 @@ NTT_PER_BATCH = 7
 # [stream]: batches past [slice]'s three device-arm ones, and the batches
 # whose synchronizing calls are counted
 STREAM_EXTRA, SYNC_BATCHES = 2, 2
+# [merkle]: trees built on the card and through the oracle, byte for byte
+# (BASELINE configs 2 and 3), and the tree built on the card only (config 4),
+# checked at MERKLE_SAMPLES leaves and parents against the oracle
+MERKLE_DEPTHS, MERKLE_DEEP, MERKLE_SAMPLES = (DEPTH, 10), 14, 64
+# the Pedersen hash's kernels: K1 in Fr, its multiply and its Fermat chain
+MERKLE_KERNELS = ("mont_mul_fr", "mont_inv_fr")
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -1288,6 +1310,257 @@ def run_api(e: dict, rnd, gpu: str) -> dict:
     return dict(parse_s=parse_s, call_s=calls)
 
 
+def _merkle_leaves(depth: int):
+    """2^depth seeded 255-bit leaves: the first all ones, the last quarter
+    all zeros (the keys an election pads its tree with)."""
+    import numpy as np
+
+    leaves = np.random.default_rng(SEED + depth).integers(0, 2, (1 << depth, 255)).astype(np.int32)
+    leaves[0] = 1
+    leaves[len(leaves) - len(leaves) // 4 :] = 0
+    return leaves
+
+
+def run_merkle(gpu: str) -> dict:
+    """Merkle trees on the card (``merkle.build_tree``, one Pedersen call a
+    level): at MERKLE_DEPTHS byte for byte against the oracle arm, both
+    timed; at MERKLE_DEEP on the card only, with the root, MERKLE_SAMPLES
+    seeded leaves and MERKLE_SAMPLES seeded parents recomputed by the oracle
+    from the card's own children.  Seconds, hashes/s and peak device memory
+    a depth; the launches of the Pedersen kernels over the phase."""
+    import numpy as np
+    import torch
+
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import merkle
+    from vote_saver_tpu_torch.ops import pedersen_ops as po
+    from vote_saver_tpu_torch.protocol import marshal as M
+    from vote_saver_tpu_torch.refimpl import pedersen as rpd
+
+    def oracle(bits) -> np.ndarray:
+        return np.array(rpd.pedersen_hash([int(b) for b in bits]), np.uint32)
+
+    t0 = time.perf_counter()
+    for w in (85, 170):
+        po.window_tables(w, "cuda")
+    torch.cuda.synchronize()
+    log(f"[merkle] window tables (85 and 170 windows) on the card: {time.perf_counter() - t0:.2f} s (built from "
+        f"the oracle at their first use, the election's tree when it is not cached)")
+    hf.reset_launches()
+    out = {}
+    rnd = random.Random(SEED + MERKLE_DEEP)
+    for depth in (*MERKLE_DEPTHS, MERKLE_DEEP):
+        leaves = _merkle_leaves(depth)
+        before = dict(hf.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        levels = merkle.build_tree(leaves, "cuda")  # digests come back to the host: the tree is done
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        hashes = (2 << depth) - 1
+        row = dict(device_s=secs, hashes=hashes, hashes_per_s=hashes / secs, peak_bytes=peak,
+                   launches={k: hf.launches[k] - before[k] for k in MERKLE_KERNELS})
+        if depth in MERKLE_DEPTHS:
+            t0 = time.perf_counter()
+            host = merkle.build_tree(leaves, "host")
+            row["host_s"] = time.perf_counter() - t0
+            if M.ser_merkle_tree(merkle.flatten_tree(levels)) != M.ser_merkle_tree(merkle.flatten_tree(host)):
+                fail(f"the depth-{depth} tree built on the card differs from the oracle's")
+            check = f"byte-identical to the oracle's ({hashes * 32} bytes); oracle {row['host_s']:.2f} s = " \
+                    f"{hashes / row['host_s']:.1f} hashes/s"
+        else:
+            n = 1 << depth
+            bad = [i for i in rnd.sample(range(n), MERKLE_SAMPLES) if not np.array_equal(levels[0][i], oracle(leaves[i]))]
+            parents = [(depth, 0)] + [(k, rnd.randrange(n >> k)) for k in
+                                      (rnd.randrange(1, depth + 1) for _ in range(MERKLE_SAMPLES))]
+            bad += [(k, j) for k, j in parents if not np.array_equal(
+                levels[k][j], oracle(np.concatenate([levels[k - 1][2 * j], levels[k - 1][2 * j + 1]])))]
+            if bad:
+                fail(f"the depth-{depth} tree's digests differ from the oracle's at {bad[:8]}")
+            check = f"the root, {MERKLE_SAMPLES} seeded leaves and {MERKLE_SAMPLES} seeded parents equal the oracle's"
+        out[depth] = row
+        log(f"[merkle] depth {depth} on the card: {secs:.3f} s = {row['hashes_per_s']:.1f} hashes/s "
+            f"({hashes} hashes); peak device memory {peak / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB held; "
+            f"launches {row['launches']}; {check}; {gpu}")
+    return dict(depths=out, launches=_path_launches(MERKLE_KERNELS, "the Merkle build"))
+
+
+def _cli(argv: list) -> tuple[float, str]:
+    """One run of the port's CLI in this process: (seconds, its stdout)."""
+    import contextlib
+    import io
+
+    from vote_saver_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main([str(a) for a in argv])
+    except SystemExit as exc:
+        fail(f"the CLI's {argv[1]} phase exited with {exc.code}:\n{buf.getvalue()[-2000:]}")
+    return time.perf_counter() - t0, buf.getvalue()
+
+
+class _Service:
+    """The port's JSON service as a subprocess on the card, one request
+    and its response line at a time; its stdout must hold nothing else.
+    A watchdog kills it after `timeout` seconds."""
+
+    def __init__(self, timeout: float = 600):
+        import subprocess
+
+        self.proc = subprocess.Popen([sys.executable, "-m", "vote_saver_tpu_torch.frontends.service"], cwd=ROOT,
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.watchdog = threading.Timer(timeout, self.proc.kill)
+        self.watchdog.start()
+        self.n = 0
+
+    def call(self, method: str, params: dict) -> dict:
+        self.proc.stdin.write(json.dumps({"id": self.n, "method": method, "params": params}) + "\n")
+        self.proc.stdin.flush()
+        line = self.proc.stdout.readline()
+        try:
+            resp = json.loads(line)
+        except json.JSONDecodeError:
+            fail(f"the service printed {line[:500]!r} for request {self.n} ({method})")
+        if resp.get("id") != self.n or "error" in resp:
+            fail(f"the service's response to request {self.n} ({method}): {line[:2000]}")
+        self.n += 1
+        return resp["result"]
+
+    def close(self) -> None:
+        """End the session: stdin closed, the process exits 0 having
+        printed nothing past its responses."""
+        try:
+            rest, _ = self.proc.communicate(timeout=60)
+        finally:
+            self.watchdog.cancel()
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        if self.proc.returncode != 0 or rest:
+            fail(f"the service exited with {self.proc.returncode} after printing {rest[:500]!r}")
+
+
+def run_cli(rnd, gpu: str) -> dict:
+    """The port's CLI over the depth-6 election, phase by phase in a
+    temporary workdir under SEED: every voter's keys, setup and the Merkle
+    tree on the card, one vote call of BATCH voters, their verification,
+    the tally and its check, then ``--phase bench`` (B = 1) in a copy of the
+    workdir without the ballots.  On the same artifacts: the JSON service
+    as a subprocess (generate_vote, verify_vote, verify_tally) and one
+    generate_vote through the C ABI's function pointers."""
+    import base64
+    import ctypes
+    import shutil
+    import tempfile
+
+    from vote_saver_tpu_torch.frontends import c_api
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.params import MSG_SIZE
+    from vote_saver_tpu_torch.protocol import marshal as M
+    from vote_saver_tpu_torch.protocol import phases
+
+    idx = list(range(BATCH))
+    votes = [rnd.randrange(MSG_SIZE) for _ in idx]
+    secs = {}
+    with tempfile.TemporaryDirectory(prefix="vs_cli_") as tmp:
+        wd = pathlib.Path(tmp) / "election"
+        base = ["--tree-depth", DEPTH, "--seed", SEED, "--workdir", wd]
+        hf.reset_launches()
+        secs["init_voter"], _ = _cli(["--phase", "init_voter", *base])
+        secs["init_admin"], _ = _cli(["--phase", "init_admin", *base])
+        admin_launches = _path_launches((*SETUP_KERNELS, *MERKLE_KERNELS), "the CLI's init_admin")
+        hf.reset_launches()
+        secs["vote"], text = _cli(["--phase", "vote", *base, "--voter-idx", *idx, "--vote", *votes])
+        vote_ms = re.search(r"Vote Phase Time_execution: (\d+)ms", text).group(1)
+        vote_launches = _path_launches(VOTE_KERNELS, "the CLI's vote phase")
+        secs["vote_verify"], text = _cli(["--phase", "vote_verify", *base, "--voter-idx", *idx])
+        if text.count("verification: true") != BATCH:
+            fail(f"the CLI verified {text.count('verification: true')}/{BATCH} ballots")
+        secs["tally_admin"], _ = _cli(["--phase", "tally_admin", *base])
+        secs["tally_voter"], text = _cli(["--phase", "tally_voter", *base])
+        counts = M.de_scalar_vector_any((wd / "voting_result.bin").read_bytes())
+        if counts != [votes.count(c) for c in range(MSG_SIZE)] or "verification: true" not in text:
+            fail(f"the CLI's tally {counts} is not the votes {votes}, or did not verify")
+        files = {p.stem: p.read_bytes() for p in wd.iterdir()}
+        bench = pathlib.Path(tmp) / "bench"
+        shutil.copytree(wd, bench, ignore=shutil.ignore_patterns("r1cs_*[0-9].bin", "cipher_text*", "sn*"))
+        hf.reset_launches()
+        secs["bench"], text = _cli(["--phase", "bench", "--tree-depth", DEPTH, "--seed", SEED, "--workdir", bench])
+        bench_ms = re.search(r"Vote Phase Time_execution: (\d+)ms", text).group(1)
+        _path_launches(B1_KERNELS, "the CLI's bench phase")
+        bench_ok = phases.verify_ballot(*((bench / f"{n}0.bin").read_bytes() for n in (
+            "r1cs_proof", "r1cs_primary_input", "cipher_text")), files["verification_key"], files["r1cs_verification_key"])
+    if not bench_ok:
+        fail("the CLI's bench ballot (B = 1) failed verify_ballot")
+    log(f"[cli] depth {DEPTH}, {1 << DEPTH} voters, B={BATCH} in one vote call, then bench B=1: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+        + f"; Vote Phase Time_execution {vote_ms} ms (B={BATCH}) and {bench_ms} ms (B=1); {BATCH}/{BATCH} ballots "
+          f"and the bench ballot verified; counts equal the votes; {gpu}")
+    log(f"[cli] launches: init_admin {({k: admin_launches[k] for k in (*SETUP_KERNELS, *MERKLE_KERNELS)})}, "
+        f"vote {sum(vote_launches.values())}")
+
+    b64 = lambda b: {"b64": base64.b64encode(b).decode()}  # noqa: E731
+    names = ("r1cs_proving_key", "r1cs_verification_key", "public_key", "secret_key", "verification_key")
+    keys = {n: b64(files[n]) for n in names}
+    election = {"eid": b64(files["eid"]), "rt": b64(files["rt"]), "merkle_tree": b64(files["merkle_tree"])}
+    cts = [b64(files[f"cipher_text{i}"]) for i in idx]
+    voter = BATCH
+    t0 = time.perf_counter()
+    service = _Service()
+    try:
+        gen = service.call("generate_vote", dict(keys=keys, election=election, voter_idx=voter, vote=votes[0],
+                                                 tree_depth=DEPTH, secret_key=b64(files[f"voter_secret_key{voter}"]),
+                                                 seed=SEED + 5))
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ok_vote = service.call("verify_vote", {"keys": keys, "ballot": gen})
+        ok_tally = service.call("verify_tally", {"keys": keys, "cts": cts, "tree_depth": DEPTH,
+                                                 "voting_res": b64(files["voting_result"]),
+                                                 "dec_proof": b64(files["decryption_proof"])})
+        verify_s = time.perf_counter() - t0
+    finally:
+        service.close()
+    if not (ok_vote["ok"] and ok_tally["ok"] and len(base64.b64decode(gen["proof"]["b64"])) == 192):
+        fail(f"the service's ballot or tally did not verify: {ok_vote}, {ok_tally}")
+    log(f"[cli] the JSON service (a subprocess on the card, stdout holding only its response lines): "
+        f"generate_vote B=1 {first_s:.2f} s with the process's start, parse and kernel load, then verify_vote and "
+        f"verify_tally {verify_s:.2f} s; the ballot and the CLI's tally verified; {gpu}")
+
+    c_api.seed(SEED + 6)
+    fns = {n: c_api._SIGS[n](a) for n, a in c_api.function_pointers().items()}
+    keep = []
+
+    def buf(blob: bytes = b""):
+        arr = ctypes.create_string_buffer(blob, len(blob))
+        p = ctypes.pointer(c_api.Buffer(len(blob), ctypes.cast(arr, ctypes.POINTER(ctypes.c_char))))
+        keep.extend((arr, p))
+        return p
+
+    outs = [buf() for _ in range(4)]
+    voter += 1
+    hf.reset_launches()
+    t0 = time.perf_counter()
+    fns["generate_vote"](DEPTH, EID_BITS, voter, votes[1], *(buf(files[n]) for n in (
+        "merkle_tree", "rt", "eid", f"voter_secret_key{voter}", "public_key", "r1cs_proving_key",
+        "r1cs_verification_key")), *outs)
+    abi_s = time.perf_counter() - t0
+    _path_launches(B1_KERNELS, "the C ABI's generate_vote")
+    proof, pinput, ct, _sn = (ctypes.string_at(o.contents.ptr, o.contents.size) for o in outs)
+    if len(proof) != 192 or not phases.verify_ballot(proof, pinput, ct, files["verification_key"],
+                                                     files["r1cs_verification_key"]):
+        fail("the C ABI's ballot did not verify")
+    for o in outs:
+        fns["free_buffer"](o)
+    log(f"[cli] the C ABI (c_api.function_pointers) generate_vote B=1 on the card: {abi_s:.2f} s; verified; {gpu}")
+    return dict(seconds=secs, vote_ms=int(vote_ms), bench_ms=int(bench_ms), service_s=(first_s, verify_s),
+                abi_s=abi_s)
+
+
 def bound(work: dict, rates: dict) -> tuple[float, str]:
     """(bound_ms, bound_by) of one kernel's work on this card: bytes over
     HBM_BPS; 32x32->64 multiply-adds, 32-bit multiplies and issued
@@ -1379,19 +1652,30 @@ def main() -> None:
         log(f"[build] {name}: {regs} registers, {spill} B spill stores")
         resources[instance_name(name)] = (regs, spill)
 
+    # each phase's wall seconds, for the run's time budget
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     rnd = random.Random(SEED)
-    kern = check_kernels(rnd)
-    combine = check_msm(rnd)["combine"]
-    probes = run_probes(gpu)
-    e = election(DEPTH)
-    setup_launches = check_setup(e)["launches"]
-    _ntt, library = check_ntt(gpu)
-    check_golden()
-    vote = run_slice(rnd, e, library)
+    kern = phase("kernels", check_kernels, rnd)
+    combine = phase("msm", check_msm, rnd)["combine"]
+    probes = phase("probes", run_probes, gpu)
+    e = phase("election", election, DEPTH)
+    setup_launches = phase("setup", check_setup, e)["launches"]
+    _ntt, library = phase("ntt", check_ntt, gpu)
+    phase("golden", check_golden)
+    vote = phase("slice", run_slice, rnd, e, library)
     vote_launches = vote["launches"]
-    run_tally(e, vote["device_batches"], gpu)
-    run_stream(e, vote["device_batches"], rnd, library, gpu)
-    run_api(e, rnd, gpu)
+    phase("tally", run_tally, e, vote["device_batches"], gpu)
+    phase("stream", run_stream, e, vote["device_batches"], rnd, library, gpu)
+    phase("api", run_api, e, rnd, gpu)
+    merkle_launches = phase("merkle", run_merkle, gpu)["launches"]
+    phase("cli", run_cli, rnd, gpu)
 
     kern.update(probe_entries(probes))
     paths = dict.fromkeys(SETUP_KERNELS, setup_launches)
@@ -1409,10 +1693,13 @@ def main() -> None:
                             launches=paths[k][k], max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                             registers=regs, spill_bytes=spill))
+        if k in MERKLE_KERNELS:
+            entries[-1]["merkle_launches"] = merkle_launches[k]
         # a kernel faster than its bound would mean a rate above is not the card's peak
         note = "; FASTER THAN ITS BOUND" if r["ms"] < bound_ms else ""
         log(f"[bound] {k}: {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}, "
-            f"{100 * bound_ms / r['ms']:.1f}% of its time){note}; launches on its path {paths[k][k]}; {gpu}")
+            f"{100 * bound_ms / r['ms']:.1f}% of its time){note}; launches on its path {paths[k][k]}"
+            + (f", on the Merkle build {merkle_launches[k]}" if k in MERKLE_KERNELS else "") + f"; {gpu}")
         # the chain kernels at the vote path's shapes: every row with its own bound
         if "chains" in r:
             entries[-1]["chains"] = []
@@ -1432,7 +1719,8 @@ def main() -> None:
                     "shape", "lanes", "max_abs_err", "ms", "device_ms", "plain_ms")}, bound_ms=b_ms, bound_by=b_by))
                 log(f"[bound] {k} at {row['shape']}: {row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} "
                     f"a launch, plain {row['plain_ms']:.1f} ms, against a bound of {b_ms:.5f} ms ({b_by}); {gpu}")
-    log(f"[done] {time.perf_counter() - t_all:.1f} s (kernel build {kl.build_seconds:.1f} s)")
+    log(f"[done] {time.perf_counter() - t_all:.1f} s (kernel build {kl.build_seconds:.1f} s; by phase: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + ")")
     log(gpu)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

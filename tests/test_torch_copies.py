@@ -6,18 +6,22 @@ The port imports nothing of ``vote_saver_tpu``: it keeps its own copies of
 the byte helpers, writers and parse cache of ``protocol/marshal`` and
 ``native_bridge``
 (which builds ``native/vs_native.cpp`` into the port's own build
-directory).  Each copy must give exactly what its original gives: the
+directory), and byte for byte ``config``, ``utils/logging`` and the chain
+layer (``chain/``); ``utils/profiling`` keeps its timers unchanged.  Each copy must give exactly what its original gives: the
 constants, the seeded ``FrRandom`` streams, the depth-2 voting circuit's
 matrices and host witness, the wire bytes of the depth-2 election, the
 oracle pairing and Pedersen hash, and the native MSM, fixed-base products
 and MSM schedules.
 """
 
+import dataclasses
 import inspect
+import pathlib
 import random
 import types
 
 import numpy as np
+import pytest
 
 from vote_saver_tpu import native_bridge as jnb
 from vote_saver_tpu import params as jparams
@@ -70,7 +74,7 @@ def test_voting_circuit_and_host_witness_match():
     rng = FrRandom(61)
     sks = [rng.bits(params.SECRET_KEY_BITS) for _ in range(2)]
     pks = [rpd.pedersen_hash(sk) for sk in sks] + [[0] * params.PUBLIC_KEY_BITS] * 2
-    levels = merkle.build_tree(np.array(pks, np.int32))
+    levels = merkle.build_tree(np.array(pks, np.int32), device="host")
     eid = np.array([rng() % 2 for _ in range(64)], dtype=object)
     votes, vidx = np.array([3, 24]), np.array([0, 1])
     sib = np.stack([merkle.copath(levels, i) for i in vidx]).astype(object)
@@ -155,3 +159,49 @@ def test_native_bridge_copy_matches():
     args = (2, 64, 6, inf, c1, orph_base, steps, steps, lanes)
     codes = nb.sched_pass2(d1, *args)
     assert codes.any() and np.array_equal(codes, jnb.sched_pass2(d2, *args))
+
+
+COPIES = ["config.py", "utils/logging.py", "chain/__init__.py", "chain/ballot_blob.py", "chain/contracts.py",
+          "chain/tonos.py"]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_jax_free_modules_are_verbatim_copies(rel):
+    """config, the logging gate and the chain layer are the JAX package's
+    files byte for byte (the chain's lazy imports of protocol.saver and
+    protocol.groth16 resolve to the port's verifiers)."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    assert (root / "vote_saver_tpu_torch" / rel).read_bytes() == (root / "vote_saver_tpu" / rel).read_bytes()
+
+
+def test_config_and_profiling_match():
+    from vote_saver_tpu import config as jconfig
+    from vote_saver_tpu.utils import profiling as jprof
+    from vote_saver_tpu_torch import config
+    from vote_saver_tpu_torch.utils import profiling as prof
+
+    assert config.DEFAULT == config.ProtocolConfig()
+    assert dataclasses.asdict(config.DEFAULT) == dataclasses.asdict(jconfig.DEFAULT)
+    assert (config.DEFAULT.num_voters, config.DEFAULT.primary_input_size, config.DEFAULT.ciphertext_points) == \
+        (jconfig.DEFAULT.num_voters, jconfig.DEFAULT.primary_input_size, jconfig.DEFAULT.ciphertext_points)
+    for name in ("Timer", "mpoints_per_s", "mbutterflies_per_s"):
+        assert inspect.getsource(getattr(prof, name)) == inspect.getsource(getattr(jprof, name)), name
+    assert prof.mpoints_per_s(1 << 16, 0.5) == jprof.mpoints_per_s(1 << 16, 0.5)
+    assert prof.mbutterflies_per_s(1 << 15, 0.25) == jprof.mbutterflies_per_s(1 << 15, 0.25)
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """device_trace: a no-op for None; else a torch.profiler trace of the
+    block, exported as Chrome trace JSON."""
+    import json
+
+    import torch
+
+    from vote_saver_tpu_torch.utils.profiling import device_trace
+
+    with device_trace(None):
+        pass
+    path = tmp_path / "trace.json"
+    with device_trace(str(path)):
+        torch.ones(64).add_(1)
+    assert "traceEvents" in json.loads(path.read_text())

@@ -245,10 +245,12 @@ def test_prove_on_card_matches_cpu(dev):
 
 def test_one_cache_entry_per_card(dev):
     """"cuda" names the current card's index (limbs.device_of), so the
-    device constants a long-lived proving key and the NTT plans cache are
-    held once however the caller names the card."""
+    device constants a long-lived proving key, the NTT plans, the Edwards
+    ops and the Pedersen window tables cache are held once however the
+    caller names the card."""
     from vote_saver_tpu_torch.ops import ntt as tntt
     from vote_saver_tpu_torch.ops import ntt_mxu
+    from vote_saver_tpu_torch.ops import pedersen_ops as po
 
     cs = ConstraintSystem()
     out = cs.alloc()
@@ -264,6 +266,12 @@ def test_one_cache_entry_per_card(dev):
     assert plan.table("t12", "cuda") is plan.table("t12", indexed)
     ntt = tntt.get_ntt(1 << 8, "radix2")
     assert ntt.table("zh_coset_inv", "cuda") is ntt.table("zh_coset_inv", indexed)
+    # the Edwards 2d constant and the Pedersen window tables of the Merkle hash
+    jj = co.jj_ops()
+    assert jj._k2d("cuda") is jj._k2d(indexed) is jj._k2d(str(indexed))
+    assert [k for k in jj._dev if k.type == "cuda"] == [indexed]
+    assert po.window_tables(85, "cuda") is po.window_tables(85, indexed) is po.window_tables(85, str(indexed))
+    assert [k for k in po._tables if k[0] == 85 and k[1].type == "cuda"] == [(85, indexed)]
 
 
 def test_setup_on_card_matches_host(dev):
@@ -358,3 +366,21 @@ def test_matmul_ntt_matches_radix2(dev, kind, ref):
     assert hf.launches["mont_mul_fr"] == k1 + 1
     assert torch.equal(got, getattr(tntt.get_ntt(n, "radix2"), ref)(x))
     assert torch.equal(got.cpu(), ntt_mxu.get_plan(n, kind).apply(x.cpu(), "int64"))
+
+
+def test_merkle_tree_on_card_matches_host(dev):
+    """The depth-3 tree hashed on the card (one Pedersen call a level, K1 in
+    Fr) is the oracle's, special rows included; a level's hash equals its
+    plain version on the CPU."""
+    from vote_saver_tpu_torch.ops import merkle
+    from vote_saver_tpu_torch.ops import pedersen_ops as po
+
+    leaves = np.random.default_rng(8).integers(0, 2, (8, 255)).astype(np.int32)
+    leaves[0], leaves[1] = 0, 1
+    hf.reset_launches()
+    on_card = merkle.build_tree(leaves, dev)
+    assert hf.launches["mont_mul_fr"] > 0 and hf.launches["mont_inv_fr"] == 4
+    host = merkle.build_tree(leaves, "host")
+    assert all(np.array_equal(a, b) for a, b in zip(on_card, host, strict=True))
+    pairs = on_card[0].reshape(4, 510)
+    assert torch.equal(po.pedersen_hash_bits(pairs, 510, dev).cpu(), po.pedersen_hash_bits(pairs, 510, "cpu"))

@@ -14,14 +14,18 @@ Without a card, a call that names no device must raise, not run on the
 CPU.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
-from vote_saver_tpu_torch import micro
+from vote_saver_tpu_torch import cli, micro, sdk
 from vote_saver_tpu_torch.circuit import witness_dev
+from vote_saver_tpu_torch.frontends import c_api, service
 from vote_saver_tpu_torch.ops import hopper_field as hf
 from vote_saver_tpu_torch.ops import limbs as lb
+from vote_saver_tpu_torch.ops import merkle, pedersen_ops
 from vote_saver_tpu_torch.protocol import groth16, phases
 from vote_saver_tpu_torch.testing import torch_threads
 from vote_saver_tpu_torch.utils.rng import FrRandom
@@ -133,7 +137,7 @@ def test_mont_mul_modes_probe_on_cpu():
     assert all(v["parity"] and v["max_abs_err"] == 0 and "ms" not in v for v in r.values())
 
 
-def _default_calls():
+def _default_calls(workdir=None):
     cs_stub = object()
     return {
         "prepare_vote_context": lambda: phases.prepare_vote_context(2, 64, b"", b"", b"", b"", b"", b""),
@@ -146,14 +150,29 @@ def _default_calls():
         "micro.mul_chain": lambda: micro.mul_chain(),
         "micro.op_throughput": lambda: micro.op_throughput(),
         "micro.mont_mul_modes": lambda: micro.mont_mul_modes(),
+        "pedersen_ops.window_tables": lambda: pedersen_ops.window_tables(85),
+        "pedersen_ops.pedersen_hash_bits": lambda: pedersen_ops.pedersen_hash_bits(np.zeros((1, 255)), 255),
+        "merkle.build_tree": lambda: merkle.build_tree(np.zeros((2, 255), np.int32)),
+        "merkle.verify_path": lambda: merkle.verify_path(np.zeros(255), 0, np.zeros((1, 255)), np.zeros(255)),
+        "init_admin_phase_generate_data": lambda: phases.init_admin_phase_generate_data(2, 64, [], FrRandom(1)),
+        "sdk.admin_keygen": lambda: sdk.admin_keygen(2, 64, FrRandom(1)),
+        "sdk.init_election": lambda: sdk.init_election([], 2, 64, FrRandom(1)),
+        "sdk.generate_vote": lambda: sdk.generate_vote(sdk.AdminKeys(b"", b""), sdk.Election(b"", b"", b""), 0, 0, b""),
+        "sdk.generate_votes": lambda: sdk.generate_votes(sdk.AdminKeys(b"", b""), sdk.Election(b"", b"", b""), [0], [0],
+                                                         [b""]),
+        "cli.main": lambda: cli.main(["--phase", "init_admin", "--tree-depth", "2", "--workdir", str(workdir)]),
+        "service.handle": lambda: service.handle({"method": "init_election", "params": {"public_keys": []}}),
+        "c_api.admin_keygen": lambda: c_api.admin_keygen(2, 64, None, None, None, None, None),
+        "c_api.init_election": lambda: c_api.init_election(2, 64, ctypes.pointer(c_api.SuperBuffer(0, None)),
+                                                           None, None, None),
     }
 
 
 @pytest.mark.parametrize("entry", list(_default_calls()))
-def test_entry_points_default_to_the_card(entry):
+def test_entry_points_default_to_the_card(entry, tmp_path):
     """Without a card, the default device raises before any work."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        _default_calls()[entry]()
+        _default_calls(tmp_path)[entry]()
     assert lb.device_of("cpu") == torch.device("cpu")

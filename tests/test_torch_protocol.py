@@ -33,10 +33,10 @@ def test_voter_keys_and_election_data_match_jax():
     theirs = [jphases.init_voter_phase(i, FrRandom(31)) for i in range(3)]
     assert ours == theirs
     pks = [v[0] for v in ours]
-    assert tphases.init_admin_phase_generate_data(2, 64, pks, FrRandom(32)) == \
+    assert tphases.init_admin_phase_generate_data(2, 64, pks, FrRandom(32), device="cpu") == \
         jphases.init_admin_phase_generate_data(2, 64, pks, FrRandom(32))
     levels = merkle.unflatten_tree(M.de_merkle_tree(tphases.init_admin_phase_generate_data(
-        2, 64, pks, FrRandom(32))[2], 2), 2)
+        2, 64, pks, FrRandom(32), device="cpu")[2], 2), 2)
     assert [len(lv) for lv in levels] == [4, 2, 1]
     assert merkle.copath(levels, 2).shape == (2, 255)
     assert np.array_equal(merkle.copath(levels, 2)[0], levels[0][3])

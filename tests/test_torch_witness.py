@@ -110,7 +110,7 @@ def depth2():
     circ = build_voting_circuit(2, 64)
     sks = [rng.bits(SECRET_KEY_BITS) for _ in range(3)]
     pks = [rpd.pedersen_hash(sk) for sk in sks] + [[0] * PUBLIC_KEY_BITS]
-    levels = merkle.build_tree(np.array(pks, np.int32))
+    levels = merkle.build_tree(np.array(pks, np.int32), device="host")
     eid = [rng() % 2 for _ in range(64)]
     return circ, sks, levels, eid
 

@@ -7,10 +7,15 @@ against; module names mirror it so each counterpart is easy to find:
                 hand-written CUDA kernels live in ``csrc/`` and are bound in
                 ``ops/hopper_field.py`` (plain PyTorch twins beside them)
   circuit/    — R1CS, the voting circuit, the device witness
-  protocol/   — Groth16, SAVER, key parsing, the vote-phase functions
-  refimpl/, params.py, utils/rng.py, native_bridge.py
-              — the host oracle, constants, seeded randomness and the native
-                host library's bridge
+  protocol/   — Groth16, SAVER, key parsing, the phase functions
+  sdk.py, cli.py, frontends/
+              — the entry points: the SDK, the CLI
+                (``python -m vote_saver_tpu_torch.cli``), the JSON-over-stdio
+                service and the C ABI
+  refimpl/, params.py, config.py, chain/, utils/, native_bridge.py
+              — the host oracle, constants, the chain layer, seeded
+                randomness, logging and profiling, and the native host
+                library's bridge
   micro.py    — the multiply probes K7-K10 (``python -m vote_saver_tpu_torch.micro``)
   convert.py  — carries arrays and keys across from the JAX package
 

@@ -6,8 +6,9 @@ layout, L = 24 / 16) and 32-bit limbs in uint64 (the CPU rig, L = 12 / 8).
 Montgomery R is 2^384 / 2^256 in both, and in this package's layout, so a
 value converts by repacking limbs only.  ``proving_key_from_jax`` rebuilds
 this package's ProvingKey from a JAX one, so both sides prove from one CRS;
-``fixed_base_table_from_jax`` and ``pedersen_tables_from_jax`` carry the
-setup's window table and the device witness's Pedersen window constants.
+``fixed_base_table_from_jax``, ``pedersen_tables_from_jax`` and
+``window_tables_from_jax`` carry the setup's window table, the device
+witness's Pedersen window constants and the Merkle hash's window tables.
 This module never imports jax: it reads arrays through numpy.
 """
 
@@ -56,6 +57,13 @@ def pedersen_tables_from_jax(xs4, ys4, device="cpu") -> tuple[torch.Tensor, torc
     """A JAX witness program's Pedersen window constants (``xs4``/``ys4``,
     (W, 4, L) Montgomery limbs) -> this package's (W, 4, 8) int32 tensors."""
     return from_jax_limbs(xs4, device), from_jax_limbs(ys4, device)
+
+
+def window_tables_from_jax(tables, device="cpu") -> tuple[torch.Tensor, ...]:
+    """The JAX ``pedersen_ops.window_tables`` (extended Edwards (X, Y, Z, T)
+    limb arrays (W, 8, ...)) -> this package's ``ops.pedersen_ops``
+    tables, (W, 8, 8) int32 tensors."""
+    return tuple(from_jax_limbs(c, device) for c in tables)
 
 
 def proving_key_from_jax(pk) -> groth16.ProvingKey:

@@ -162,9 +162,9 @@ class EdwardsOps:
         self._dev: dict = {}
 
     def _k2d(self, device):
-        key = str(device)
+        key = lb.device_of(device)
         if key not in self._dev:
-            self._dev[key] = self.k2d.to(device)
+            self._dev[key] = self.k2d.to(key)
         return self._dev[key]
 
     def identity_like(self, x_coord):
@@ -194,6 +194,14 @@ class EdwardsOps:
         """Log-depth Hillis-Steele sum over `axis` (complete addition, so
         out-of-range lanes are only left unchanged)."""
         return _tree_sum(self.add, p, axis)
+
+    def to_affine(self, p):
+        """(x, y) = (X / Z, Y / Z): one Fermat inversion (K1's chain in one
+        launch on the card) and two multiplies."""
+        f = self.f
+        x, y, z, _ = p
+        zinv = f.inv(z)
+        return f.mul(x, zinv), f.mul(y, zinv)
 
 
 @functools.cache

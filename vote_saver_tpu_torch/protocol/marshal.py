@@ -23,7 +23,9 @@ not observable (submodules not vendored).
 The port's copy of ``vote_saver_tpu/protocol/marshal.py`` keeps the byte
 helpers, the writers and the parse cache that ``protocol/keys.py`` and
 ``protocol/phases.py`` call, verbatim; the key and proof parsers are in
-``protocol/keys.py``.
+``protocol/keys.py``, and their names here resolve there (``__getattr__``),
+so the chain layer's verbatim copy (``chain/ballot_blob.py``) parses
+through ``M.de_proof`` and its kin as in the JAX package.
 """
 
 from __future__ import annotations
@@ -326,3 +328,14 @@ def unpack_field_elements_to_bits(elems, nbits: int, chunk_size: int = 254) -> l
         for i in range(chunk_size):
             bits.append((int(e) >> i) & 1)
     return bits[:nbits]
+
+
+_KEY_PARSERS = ("de_proof", "de_groth16_vk", "de_saver_pk", "de_saver_sk", "de_saver_vk", "de_ct", "de_dec_proof")
+
+
+def __getattr__(name: str):
+    if name in _KEY_PARSERS:
+        from . import keys
+
+        return getattr(keys, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,7 +6,9 @@ Counterpart of ``vote_saver_tpu/protocol/phases.py``, with every public
 function of that module but its ``mesh=`` arguments.  Blob-in/blob-out as
 there; the vote phase is batched over voters.  Admin key generation runs
 Groth16 setup on ``device`` (the card by default), or natively on the host
-with ``device="host"`` (the CRS is the same).
+with ``device="host"`` (the CRS is the same); the election data's Merkle
+tree is hashed on ``device`` too, or through the oracle with "host" (the
+tree is the same).
 The vote phase has the JAX package's two arms, chosen by an explicit
 argument, never by the environment:
 
@@ -70,16 +72,17 @@ def init_admin_phase_generate_keys(tree_depth: int, eid_bits: int = DEFAULT_EID_
 
 
 def init_admin_phase_generate_data(tree_depth: int, eid_bits: int, public_keys_blobs: list[bytes],
-                                   rng: FrRandom | None = None):
-    """Merkle tree over <= 2^depth voter pks (zero-padded), random eid.
-    Returns (eid_blob, rt_blob, merkle_tree_blob)."""
+                                   rng: FrRandom | None = None, device="cuda"):
+    """Merkle tree over <= 2^depth voter pks (zero-padded), built on
+    `device` (or through the oracle with "host"; the tree is the same),
+    random eid.  Returns (eid_blob, rt_blob, merkle_tree_blob)."""
     rng = rng or FrRandom()
     n = 1 << tree_depth
     if len(public_keys_blobs) > n:
         raise ValueError(f"{len(public_keys_blobs)} voters do not fit a depth-{tree_depth} tree")
     pks = [M.de_bitarray(b, PUBLIC_KEY_BITS) for b in public_keys_blobs]
     pks += [[0] * PUBLIC_KEY_BITS] * (n - len(pks))
-    levels = merkle.build_tree(np.array(pks, np.int32))
+    levels = merkle.build_tree(np.array(pks, np.int32), device)
     rt_field = M.pack_bits_to_field_elements([int(b) for b in merkle.root(levels)])
     eid_field = M.pack_bits_to_field_elements([rng() % 2 for _ in range(eid_bits)])
     return (M.ser_scalar_vector(eid_field), M.ser_scalar_vector(rt_field),
