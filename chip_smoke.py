@@ -25,7 +25,11 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
   4b. the multiply probes (``vote_saver_tpu_torch.micro``): K9's per-op
      rates, K1 in each multiplier mode, K7, K8 and K10, each with parity
      against the host oracle, and each timed launch held against its plain
-     version on every lane;
+     version on every lane; each chain probe's registers, local bytes,
+     dynamic shared memory and resident warps a SM as the CUDA runtime
+     reports them.  K7 and K10 fold run their fold product on the int8
+     tensor cores: right after the build, ``cuobjdump -sass`` of the probe
+     library must show IMMA and no IDP (dp4a) in both (``[sass]``);
   5. admin key generation for the depth-6 election on the card (Groth16
      setup through FixedBaseTable and K3d): its five blobs byte-identical to
      the host-native arm's, both arms timed;
@@ -131,6 +135,8 @@ HOST_ARM_KERNELS = tuple(k for k in VOTE_KERNELS if k != "mont_inv_fr")
 B1_KERNELS = tuple(k for k in VOTE_KERNELS if k not in ("mont_mul_fq", "mont_inv_fq"))
 COMBINE_KERNELS = ("g1_addx", "g2_addx")
 K1_MODE_KERNELS = ("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold")
+# the probes whose fold product runs on the int8 tensor cores (csrc/fold_mma.cuh)
+FOLD_KERNELS = ("mul_chain_k7_fold", "mul_chain_k10_fold")
 # H100 SXM published peaks: HBM bytes/s, fp32 FLOP/s, int8 OP/s
 HBM_BPS, F32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 # 32x32->64 multiply-adds of one Fq / Fr Montgomery multiply: 2L^2 + L
@@ -910,24 +916,71 @@ def kernel_key(name: str) -> str | None:
 def instance_name(short: str) -> str | None:
     """The kernels-line name of a kernel in ptxas's report (shortened by
     ``_build.short_name``): hopper_field's through kernel_key, the probes'
-    (``k_mul_chain<P,M,CHAINS,UNROLL>``, ``k_op<KIND,CHAINS>``) from
+    (``k_mul_chain<P,M,CHAINS,UNROLL>``, the tensor-core fold's
+    ``k_mul_chain_mma<P,CHAINS,UNROLL>``, ``k_op<KIND,CHAINS>``) from
     micro's tables; None for a device function."""
     from vote_saver_tpu_torch import micro
 
     key = kernel_key(short)
     if key is not None:
         return key
-    m = re.match(r"k_(mul_chain|op)<(.*)>$", short)
+    m = re.match(r"k_(mul_chain_mma|mul_chain|op)<(.*)>$", short)
     if not m:
         return None
     args = m.group(2).split(",")
     if m.group(1) == "op":
         return f"op_{list(micro.OP_KINDS)[int(args[0])]}" + ("_x8" if args[1] == "8" else "")
-    mode = {"MulLoop": "loop", "MulV1": "v1", "MulFold": "fold"}[args[1]]
-    for probe, (_idx, pmode, chains, unroll) in micro.CHAIN_PROBES.items():
-        if (pmode, chains, unroll) == (mode, int(args[2]), int(args[3])):
+    if m.group(1) == "mul_chain_mma":
+        mode, chains, unroll = "fold", args[1], args[2]
+    else:
+        mode = {"MulLoop": "loop", "MulV1": "v1", "MulFold": "fold"}[args[1]]
+        chains, unroll = args[2], args[3]
+    for probe, (_idx, pmode, pchains, punroll) in micro.CHAIN_PROBES.items():
+        if (pmode, pchains, punroll) == (mode, int(chains), int(unroll)):
             return f"mul_chain_{probe}"
     return None
+
+
+def sass_counts(text: str) -> dict:
+    """``cuobjdump -sass`` output -> {kernels-line name: {"IMMA": n, "IDP":
+    n, "FFMA": n, "all": n}} per kernel of the port: the instructions of
+    each kind, and of every kind, in the kernel's code."""
+    from vote_saver_tpu_torch.ops import _build
+
+    out: dict = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = instance_name(_build.short_name(m.group(1)))
+            if name:
+                out.setdefault(name, Counter(IMMA=0, IDP=0, FFMA=0, all=0))
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if name and op:
+            out[name].update(["all"] + [op.group(1)] * (op.group(1) in ("IMMA", "IDP", "FFMA")))
+    return {k: dict(v) for k, v in out.items()}
+
+
+def check_fold_sass(kl) -> dict:
+    """The fold probes run on the tensor cores: ``cuobjdump -sass`` of the
+    built probe library must show IMMA instructions and no IDP (dp4a) in
+    each of FOLD_KERNELS."""
+    import subprocess
+
+    from vote_saver_tpu_torch.ops import _build
+
+    lib = next(p for p in kl.paths if p.name.startswith("libvstorch_micro_"))
+    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts = sass_counts(text)
+    for k in FOLD_KERNELS:
+        c = counts.get(k)
+        log(f"[sass] {k}: {c}")
+        if not c or not c["IMMA"] or c["IDP"]:
+            fail(f"{k} is not on the tensor cores (cuobjdump -sass: {c})")
+    return {k: counts[k] for k in FOLD_KERNELS}
 
 
 def profile_batch(batch, library: set):
@@ -1599,7 +1652,8 @@ def probe_entries(probes: dict) -> dict:
                         mads=muls * 2 * (fold["L"] + 1))
         else:
             work["mads"] = muls * MADS["fq"]
-        out[f"mul_chain_{probe}"] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], work=work)
+        out[f"mul_chain_{probe}"] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], work=work,
+                                         smem_bytes=r["smem_bytes"], warps_per_sm=r["warps_per_sm"])
     for kind, r in res["op_throughput"].items():
         # each step of a chain is at least one instruction (cvt: 256 steps of
         # two conversions); a float step is two flops (an FMA, or a mul and
@@ -1651,6 +1705,7 @@ def main() -> None:
     for name, regs, spill in _build.resource_lines(kl.resource_usage):
         log(f"[build] {name}: {regs} registers, {spill} B spill stores")
         resources[instance_name(name)] = (regs, spill)
+    sass = check_fold_sass(kl)
 
     # each phase's wall seconds, for the run's time budget
     phase_s = {}
@@ -1695,6 +1750,10 @@ def main() -> None:
                             registers=regs, spill_bytes=spill))
         if k in MERKLE_KERNELS:
             entries[-1]["merkle_launches"] = merkle_launches[k]
+        if "warps_per_sm" in r:
+            entries[-1].update(smem_bytes=r["smem_bytes"], warps_per_sm=r["warps_per_sm"])
+        if k in sass:
+            entries[-1]["sass"] = sass[k]
         # a kernel faster than its bound would mean a rate above is not the card's peak
         note = "; FASTER THAN ITS BOUND" if r["ms"] < bound_ms else ""
         log(f"[bound] {k}: {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}, "

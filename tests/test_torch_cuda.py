@@ -13,7 +13,8 @@ version limb for limb on the special lanes of
 through one scan launch and the suffix rounds' shift form, must equal the
 native host MSM, and so must a G2 MSM's buckets combined through the flagged
 distinct add K6; the probes K7-K10 must pass their host-oracle
-parity; a proof made on the card must be byte-identical to the same proof
+parity, and the tensor-core fold of K7 and K10 must equal its plain version
+at ragged lane counts; a proof made on the card must be byte-identical to the same proof
 made by the plain versions on the CPU; setup on the card must write the
 host-native arm's CRS; the int8 matmul NTT must equal the radix-2 path on
 the card for each of its four kinds.
@@ -193,6 +194,28 @@ def test_probes_pass_parity(dev):
     assert all(r["max_abs_err"] == 0 for r in micro.mul_chain(device=dev, lanes=1 << 14, reps=2).values())
     assert all(r["max_abs_err"] == 0 for r in micro.op_throughput(dev, lanes=1 << 14, reps=2).values())
     assert all(r["parity"] for r in micro.mont_mul_modes(dev, lanes=1 << 14, reps=2).values())
+
+
+@pytest.mark.parametrize("lanes", [1, 33, micro.PARITY_LANES + 5])
+@pytest.mark.parametrize("probe", ["k7_fold", "k10_fold"])
+def test_fold_chains_match_plain_at_ragged_lanes(dev, probe, lanes):
+    """K7 and K10 fold (the fold product on the tensor cores, a warp's 32
+    lanes as one tile) at lane counts that leave a warp or a block part
+    full: one launch, every lane equal to the plain version, chain 0 equal
+    to x (y R^-1)^depth on sampled lanes; lane 0 has every digit 255."""
+    _idx, mode, chains, unroll = micro.CHAIN_PROBES[probe]
+    gen = torch.Generator(device=dev).manual_seed(lanes)
+    x, y = micro.random_limbs("fq", lanes, dev, gen), micro.random_limbs("fq", lanes, dev, gen)
+    x[0], y[0] = -1, -1
+    before = micro.launches[f"mul_chain_{probe}"]
+    k0, k1 = micro.run_chain(probe, x, y)
+    assert micro.launches[f"mul_chain_{probe}"] == before + 1
+    p0, p1 = micro.mul_chain_plain(mode, chains, unroll, x, y)
+    assert torch.equal(k0, p0) and (chains == 1 or torch.equal(k1, p1))
+    idx = micro._check_lanes(lanes)
+    xs, ys, got = (lb.tensor_to_ints(t[idx], lb.FQ, mont=False) for t in (x, y, k0))
+    rinv = pow(lb.FQ.mont_r, -1, Q)
+    assert list(got) == [int(a) * pow(int(b) * rinv % Q, unroll, Q) % Q for a, b in zip(xs, ys)]
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])

@@ -257,6 +257,10 @@ def test_ptxas_report_names_each_instance():
     assert chip_smoke.instance_name("k_mont_mul_mode<FrParams,MulFold>") == "mont_mul_fr_fold"
     assert chip_smoke.instance_name("k_op<6,8>") == "op_u32_mul_wide_x8"
     assert chip_smoke.instance_name("k_mul_chain<FqParams,MulFold,1,16>") == "mul_chain_k10_fold"
+    # the tensor-core fold's instances (csrc/micro.cu's k_mul_chain_mma)
+    assert _build.short_name("_Z15k_mul_chain_mmaI8FqParamsLi4ELi6EEvPKjS2_PjS3_x") == "k_mul_chain_mma<FqParams,4,6>"
+    assert chip_smoke.instance_name("k_mul_chain_mma<FqParams,4,6>") == "mul_chain_k7_fold"
+    assert chip_smoke.instance_name("k_mul_chain_mma<FqParams,1,16>") == "mul_chain_k10_fold"
     assert chip_smoke.instance_name("mul_call<FqParams>") is None
 
 

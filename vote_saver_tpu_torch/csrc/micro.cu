@@ -1,6 +1,7 @@
 // The multiply probes K7-K10 and their extern "C" launchers.
 //
-//   k_mul_chain<P, M, CHAINS, UNROLL> (probe table kChains below)
+//   k_mul_chain<P, M, CHAINS, UNROLL>, k_mul_chain_mma<P, CHAINS, UNROLL>
+//   (probe table kChains below)
 //     K7  <- bench.py:bench_field_mul (pallas_call l.302): 4 independent
 //            chains x 6 chained Fq multiplies, in a given mode;
 //     K8  <- scripts/micro_cios_loop.py:make_call (l.108): 4 chains x 8,
@@ -26,6 +27,19 @@
 // multiply-add yardstick: every curve kernel is bound by the 32x32->64
 // multiply-add, whose rate this card's data sheet does not give.
 //
+// The fold probes (K7 fold, K10 fold) are k_mul_chain_mma: the fold with its
+// fold product on the int8 tensor cores (fold_mma.cuh), the counterpart of
+// fold_mul.fold_columns inside FqEmitFold, the one bf16 matmul the TPU
+// kernel rides its matrix unit with.  Its bound is the fp32 digit columns
+// (2,304 FMAs a multiply, each an issue slot); the design takes the 3,744
+// per-lane dp4a and their 52 live accumulators out of the lane: a warp's 32
+// lanes write their pieces into shared memory and multiply them by the fold
+// matrix as one tile of 126 mma.sync.  Every thread of a warp stays in the
+// multiply (a thread past n computes lane n - 1 and skips its store), the
+// loop holds one copy of the multiply (the chains rotate through it), and
+// the block copies the matrix into shared memory once.  Its dynamic shared
+// memory, above 48 KB, is set per instance by the launcher.
+//
 // Built with -DVS_K8_ONLY=1 -DVS_K8_MUL=<mode type> this file holds only
 // that K8 instance, which is how the K8 probe times one variant's build.
 //
@@ -36,7 +50,7 @@
 
 #include <cstdint>
 
-#include "mul_modes.cuh"
+#include "fold_mma.cuh"
 
 constexpr int kThreads = 128;
 
@@ -56,6 +70,42 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < CHAINS; ++k) c[k] = M::mul(c[k], b);
   }
+  store(out0, i, c[0]);
+  if (CHAINS > 1) {
+    Fp<P> rest = c[1];
+#pragma unroll
+    for (int k = 2; k < CHAINS; ++k) rest = add(rest, c[k]);
+    store(out1, i, rest);
+  }
+}
+
+// The fold chains with the tensor-core fold: chain 0 is multiplied, then the
+// chains rotate, so the loop holds one copy of the multiply.
+template <class P, int CHAINS, int UNROLL>
+__global__ void __launch_bounds__(kThreads)
+    k_mul_chain_mma(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                    uint32_t* __restrict__ out0, uint32_t* __restrict__ out1, long long n) {
+  using F = FoldMma<P>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  fold_mma_load_b<P>(smem);
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i - (threadIdx.x & 31) >= n) return;  // the whole warp is past n
+  const long long li = i < n ? i : n - 1;
+  uint8_t* tile = smem + F::B_BYTES + (threadIdx.x >> 5) * F::WARP_BYTES;
+  Fp<P> c[CHAINS];
+  Fp<P> b;
+  load(b, y, li);
+#pragma unroll
+  for (int k = 0; k < CHAINS; ++k) load(c[k], x, (li + k) % n);
+#pragma unroll 1
+  for (int s = 0; s < CHAINS * UNROLL; ++s) {
+    const Fp<P> r = mul_fold_mma<P>(c[0], b, smem, tile);
+#pragma unroll
+    for (int k = 0; k + 1 < CHAINS; ++k) c[k] = c[k + 1];
+    c[CHAINS - 1] = r;
+  }
+  if (i >= n) return;
   store(out0, i, c[0]);
   if (CHAINS > 1) {
     Fp<P> rest = c[1];
@@ -149,15 +199,22 @@ __global__ void __launch_bounds__(kThreads)
 
 using ChainFn = void (*)(const uint32_t*, const uint32_t*, uint32_t*, uint32_t*, long long);
 
+struct ChainProbe {
+  ChainFn fn;
+  int smem;  // dynamic shared memory a block, bytes
+};
+
+constexpr int kFoldMmaSmem = FoldMma<FqParams>::smem_bytes(kThreads);
+
 // probe index -> instance, in the order of micro.CHAIN_PROBES
-const ChainFn kChains[] = {
-    k_mul_chain<FqParams, MulLoop, 4, 6>,   // K7 loop
-    k_mul_chain<FqParams, MulV1, 4, 6>,     // K7 v1
-    k_mul_chain<FqParams, MulFold, 4, 6>,   // K7 fold
-    k_mul_chain<FqParams, MulLoop, 4, 8>,   // K8 loop
-    k_mul_chain<FqParams, MulV1, 4, 8>,     // K8 v1
-    k_mul_chain<FqParams, MulV1, 1, 16>,    // K10 v1
-    k_mul_chain<FqParams, MulFold, 1, 16>,  // K10 fold
+const ChainProbe kChains[] = {
+    {k_mul_chain<FqParams, MulLoop, 4, 6>, 0},         // K7 loop
+    {k_mul_chain<FqParams, MulV1, 4, 6>, 0},           // K7 v1
+    {k_mul_chain_mma<FqParams, 4, 6>, kFoldMmaSmem},   // K7 fold
+    {k_mul_chain<FqParams, MulLoop, 4, 8>, 0},         // K8 loop
+    {k_mul_chain<FqParams, MulV1, 4, 8>, 0},           // K8 v1
+    {k_mul_chain<FqParams, MulV1, 1, 16>, 0},          // K10 v1
+    {k_mul_chain_mma<FqParams, 1, 16>, kFoldMmaSmem},  // K10 fold
 };
 constexpr int kNumChains = sizeof(kChains) / sizeof(kChains[0]);
 
@@ -174,15 +231,46 @@ constexpr int kNumOps = sizeof(kOps) / sizeof(kOps[0]);
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+// Lets the instance of p take its dynamic shared memory (above 48 KB only
+// after this call, on the current device).
+cudaError_t allow_smem(const ChainProbe& p) {
+  if (p.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(p.fn), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              p.smem);
+}
+
 extern "C" {
 
 int vs_mul_chain(int probe, const void* x, const void* y, void* out0, void* out1, long long n,
                  void* stream) {
   if (probe < 0 || probe >= kNumChains) return (int)cudaErrorInvalidValue;
-  kChains[probe]<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const ChainProbe& p = kChains[probe];
+  const cudaError_t err = allow_smem(p);
+  if (err != cudaSuccess) return (int)err;
+  p.fn<<<blocks_for(n), kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(y),
       static_cast<uint32_t*>(out0), static_cast<uint32_t*>(out1), n);
   return (int)cudaGetLastError();
+}
+
+// What the runtime reports of probe's instance on the current device:
+// out = {registers a thread, local (spill and stack) bytes a thread,
+// dynamic shared memory a block, resident blocks a SM, threads a block}.
+int vs_mul_chain_info(int probe, int* out) {
+  if (probe < 0 || probe >= kNumChains) return (int)cudaErrorInvalidValue;
+  const ChainProbe& p = kChains[probe];
+  cudaFuncAttributes attr;
+  cudaError_t err = allow_smem(p);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(p.fn));
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, p.fn, kThreads, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = p.smem;
+  out[3] = blocks;
+  out[4] = kThreads;
+  return 0;
 }
 
 int vs_op(int kind, const void* x, const void* y, void* out, long long n, void* stream) {
@@ -193,8 +281,9 @@ int vs_op(int kind, const void* x, const void* y, void* out, long long n, void* 
   return (int)cudaGetLastError();
 }
 
-int vs_micro_fold_upload(int field, const void* words, long long nwords) {
-  return fold_upload(field, words, nwords);
+// bytes: ops/fold_mul.mma_operand of Fq, nbytes long.
+int vs_micro_fold_mma_upload(int field, const void* bytes, long long nbytes) {
+  return fold_mma_upload(field, bytes, nbytes);
 }
 
 }  // extern "C"

@@ -25,12 +25,16 @@
 // What bounds each: loop and v1, the 2L^2 + L 32x32->64 multiply-adds (Fq:
 // 300, Fr: 136) plus their carry chains.  Fold, per Fq multiply, 2,304 fp32
 // FMAs for the 48 x 48 digit products and the fold: 285 x 52 byte products,
-// done here as 72 x 52 dp4a (four rows of the matrix per instruction).  The
-// fold is a per-lane loop with the matrix in __constant__ memory: every lane
-// of a warp reads the same word at once, so the reads broadcast.  Its
-// natural Hopper form is an int8 tensor-core product over a tile of lanes
-// (mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32: pieces are unsigned
-// bytes, matrix entries balanced signed bytes); that is later work.
+// done here as 72 x 52 dp4a (four rows of the matrix per instruction), one
+// lane at a time with the matrix in __constant__ memory (every lane of a
+// warp reads the same word at once, so the reads broadcast).  That per-lane
+// fold is K1's (mont_mul_modes.cu).  The probes K7 and K10 run the fold
+// product the way the TPU kernel did (fold_mul.fold_columns inside
+// FqEmitFold: one matmul against the constant matrix) on the int8 tensor
+// cores: fold_mma.cuh, a warp's 32 lanes as one tile of 126 mma.sync, so
+// the lane keeps only the fp32 digit columns, which then bound it (2,304
+// FMAs a multiply at the issue rate), and MulFold's steps 1-3 and 5-6
+// around the product; fold_finish below is the tail both forms share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -160,43 +164,15 @@ __device__ __forceinline__ uint32_t n16(int k) {
   return (P::n(k / 2) >> (16 * (k % 2))) & 0xFFFFu;
 }
 
+// Steps 5-6 of the fold, from the signed byte coefficients g[] of the
+// folded value (|g| < 2^24): the byte carry pass, two 16-bit Montgomery
+// word steps that divide the 2^32 pre-scale back out, the conditional
+// subtract.
 template <class P>
-__device__ __noinline__ Fp<P> mul_fold(const Fp<P> a, const Fp<P> b) {
+__device__ __forceinline__ Fp<P> fold_finish(const int32_t (&g)[FoldGeom<P>::NBYTES]) {
   using G = FoldGeom<P>;
   constexpr int L16 = 2 * P::L;
   constexpr int NL = (G::NBYTES + 1) / 2;
-  // 1. digits, exact in fp32
-  float da[G::ND], db[G::ND];
-#pragma unroll
-  for (int k = 0; k < G::ND; ++k) {
-    da[k] = (float)((a.v[k / 4] >> (8 * (k % 4))) & 0xFFu);
-    db[k] = (float)((b.v[k / 4] >> (8 * (k % 4))) & 0xFFu);
-  }
-  // 2.-4. column c (< 2^22, exact fp32 FMAs) -> pieces of rows 3c..3c+2,
-  // four rows per dp4a into the signed byte coefficients g[d] (|g| < 2^24)
-  int32_t g[G::NBYTES];
-#pragma unroll
-  for (int d = 0; d < G::NBYTES; ++d) g[d] = 0;
-  uint32_t pieces = 0;
-#pragma unroll
-  for (int c = 0; c < G::NCOLS; ++c) {
-    float col = 0.f;
-#pragma unroll
-    for (int i = 0; i < G::ND; ++i) {
-      if (c - i >= 0 && c - i < G::ND) col = fmaf(da[i], db[c - i], col);
-    }
-    const uint32_t v = (uint32_t)col;
-#pragma unroll
-    for (int t = 0; t < 3; ++t) {
-      const int r = 3 * c + t;
-      pieces |= ((v >> (8 * t)) & 0xFFu) << (8 * (r % 4));
-      if (r % 4 == 3 || r == G::ROWS - 1) {
-#pragma unroll
-        for (int d = 0; d < G::NBYTES; ++d) g[d] = dp4a_us(pieces, fold_word<P>(r / 4, d), g[d]);
-        pieces = 0;
-      }
-    }
-  }
   // 5. byte carry pass (the value is nonnegative), bytes -> 16-bit words
   uint32_t w[NL];
   int32_t carry = 0;
@@ -231,6 +207,44 @@ __device__ __noinline__ Fp<P> mul_fold(const Fp<P> a, const Fp<P> b) {
 #pragma unroll
   for (int j = 0; j < P::L; ++j) t32[j] = w[2 * j] | (w[2 * j + 1] << 16);
   return csub<P>(t32, w[L16]);
+}
+
+template <class P>
+__device__ __noinline__ Fp<P> mul_fold(const Fp<P> a, const Fp<P> b) {
+  using G = FoldGeom<P>;
+  // 1. digits, exact in fp32
+  float da[G::ND], db[G::ND];
+#pragma unroll
+  for (int k = 0; k < G::ND; ++k) {
+    da[k] = (float)((a.v[k / 4] >> (8 * (k % 4))) & 0xFFu);
+    db[k] = (float)((b.v[k / 4] >> (8 * (k % 4))) & 0xFFu);
+  }
+  // 2.-4. column c (< 2^22, exact fp32 FMAs) -> pieces of rows 3c..3c+2,
+  // four rows per dp4a into the signed byte coefficients g[d] (|g| < 2^24)
+  int32_t g[G::NBYTES];
+#pragma unroll
+  for (int d = 0; d < G::NBYTES; ++d) g[d] = 0;
+  uint32_t pieces = 0;
+#pragma unroll
+  for (int c = 0; c < G::NCOLS; ++c) {
+    float col = 0.f;
+#pragma unroll
+    for (int i = 0; i < G::ND; ++i) {
+      if (c - i >= 0 && c - i < G::ND) col = fmaf(da[i], db[c - i], col);
+    }
+    const uint32_t v = (uint32_t)col;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const int r = 3 * c + t;
+      pieces |= ((v >> (8 * t)) & 0xFFu) << (8 * (r % 4));
+      if (r % 4 == 3 || r == G::ROWS - 1) {
+#pragma unroll
+        for (int d = 0; d < G::NBYTES; ++d) g[d] = dp4a_us(pieces, fold_word<P>(r / 4, d), g[d]);
+        pieces = 0;
+      }
+    }
+  }
+  return fold_finish<P>(g);
 }
 
 struct MulFold {

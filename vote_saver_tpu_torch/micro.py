@@ -18,6 +18,11 @@ kernel in ``csrc/micro.cu``:
   K10 ``mul_chain(modes)``           <- scripts/micro_mul_chain.py: one
       dependent chain of 16, v1 against fold (multiply latency);
 
+the fold instances of K7 and K10 run the fold product on the int8 tensor
+cores, a warp's 32 lanes as one tile (``csrc/fold_mma.cuh``; its B operand
+``fold_mul.mma_operand`` is uploaded once per card), the others one lane
+to a thread;
+
 and ``mont_mul_modes()``, kernel K1 in each multiplier mode at full width.
 Each chain probe checks parity on several lanes against the host oracle
 (``want = want * y * R^-1 mod Q``) at the JAX probes' shape, 14 x 8 x 128 =
@@ -35,6 +40,7 @@ rates exist only there.  On the card:
 
 from __future__ import annotations
 
+import ctypes
 import fractions
 import json
 import math
@@ -45,6 +51,7 @@ import subprocess
 import numpy as np
 import torch
 
+from .ops import fold_mul
 from .ops import hopper_field as hf
 from .ops import limbs as lb
 from .params import Q
@@ -138,12 +145,25 @@ def run_chain(probe: str, x: torch.Tensor, y: torch.Tensor):
     out0, out1 = torch.empty_like(x), torch.empty_like(x)
     lib = hf._lib()
     if mode == "fold":
-        hf.upload_fold_matrix(lib.vs_micro_fold_upload, 0, x.device)
+        hf.upload_fold_matrix(lib.vs_micro_fold_mma_upload, 0, x.device, fold_mul.mma_operand)
     name = f"mul_chain_{probe}"
     hf._raise_on(lib.vs_mul_chain(idx, x.data_ptr(), y.data_ptr(), out0.data_ptr(), out1.data_ptr(), n,
                                   hf._stream(x.device)), name)
     launches[name] += 1
     return out0, (out1 if chains > 1 else None)
+
+
+def chain_info(probe: str, device="cuda") -> dict:
+    """What the CUDA runtime reports of chain probe `probe`'s instance on
+    `device`: registers and local (spill and stack) bytes a thread, dynamic
+    shared memory a block, and the blocks and warps resident on one SM."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(lb.device_of(device)):
+        rc = hf._lib().vs_mul_chain_info(CHAIN_PROBES[probe][0], ctypes.addressof(out))
+    hf._raise_on(rc, f"mul_chain_{probe} info")
+    regs, local, smem, blocks, threads = out
+    return dict(registers=regs, local_bytes=local, smem_bytes=smem, blocks_per_sm=blocks,
+                warps_per_sm=blocks * threads // 32)
 
 
 def _f32_round(v: fractions.Fraction) -> float:
@@ -428,6 +448,7 @@ def chain_probe(probe: str, device="cuda", lanes: int = FULL_LANES, parity_lanes
         raise AssertionError(f"{probe} kernel disagrees with its plain version")
     idx = _check_lanes(lanes)
     _chain_oracle(probe, idx, *(lb.tensor_to_ints(t[idx], lb.FQ, mont=False) for t in (fa, fb, k0)), unroll)
+    out.update(chain_info(probe, device))
     return out
 
 
@@ -572,11 +593,11 @@ def report_lines(res: dict, gpu: str) -> list[str]:
     chains += [("K8", f"cios_loop {v}", r, "4 chains x 8") for v, r in res["cios_loop"].items()]
     chains += [("K10", f"mul_chain {m}", r, "one chain of 16") for m, r in res["mul_chain"].items()]
     for tag, what, r, shape in chains:
-        extra = (f"; {r['registers']} registers, {r['spill_stores']} B spill stores; build {r['build_s']:.1f} s"
-                 if tag == "K8" else "")
-        lines.append(f"[{tag}] {what}: {r['mul_mps']:.1f} M mul/s ({r['ms']:.3f} ms at {r['lanes']} lanes, {shape}); "
+        extra = (f"; build alone {r['build_s']:.1f} s, {r['spill_stores']} B spill stores" if tag == "K8" else "")
+        lines.append(f"[{tag}] {what}: {r['mul_mps']:.1f} M mul/s ({r['ms']:.4f} ms at {r['lanes']} lanes, {shape}); "
                      f"parity ok at {r['parity_lanes']} lanes; the {r['lanes']}-lane launch equal to plain "
-                     f"({r['plain_ms']:.1f} ms){extra}; {gpu}")
+                     f"({r['plain_ms']:.1f} ms); {r['registers']} registers, {r['local_bytes']} B local a thread, "
+                     f"{r['smem_bytes']} B dynamic shared memory a block, {r['warps_per_sm']} warps a SM{extra}; {gpu}")
     return lines
 
 

@@ -25,7 +25,7 @@ import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_build"
-HEADERS = ("field.cuh", "mul_modes.cuh", "curve.cuh")
+HEADERS = ("field.cuh", "mul_modes.cuh", "curve.cuh", "fold_mma.cuh")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
@@ -53,7 +53,8 @@ UNITS = {
     "micro.cu": {
         "vs_mul_chain": [ctypes.c_int, _VP, _VP, _VP, _VP, _LL, _VP],
         "vs_op": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
-        "vs_micro_fold_upload": [ctypes.c_int, _VP, _LL],
+        "vs_mul_chain_info": [ctypes.c_int, _VP],
+        "vs_micro_fold_mma_upload": [ctypes.c_int, _VP, _LL],
     },
 }
 

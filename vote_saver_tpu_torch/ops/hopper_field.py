@@ -598,15 +598,17 @@ def _flat(coords, tail_dims: int):
 _fold_uploaded: set = set()
 
 
-def upload_fold_matrix(upload, field: int, device) -> None:
-    """Copy field's packed fold matrix into the __constant__ memory of the
-    library whose upload function is `upload`, once per device."""
+def upload_fold_matrix(upload, field: int, device, pack=fold_mul.packed_matrix) -> None:
+    """Copy field's fold matrix, in the layout `pack` gives it (``packed_matrix``
+    for the dp4a fold's __constant__ memory, ``mma_operand`` for the
+    tensor-core fold's B operand), into the library whose upload function is
+    `upload`, once per device."""
     key = (upload.__name__, field, device.index)
     if key in _fold_uploaded:
         return
-    words = fold_mul.packed_matrix(FQ if field == 0 else FR)
+    arr = pack(FQ if field == 0 else FR)
     with torch.cuda.device(device):
-        _raise_on(upload(field, words.ctypes.data, words.size), "fold matrix upload")
+        _raise_on(upload(field, arr.ctypes.data, arr.size), "fold matrix upload")
     _fold_uploaded.add(key)
 
 
