@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
   3. each kernel against its plain PyTorch version on the card (K1 at 2^16
      lanes in Fq and Fr in each multiplier mode, K2-K4 and the flagged
      distinct add K5/K6 at 2^14 lanes and the distinct add K3d at 2^16
-     lanes, the FixedBaseTable width, in G1 and G2), special lanes
-     included; exact equality; both timed.  The chain kernels (K1's Fermat
+     lanes, the FixedBaseTable width, in G1 and G2; K3 in G2 as a team of
+     threads a lane), special lanes included; exact equality; both
+     timed.  The chain kernels (K1's Fermat
      inversion ``mont_inv``, K4 with a count of doublings) also at the
      widths and counts the vote path gives them (``CHAIN_SHAPES``), and
      the MSM kernels (K2's bucket scan ``madd_scan``, K3's suffix round
@@ -49,8 +50,14 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      products and peak device memory, then one timed batch of the
      host-witness arm and one of the device arm on the radix-2 NTT for
      comparison; then one more device-arm batch under torch.profiler:
-     device time and launches per kernel, the int8 products' device time
-     as library calls, and the device's busy share;
+     device time and launches per kernel, the launches of ``g2_add`` and
+     ``mont_mul_fr`` by width, the int8 products' device time as library
+     calls, and the device's busy share;
+  7b. ``[path]``: the G2 complete add at the vote path's widths (16, 32,
+     the profiled batch's widest launch, and 2^14) and K1 in Fr at the
+     batch's large calls with their real tables (the COO products, the R1CS
+     check, H, the matmul NTT's twiddle), against their plain versions,
+     timed per call and per launch on the device;
   8. the tally of the first timed batch's 16 ballots (``tally_admin_phase``,
      ``tally_voter_phase``; host code): the counts equal that batch's
      votes, the proof verifies, a forged result is rejected, and no kernel
@@ -172,6 +179,12 @@ MSM_SHAPES = {
     "g2_add_shift": ((432, 512, 1), (432, 512, 256), (32, 512, 1)),
 }
 H_POINTS = (1 << 15) - 1  # the h query's points: the affine table the scan reads
+# [path]: the widths of the vote path's G2 complete adds (the b2 MSM's Horner
+# steps, the ballot tail's windowed multiply; the batch's largest orphan
+# merge joins them from [profile]) and 2^14 lanes
+G2_ADD_WIDTHS = (16, 32, CURVE_LANES)
+# the kernels whose launch widths [profile] gives a batch
+WIDTH_KERNELS = ("g2_add", "mont_mul_fr")
 # the matmul NTT at the vote path's shape: B = 16 rows of the depth-6 2^15 domain;
 # a batch runs 3 inv + 3 fwd_coset + 1 inv_coset transforms
 NTT_N, NTT_B = 1 << 15, 16
@@ -898,12 +911,15 @@ def kernel_key(name: str) -> str | None:
     """The port's kernel name (``hopper_field.KERNELS``) of a device kernel
     as the profiler names it (``(anonymous namespace)::k_double<Fq2,
     MulLoop>(...)``) or as ``_build.short_name`` shortens ptxas's name, None
-    for a kernel that is not in hopper_field."""
-    m = re.search(r"\bk_(mont_mul_mode|mont_mul|mont_inv|madd_scan|madd|add_distinct|addx|add_shift|add|double)"
+    for a kernel that is not in hopper_field; the G2 complete add's team
+    kernel ``k_add_team<AddTeamG2>`` is ``g2_add``."""
+    m = re.search(r"\bk_(mont_mul_mode|mont_mul|mont_inv|madd_scan|madd|add_distinct|addx|add_shift|add_team|add|double)"
                   r"<([^,>]+)", name)
     if not m:
         return None
     fam, arg = m.groups()
+    if fam == "add_team":
+        return "g2_add"
     if fam.startswith("mont_mul"):
         fam = "mont_mul"
         mode = "_v1" if "MulV1" in name else "_fold" if "MulFold" in name else ""
@@ -1098,7 +1114,10 @@ def run_slice(rnd, e: dict, library: set) -> dict:
     r2_launches, r2_products = dict(hf.launches), dict(ntt_mxu.products)
     r2_peak = torch.cuda.max_memory_allocated()
 
+    hf.reset_launches()
     profiled, prof = profile_batch(batch, library)
+    if prof:
+        prof["widths"] = {k: dict(sorted(hf.widths[k].items())) for k in WIDTH_KERNELS}
 
     n_ok = 0
     for _votes, ballots in warm + timed + [profiled] + host + radix2:
@@ -1115,7 +1134,7 @@ def run_slice(rnd, e: dict, library: set) -> dict:
         host_arm_batch_s=host_wall, host_arm_stages_s=dict(host_timer.seconds),
         radix2_batch_s=r2_wall, radix2_stages_s=dict(r2_timer.seconds), radix2_stage_launches=dict(r2_timer.launches),
         radix2_peak_bytes=r2_peak, radix2_held_bytes=r2_held, ballots_verified=n_ok, ballots_total=n_total, profile=prof,
-        device_batches=warm + timed,
+        device_batches=warm + timed, ctx=ctx,
     )
     log(f"[slice] device arm, depth {DEPTH}, B={BATCH}: {out['batch_s']:.3f} s/batch = "
         f"{out['proofs_per_s']:.3f} proofs/s; var-base fallbacks {out['fallbacks']}")
@@ -1145,6 +1164,10 @@ def run_slice(rnd, e: dict, library: set) -> dict:
         for k, v in sorted(prof["port"].items(), key=lambda kv: -kv[1]["device_s"]):
             log(f"[profile] {k}: {v['launches']} launches, {1e3 * v['device_s']:.3f} ms on the device, "
                 f"{1e6 * v['device_s'] / v['launches']:.2f} us a launch")
+        for k in WIDTH_KERNELS:
+            v = prof["port"].get(k, dict(launches=0, device_s=0.0))
+            log(f"[profile] {k} a batch: {v['launches']} launches, {1e3 * v['device_s']:.3f} ms on the device; "
+                f"launches by width (lanes: launches) {prof['widths'][k]}")
         for k, v in prof["top_plain"].items():
             log(f"[profile] plain: {1e3 * v:.3f} ms {k[:120]}")
     else:
@@ -1163,6 +1186,89 @@ def run_slice(rnd, e: dict, library: set) -> dict:
         stray = {k: counts[k] for k in OFF_VOTE_PATH if counts[k]}
         if stray or (prof and any(k in prof["port"] for k in OFF_VOTE_PATH)):
             fail(f"the {arm} vote arm launched K2's single-row form: {stray}")
+    return out
+
+
+def check_path_kernels(vote: dict, dev="cuda") -> dict:
+    """K3 in G2 and K1 in Fr at the vote path's own shapes, each against
+    its plain version on the same inputs: the G2 complete add (a team of
+    threads a lane) at G2_ADD_WIDTHS and the widest launch of [profile]'s
+    batch (its largest orphan merge) on testing.team_add_lanes' special
+    lanes, and K1 in Fr at the depth-6 B = 16 batch's large calls with
+    their real tables: the three COO products (the coefficient table read
+    in place), the R1CS check, H times the constant zh_coset_inv (from_mont's
+    shape too) and the matmul NTT's twiddle.  Each row: equality, the
+    event-timed ms a call, the profiler's device ms a launch, the plain ms
+    and the work the bound counts (a broadcast table's lanes once)."""
+    import torch
+
+    from vote_saver_tpu_torch import micro
+    from vote_saver_tpu_torch.micro import time_ms
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import limbs as lb
+    from vote_saver_tpu_torch.ops import ntt, ntt_mxu
+    from vote_saver_tpu_torch.protocol import groth16
+    from vote_saver_tpu_torch.testing import team_add_lanes
+
+    dev = torch.device(dev)
+    rnd = random.Random(SEED + 10)
+    out = {"g2_add": [], "mont_mul_fr": []}
+    hist = (vote["profile"] or {}).get("widths", {}).get("g2_add", {})
+    widths = sorted(set(G2_ADD_WIDTHS) | ({max(hist)} if hist else set()))
+    for lanes in widths:
+        p, q = team_add_lanes(True, lanes, rnd)
+        P, Qd = (_to_dev(zip(*pts), dev) for pts in (p, q))
+        kern = lambda P=P, Qd=Qd: hf.g2_add(P, Qd)  # noqa: E731
+        plain = lambda P=P, Qd=Qd: hf.add_plain(True, P, Qd)  # noqa: E731
+        got, exp = kern(), plain()
+        torch.cuda.synchronize()
+        reps = 50 if lanes <= 1024 else 20
+        row = dict(shape=[lanes], lanes=lanes, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
+                   max_abs_err=_diff(got, exp), ms=time_ms(kern, reps), device_ms=device_ms(kern, reps, "k_add_team"),
+                   plain_ms=time_ms(plain, 3), work=dict(bytes=_nbytes(*P, *Qd, *got),
+                                                         mads=_curve_mads("add", True, _finite(P[2], Qd[2]))))
+        log(f"[kernels] g2_add: {lanes} lanes equal={row['equal']} max_abs_err={row['max_abs_err']} kernel "
+            f"{row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} a launch, plain {row['plain_ms']:.3f} ms")
+        if not row["equal"]:
+            fail(f"g2_add at {lanes} lanes disagrees with its plain version")
+        out["g2_add"].append(row)
+    ctx = vote["ctx"]
+    pk, B, n = ctx.pk, BATCH, ctx.pk.domain
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def limbs(*shape):
+        k = 1
+        for d in shape:
+            k *= d
+        return micro.random_limbs("fr", k, dev, gen).reshape(tuple(shape) + (lb.FR.num_limbs,))
+
+    coo = groth16._abc_coo_device(pk, dev)
+    w = limbs(B, pk.num_vars)
+    x, y = limbs(B, n), limbs(B, n)
+    plan = ntt_mxu.get_plan(n, "fwd")
+    cases = [(f"coo_{m}", coo[m][2][None], w.index_select(1, coo[m][1])) for m in ("a", "b", "c")]
+    cases += [("r1cs", x, y), ("h", x, ntt.get_ntt(n, "matmul").table("zh_coset_inv", dev)),
+              ("twiddle", limbs(B, plan.n2, plan.n1), plan.table("t12", dev))]
+    for desc, a, b in cases:
+        _x, _y, _shape, lanes, nb = hf.mul_operands(a, b)
+        full = tuple(t.contiguous() for t in torch.broadcast_tensors(a, b))
+        kern = lambda a=a, b=b: (hf.mont_mul("fr", a, b),)  # noqa: E731
+        plain = lambda full=full: (hf.mont_mul_plain("fr", *full),)  # noqa: E731
+        before = hf.launches["mont_mul_fr"]
+        got, exp = kern(), plain()
+        torch.cuda.synchronize()
+        if hf.launches["mont_mul_fr"] != before + 1:
+            fail(f"mont_mul_fr at {desc} did not launch once")
+        row = dict(shape=[desc, lanes, nb], lanes=lanes, equal=torch.equal(got[0], exp[0]),
+                   max_abs_err=_diff(got, exp), ms=time_ms(kern, 50), device_ms=device_ms(kern, 50, "k_mont_mul<"),
+                   plain_ms=time_ms(plain, 3), work=dict(bytes=(2 * lanes + nb) * 4 * lb.FR.num_limbs,
+                                                         mads=lanes * MADS["fr"]))
+        log(f"[kernels] mont_mul_fr: {desc} {lanes} lanes, table {nb} lanes, equal={row['equal']} "
+            f"max_abs_err={row['max_abs_err']} kernel {row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} "
+            f"a launch, plain {row['plain_ms']:.3f} ms")
+        if not row["equal"]:
+            fail(f"mont_mul_fr at {desc} disagrees with its plain version")
+        out["mont_mul_fr"].append(row)
     return out
 
 
@@ -1726,6 +1832,8 @@ def main() -> None:
     phase("golden", check_golden)
     vote = phase("slice", run_slice, rnd, e, library)
     vote_launches = vote["launches"]
+    for kname, rows in phase("path", check_path_kernels, vote).items():
+        kern[kname]["shapes"] = rows
     phase("tally", run_tally, e, vote["device_batches"], gpu)
     phase("stream", run_stream, e, vote["device_batches"], rnd, library, gpu)
     phase("api", run_api, e, rnd, gpu)

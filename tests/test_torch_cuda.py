@@ -7,9 +7,11 @@ only the port is installed:
 
 Each kernel (K1 in Fq and Fr in each multiplier mode and as the Fermat
 inversion, K2-K4, K4 with a count of doublings, K2's bucket scan, K3's
-suffix round, K3d and K5/K6 in G1 and G2) must equal its plain PyTorch
-version limb for limb on the special lanes of
-``vote_saver_tpu_torch.testing``, in one launch per call; a scheduled MSM,
+suffix round, K3d and K5/K6 in G1 and G2, K3 in G2 as a team of threads
+a lane at ragged widths, K1 with an operand broadcast over the batch at
+the vote path's shapes) must equal its plain PyTorch version limb for limb
+on the special lanes of ``vote_saver_tpu_torch.testing``, in one launch per
+call (the team kernel with no spill); a scheduled MSM,
 through one scan launch and the suffix rounds' shift form, must equal the
 native host MSM, and so must a G2 MSM's buckets combined through the flagged
 distinct add K6; the probes K7-K10 must pass their host-oracle
@@ -38,7 +40,8 @@ from vote_saver_tpu_torch.protocol import groth16 as tg
 from vote_saver_tpu_torch.protocol import marshal as M
 from vote_saver_tpu_torch.refimpl import curves as rc
 from vote_saver_tpu_torch.refimpl import jacobian as rj
-from vote_saver_tpu_torch.testing import ADDX_EXC, MADD_EXC, SCAN_EXC, scan_lanes, shift_grid, special_lanes
+from vote_saver_tpu_torch.testing import (ADDX_EXC, MADD_EXC, SCAN_EXC, scan_lanes, shift_grid, special_lanes,
+                                          team_add_lanes)
 from vote_saver_tpu_torch.utils.rng import FrRandom
 
 pytestmark = pytest.mark.cuda
@@ -87,6 +90,52 @@ def test_curve_kernels_match_plain(dev, g2):
     # in place, as the bucket scan runs it
     out, exc = madd(A, QA, S, ACT, out=tuple(c.clone() for c in A))
     assert all(torch.equal(x, y) for x, y in zip(out, mo)) and torch.equal(exc, me)
+
+
+@pytest.mark.parametrize("lanes", [1, 16, 17, 32, 33, 1 << 14])
+def test_team_g2_add_matches_plain(dev, lanes):
+    """K3 in G2 as a team of 16 threads a lane, ragged lane counts and the
+    special lanes (testing.team_add_lanes) included, one launch a call."""
+    p, q = team_add_lanes(True, lanes, random.Random(lanes))
+    P, Qd = (tuple(lb.ints_to_tensor([pt[i] for pt in pts], lb.FQ, dev) for i in range(3)) for pts in (p, q))
+    before = hf.launches["g2_add"]
+    got = hf.g2_add(P, Qd)
+    assert hf.launches["g2_add"] == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(got, hf.add_plain(True, P, Qd)))
+
+
+def test_team_kernel_does_not_spill(dev):
+    from vote_saver_tpu_torch.ops import _build
+
+    usage = {name: (regs, spill) for name, regs, spill in _build.resource_lines(_build.load().resource_usage)}
+    regs, spill = usage["k_add_team<AddTeamG2>"]
+    assert spill == 0 and regs < 128, usage["k_add_team<AddTeamG2>"]
+
+
+# K1 in Fr at the vote path's large shapes (a's and b's leading dims): the
+# COO products (the coefficient table first), H against zh_coset_inv,
+# from_mont's constant, the matmul NTT's twiddle, the R1CS check
+K1_PATH_SHAPES = [((1, 41007), (16, 41007)), ((16, 1 << 15), (1 << 15,)), ((16, 1 << 15), ()),
+                  ((16, 256, 128), (256, 128)), ((16, 1 << 15), (16, 1 << 15))]
+
+
+@pytest.mark.parametrize("sa,sb", K1_PATH_SHAPES)
+def test_k1_broadcast_operand_matches_materialized(dev, sa, sb):
+    gen = torch.Generator(device=dev).manual_seed(len(sa) * 100 + len(sb))
+
+    def limbs(shape):
+        n = 1
+        for d in shape:
+            n *= d
+        return micro.random_limbs("fr", n, dev, gen).reshape(tuple(shape) + (8,))
+
+    a, b = limbs(sa), limbs(sb)
+    full = tuple(t.contiguous() for t in torch.broadcast_tensors(a, b))
+    before = hf.launches["mont_mul_fr"]
+    got = hf.mont_mul("fr", a, b)
+    assert hf.launches["mont_mul_fr"] == before + 1
+    assert torch.equal(got, hf.mont_mul("fr", *full))
+    assert torch.equal(got, hf.mont_mul_plain("fr", *full))
 
 
 @pytest.mark.parametrize("name,N", [("fq", Q), ("fr", R)])

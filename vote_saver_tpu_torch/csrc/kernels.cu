@@ -7,7 +7,8 @@
 //      k_madd_scan<E> <- the same call, repeated by msm_sched._msm_device's
 //                        lax.scan over schedule rows: the bucket scan in one
 //                        launch
-//   K3 k_add<E>       <- pallas_field._g1_add_call / _g2_add_call (complete)
+//   K3 k_add<Fq>      <- pallas_field._g1_add_call (complete); G2's
+//                        _g2_add_call is add_team.cu's team kernel
 //      k_add_shift<E> <- the same call in _suffix_and_total's rounds, with
 //                        the roll and select of its partner inside
 //   K4 k_double<E>    <- pallas_field._g1_dbl_call / _g2_dbl_call, with a
@@ -16,15 +17,15 @@
 //                        around the call, in one launch
 //
 // Each is one thread per lane over (B, L) / (B, 2, L) int32 tensors read as
-// uint32_t*, with every limb in registers.  The Pallas kernels tile the
+// uint32_t* (K1 as uint4*), with every limb in registers.  The Pallas kernels tile the
 // batch into (S, T) vregs and transpose to (L, S, T) around every call; here
 // the tensors keep the framework layout, so nothing is repacked per call.
 // Bound and design notes: field.cuh (arithmetic), mul_modes.cuh (the
-// multiplier modes) and curve.cuh (formulas).  Every kernel takes the
+// multiplier modes) and curve.cuh (formulas).  Every curve kernel takes the
 // multiplier mode as a template parameter; here each is instantiated in the
-// default `loop` mode only (K1's v1 and fold instances: mont_mul_modes.cu),
-// its CIOS body inlined or, in the G1 curve kernels (MulCall), called out of
-// line: field.cuh says why.
+// default `loop` mode only, its CIOS body inlined or, in the G1 curve kernels
+// (MulCall), called out of line: field.cuh says why.  K1 runs `loop` (its v1
+// and fold instances: mont_mul_modes.cu).
 // Register use and spills per kernel are printed by `nvcc --resource-usage`
 // at build time (ops/_build.py keeps the report beside the library).
 //
@@ -46,16 +47,43 @@ __host__ __forceinline__ unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-template <class P, class M = MulLoop>
+// Lane i of the product is a[i] * b[i % nb]: nb = n for two operands of
+// one shape, nb < n for a table broadcast over the batch (twiddles, the
+// COO coefficients, a constant), which the kernel then reads in place
+// instead of from a materialised copy of n lanes.
+//
+// What bounds it at the vote path's large shapes (B = 16 rows of 2^15 to
+// 41,007 x 16 lanes, the matmul NTT's twiddle at 2^19): bytes, with the
+// 136 (Fr) / 300 (Fq) multiply-adds a lane close behind in Fr.  A lane's
+// limbs move as 16-byte accesses (two in Fr, three in Fq; the wrapper
+// hands 16-byte aligned tensors), every load of a and b issued before the
+// multiply, so a thread keeps 64 (Fr) / 96 (Fq) bytes in flight.  The
+// modulo is 32-bit where n allows (every path shape).
+template <class P>
 __global__ void __launch_bounds__(kThreads)
-    k_mont_mul(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-               uint32_t* __restrict__ out, long long n) {
+    k_mont_mul(const uint4* __restrict__ a, const uint4* __restrict__ b, uint4* __restrict__ out,
+               long long n, long long nb) {
+  constexpr int V = P::L / 4;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const long long j = nb == n ? i
+                      : n <= 0xffffffffLL ? (long long)((uint32_t)i % (uint32_t)nb)
+                                          : i % nb;
+  uint4 va[V], vb[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    va[k] = __ldg(a + i * V + k);
+    vb[k] = __ldg(b + j * V + k);
+  }
   Fp<P> x, y;
-  load(x, a, i);
-  load(y, b, i);
-  store(out, i, M::mul(x, y));
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    x.v[4 * k] = va[k].x, x.v[4 * k + 1] = va[k].y, x.v[4 * k + 2] = va[k].z, x.v[4 * k + 3] = va[k].w;
+    y.v[4 * k] = vb[k].x, y.v[4 * k + 1] = vb[k].y, y.v[4 * k + 2] = vb[k].z, y.v[4 * k + 3] = vb[k].w;
+  }
+  const Fp<P> z = mul(x, y);
+#pragma unroll
+  for (int k = 0; k < V; ++k) out[i * V + k] = make_uint4(z.v[4 * k], z.v[4 * k + 1], z.v[4 * k + 2], z.v[4 * k + 3]);
 }
 
 // a^(N - 2) = a^-1 for canonical a != 0 (0 maps to 0), by square-and-multiply
@@ -269,13 +297,16 @@ using u32p = const uint32_t*;
 
 extern "C" {
 
-// field: 0 = Fq, 1 = Fr.
-int vs_mont_mul(int field, const void* a, const void* b, void* out, long long n, void* stream) {
+// field: 0 = Fq, 1 = Fr; a and out (n, L), b (nb, L) with nb dividing n,
+// each 16-byte aligned.
+int vs_mont_mul(int field, const void* a, const void* b, void* out, long long n, long long nb,
+                void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  using v4p = const uint4*;
   if (field == 0) {
-    k_mont_mul<FqParams><<<blocks_for(n), kThreads, 0, s>>>((u32p)a, (u32p)b, (uint32_t*)out, n);
+    k_mont_mul<FqParams><<<blocks_for(n), kThreads, 0, s>>>((v4p)a, (v4p)b, (uint4*)out, n, nb);
   } else {
-    k_mont_mul<FrParams><<<blocks_for(n), kThreads, 0, s>>>((u32p)a, (u32p)b, (uint32_t*)out, n);
+    k_mont_mul<FrParams><<<blocks_for(n), kThreads, 0, s>>>((v4p)a, (v4p)b, (uint4*)out, n, nb);
   }
   return (int)cudaGetLastError();
 }
@@ -297,19 +328,11 @@ int vs_madd(int g2, const void* ax, const void* ay, const void* az, const void* 
   return (int)cudaGetLastError();
 }
 
-int vs_add(int g2, const void* px, const void* py, const void* pz, const void* qx,
-           const void* qy, const void* qz, void* ox, void* oy, void* oz, long long n,
-           void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (g2) {
-    k_add<Fq2><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz, (u32p)qx,
-                                                  (u32p)qy, (u32p)qz, (uint32_t*)ox,
-                                                  (uint32_t*)oy, (uint32_t*)oz, n);
-  } else {
-    k_add<Fq, MulCall><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz, (u32p)qx,
-                                                            (u32p)qy, (u32p)qz, (uint32_t*)ox,
-                                                            (uint32_t*)oy, (uint32_t*)oz, n);
-  }
+int vs_g1_add(const void* px, const void* py, const void* pz, const void* qx, const void* qy,
+              const void* qz, void* ox, void* oy, void* oz, long long n, void* stream) {
+  k_add<Fq, MulCall><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      (u32p)px, (u32p)py, (u32p)pz, (u32p)qx, (u32p)qy, (u32p)qz, (uint32_t*)ox, (uint32_t*)oy,
+      (uint32_t*)oz, n);
   return (int)cudaGetLastError();
 }
 

@@ -25,7 +25,7 @@ import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_build"
-HEADERS = ("field.cuh", "mul_modes.cuh", "curve.cuh", "fold_mma.cuh")
+HEADERS = ("field.cuh", "mul_modes.cuh", "curve.cuh", "fold_mma.cuh", "add_team_g2.cuh")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
@@ -34,13 +34,16 @@ _VP, _LL = ctypes.c_void_p, ctypes.c_longlong
 # translation unit -> {extern "C" launcher: argtypes}; every launcher returns int
 UNITS = {
     "kernels.cu": {
-        "vs_mont_mul": [ctypes.c_int, _VP, _VP, _VP, _LL, _VP],
+        "vs_mont_mul": [ctypes.c_int, _VP, _VP, _VP, _LL, _LL, _VP],
         "vs_madd": [ctypes.c_int] + [_VP] * 11 + [_LL, _VP],
-        "vs_add": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
+        "vs_g1_add": [_VP] * 9 + [_LL, _VP],
         "vs_mont_inv": [ctypes.c_int, _VP, _VP, _LL, _VP],
         "vs_double": [ctypes.c_int] + [_VP] * 6 + [_LL, ctypes.c_int, _VP],
         "vs_madd_scan": [ctypes.c_int, _VP, _VP, _VP, ctypes.c_int, _LL] + [_VP] * 5,
         "vs_add_shift": [ctypes.c_int] + [_VP] * 6 + [_LL, ctypes.c_int, ctypes.c_int, _VP],
+    },
+    "add_team.cu": {
+        "vs_g2_add_team": [_VP] * 9 + [_LL, _VP],
     },
     "add_distinct.cu": {
         "vs_add_distinct": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
@@ -152,7 +155,7 @@ def short_name(mangled: str) -> str:
     m = re.search(r"(k_[a-z_]+|mul_fold|mul_call|fq_mul_call)(I.*)?$", mangled)
     if not m:
         return mangled
-    args = re.findall(r"FqParams|FrParams|Fq2|MulLoop|MulV1|MulFold|MulCall|Li\d+E", m.group(2) or "")
+    args = re.findall(r"FqParams|FrParams|AddTeamG2|Fq2|MulLoop|MulV1|MulFold|MulCall|Li\d+E", m.group(2) or "")
     args = [a[2:-1] if a.startswith("Li") else a for a in args]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 

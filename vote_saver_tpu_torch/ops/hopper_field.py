@@ -9,7 +9,9 @@ keeps the signature and layout of its Pallas entry point:
                                                     <- g1/g2_madd_pallas
      ``g1_madd_scan``/``g2_madd_scan(points_xy, codes) -> (acc, exc)``: the
      bucket scan, every schedule row of an MSM in one launch
-  K3 ``g1_add``/``g2_add(p, q)`` (complete)         <- g1/g2_add_pallas
+  K3 ``g1_add``/``g2_add(p, q)`` (complete)         <- g1/g2_add_pallas;
+     ``g2_add`` runs a team of 16 threads a lane (``csrc/add_team.cu``,
+     schedule ``ops/add_team.py``)
      ``g1_add_shift``/``g2_add_shift(coords, shift)``: one suffix round of
      the MSM's combination phase, its partner read in the kernel
   K3d ``g1_add_distinct``/``g2_add_distinct(p, q)`` <- g1/g2_add_pallas(complete=False)
@@ -33,13 +35,15 @@ shift) with vectorised carry resolution, and follow the Pallas formulas'
 select order exactly, so kernel and plain version agree limb for limb —
 canonical infinity (1, 1, 0) and the madd ``exc`` flag included.
 
-``launches`` counts kernel launches per kernel instance; only the CUDA
-branch of a wrapper increments it.  ``SOURCES`` names the ``csrc/``
-translation unit each kernel is built from, ``REPLACES`` the pallas_call
-it replaces.
+``launches`` counts kernel launches per kernel instance, ``widths`` the
+lanes of each launch; only the CUDA branch of a wrapper increments them.
+``SOURCES`` names the ``csrc/`` translation unit each kernel is built
+from, ``REPLACES`` the pallas_call it replaces.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -87,16 +91,25 @@ REPLACES = {
 }
 # the csrc/ translation unit each kernel is built from
 SOURCES = dict.fromkeys(KERNELS, "vote_saver_tpu_torch/csrc/kernels.cu")
+SOURCES["g2_add"] = "vote_saver_tpu_torch/csrc/add_team.cu"
 SOURCES.update(dict.fromkeys(("g1_add_distinct", "g2_add_distinct", "g1_addx", "g2_addx"),
                              "vote_saver_tpu_torch/csrc/add_distinct.cu"))
 SOURCES.update(dict.fromkeys(("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold"),
                              "vote_saver_tpu_torch/csrc/mont_mul_modes.cu"))
 launches = dict.fromkeys(KERNELS, 0)
+widths = {k: Counter() for k in KERNELS}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+        widths[k].clear()
+
+
+def _count(name: str, lanes: int) -> None:
+    """One launch of kernel `name` over `lanes` lanes."""
+    launches[name] += 1
+    widths[name][lanes] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -612,30 +625,69 @@ def upload_fold_matrix(upload, field: int, device, pack=fold_mul.packed_matrix) 
     _fold_uploaded.add(key)
 
 
+def mul_operands(a: torch.Tensor, b: torch.Tensor):
+    """K1's operands as its kernel reads them: (x (n, L), y (nb, L), the
+    product's shape, n, nb), lane i of the product being x[i] * y[i % nb].
+    Where one operand's leading dims, leading 1s dropped, are a suffix of
+    the other's (a table broadcast over the batch: twiddles, COO
+    coefficients, a constant), that operand is y and keeps its nb lanes
+    (the product commutes, limb for limb); otherwise both are broadcast and
+    materialised, nb = n."""
+    L = a.shape[-1]
+    for x, y in ((a, b), (b, a)):
+        xs, ys = x.shape[:-1], y.shape[:-1]
+        while ys and ys[0] == 1:
+            ys = ys[1:]
+        if y.shape[-1] == L and len(ys) <= len(xs) and xs[len(xs) - len(ys):] == ys:
+            n, nb = x.numel() // L, y.numel() // L
+            return x.reshape(n, L).contiguous(), y.reshape(nb, L).contiguous(), x.shape, n, nb
+    (a, b), shape, n = _flat((a, b), 1)
+    return a, b, shape, n, n
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernel moves lanes as uint4)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def mont_mul(name: str, a: torch.Tensor, b: torch.Tensor, mode: str = "loop") -> torch.Tensor:
     """K1: Montgomery a*b*R^-1 mod p on (..., L) limbs ('fq' or 'fr'), with
-    the multiplier `mode` ('loop', 'v1' or 'fold')."""
+    the multiplier `mode` ('loop', 'v1' or 'fold').  In ``loop`` an operand
+    broadcast over the other's leading dims is read in place
+    (``mul_operands``); the other modes materialise it."""
     if mode not in MODES:
         raise ValueError(f"unknown multiplier mode {mode!r}")
+    field = 0 if name == "fq" else 1
+    kname = f"mont_mul_{name}" + ("" if mode == "loop" else f"_{mode}")
+    L = spec_for(name).num_limbs
+    if mode == "loop":
+        x, y, shape, n, nb = mul_operands(a, b)
+        if not _on_cuda(a):
+            return mont_mul_plain(name, x, y.index_select(0, torch.arange(n) % max(nb, 1))).reshape(shape)
+        if x.dtype != torch.int32 or y.dtype != torch.int32 or y.device != x.device or x.shape[-1] != L:
+            raise ValueError(f"expected int32 (..., {L}) limbs on one device, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device} and {y.dtype} {tuple(y.shape)} on {y.device}")
+        x, y = _aligned16(x), _aligned16(y)
+        out = torch.empty_like(x)
+        if n:
+            rc = _lib().vs_mont_mul(field, x.data_ptr(), y.data_ptr(), out.data_ptr(), n, nb, _stream(x.device))
+            _raise_on(rc, kname)
+            _count(kname, n)
+        return out.reshape(shape)
     if not _on_cuda(a):
         return mont_mul_plain(name, a, b, mode)
-    L = spec_for(name).num_limbs
     (a, b), shape, n = _flat((a, b), 1)
     _check((a, b), (L,), n, a.device)
     out = torch.empty_like(a)
-    field = 0 if name == "fq" else 1
-    kname = f"mont_mul_{name}" + ("" if mode == "loop" else f"_{mode}")
     if n:
         lib = _lib()
-        if mode == "loop":
-            rc = lib.vs_mont_mul(field, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _stream(a.device))
-        else:
-            if mode == "fold":
-                upload_fold_matrix(lib.vs_mont_mul_fold_upload, field, a.device)
-            rc = lib.vs_mont_mul_mode(field, MODES.index(mode), a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                      n, _stream(a.device))
+        if mode == "fold":
+            upload_fold_matrix(lib.vs_mont_mul_fold_upload, field, a.device)
+        rc = lib.vs_mont_mul_mode(field, MODES.index(mode), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  n, _stream(a.device))
         _raise_on(rc, kname)
-        launches[kname] += 1
+        _count(kname, n)
     return out.reshape(shape)
 
 
@@ -652,7 +704,7 @@ def mont_inv(name: str, a: torch.Tensor) -> torch.Tensor:
     if n:
         rc = _lib().vs_mont_inv(0 if name == "fq" else 1, a.data_ptr(), out.data_ptr(), n, _stream(a.device))
         _raise_on(rc, kname)
-        launches[kname] += 1
+        _count(kname, n)
     return out.reshape(shape)
 
 
@@ -675,7 +727,7 @@ def _madd(g2: bool, acc, q_affine, sign, active, out=None):
     if n:
         ptrs = [c.data_ptr() for c in (*acc, *q_affine, sign, active, *out, exc)]
         _raise_on(_lib().vs_madd(int(g2), *ptrs, n, _stream(acc[0].device)), name)
-        launches[name] += 1
+        _count(name, n)
     return out, exc
 
 
@@ -711,7 +763,7 @@ def _madd_scan(g2: bool, points_xy, codes, checked: bool):
         rc = _lib().vs_madd_scan(int(g2), px.data_ptr(), py.data_ptr(), codes.data_ptr(), steps, lanes,
                                  *ptrs, _stream(dev))
         _raise_on(rc, name)
-        launches[name] += 1
+        _count(name, lanes)
     return out, exc
 
 
@@ -753,7 +805,7 @@ def _add_shift(g2: bool, coords, shift: int, out=None):
     if rows * bw:
         ptrs = [c.data_ptr() for c in (*coords, *out)]
         _raise_on(_lib().vs_add_shift(int(g2), *ptrs, rows * bw, bw, min(int(shift), bw), _stream(dev)), name)
-        launches[name] += 1
+        _count(name, rows * bw)
     return out
 
 
@@ -771,6 +823,7 @@ def g2_add_shift(coords, shift: int, out=None):
 
 
 def _add(g2: bool, p, q, complete: bool = True):
+    """K3 (K3d where not `complete`); G2's complete add is the team kernel."""
     if not _on_cuda(p[0]):
         return (add_plain if complete else add_distinct_plain)(g2, p, q)
     tail = (2, _L) if g2 else (_L,)
@@ -779,10 +832,16 @@ def _add(g2: bool, p, q, complete: bool = True):
     out = tuple(torch.empty_like(coords[0]) for _ in range(3))
     name = ("g2_add" if g2 else "g1_add") + ("" if complete else "_distinct")
     if n:
-        launch = _lib().vs_add if complete else _lib().vs_add_distinct
+        if name == "g2_add":
+            coords = tuple(map(_aligned16, coords))
         ptrs = [c.data_ptr() for c in (*coords, *out)]
-        _raise_on(launch(int(g2), *ptrs, n, _stream(coords[0].device)), name)
-        launches[name] += 1
+        stream = _stream(coords[0].device)
+        if not complete:
+            rc = _lib().vs_add_distinct(int(g2), *ptrs, n, stream)
+        else:
+            rc = (_lib().vs_g2_add_team if g2 else _lib().vs_g1_add)(*ptrs, n, stream)
+        _raise_on(rc, name)
+        _count(name, n)
     return tuple(o.reshape(shape) for o in out)
 
 
@@ -792,7 +851,8 @@ def g1_add(p, q):
 
 
 def g2_add(p, q):
-    """K3 over Fq2; coords (..., 2, L)."""
+    """K3 over Fq2; coords (..., 2, L): a team of 16 threads a lane
+    (``csrc/add_team.cu``)."""
     return _add(True, p, q)
 
 
@@ -819,7 +879,7 @@ def _addx(g2: bool, p, q):
     if n:
         ptrs = [c.data_ptr() for c in (*coords, *out, exc)]
         _raise_on(_lib().vs_addx(int(g2), *ptrs, n, _stream(coords[0].device)), name)
-        launches[name] += 1
+        _count(name, n)
     lead = shape[: len(shape) - len(tail)]
     return tuple(o.reshape(shape) for o in out), exc.reshape(lead)
 
@@ -848,7 +908,7 @@ def _double(g2: bool, p, times: int):
     if n:
         ptrs = [c.data_ptr() for c in (*coords, *out)]
         _raise_on(_lib().vs_double(int(g2), *ptrs, n, int(times), _stream(coords[0].device)), name)
-        launches[name] += 1
+        _count(name, n)
     return tuple(o.reshape(shape) for o in out)
 
 

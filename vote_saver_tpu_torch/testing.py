@@ -162,3 +162,28 @@ def h_schedule(seed: int, parts: int = 16, n: int = (1 << 15) - 1, w: int = 10):
     limbs = np.random.default_rng(seed).integers(0, 1 << 32, (parts, n, 8), dtype=np.uint32)
     limbs[..., 7] &= 0x3FFFFFFF
     return ms.build_schedule_multi(list(limbs), w)
+
+
+# complete-add lanes of team_add_lanes past special_lanes' 0-5: (0, 0, 0) as
+# p, as q and as both, then infinity with random x and y as p and as q
+TEAM_EXTRA = 5
+
+
+def team_add_lanes(g2: bool, n: int, rnd: random.Random, period: int = 64):
+    """(p, q) Jacobian int points for n lanes of the complete add, the
+    pattern of `period` >= 16 lanes repeated: lanes 0-5 as special_lanes
+    (inf + q, p + inf, inf + inf, p + p with the same limbs, p + p with
+    another Z, p + (-p): h = 0 with r != 0), lanes 6-10 the TEAM_EXTRA
+    infinities, the rest random points with random Z."""
+    p, q, *_ = special_lanes(g2, period, rnd)
+    zero = (0, 0) if g2 else 0
+
+    def rz():
+        return (rnd.randrange(1, Q), rnd.randrange(Q)) if g2 else rnd.randrange(1, Q)
+
+    p[6] = (zero, zero, zero)
+    q[7] = (zero, zero, zero)
+    p[8] = q[8] = (zero, zero, zero)
+    p[9] = (rz(), rz(), zero)
+    q[10] = (rz(), rz(), zero)
+    return [p[i % period] for i in range(n)], [q[i % period] for i in range(n)]
