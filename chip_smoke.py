@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      the MSM kernels (K2's bucket scan ``madd_scan``, K3's suffix round
      ``add_shift``) at the shapes of the vote path's MSMs and at 2^14 lanes
      (``MSM_SHAPES``), each row timed per call with CUDA events and per
-     launch on the device with torch.profiler;
+     launch on the device with torch.profiler.  Every curve kernel and the
+     inversion chain run each check in all three multiplier modes, loop, v1
+     and fold (the v1 / fold instances logged as ``[modes]``), against one
+     run of the plain version, which is the same function in every mode;
   4. a 2^16-point G1 MSM with uniform scalars at w = 10 against the native
      host MSM; then the same buckets, and those of a 2^14-point G2 MSM,
      through the combination phase once with the complete adder (K3) and
@@ -54,10 +57,20 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      ``mont_mul_fr`` by width, the int8 products' device time as library
      calls, and the device's busy share;
   7b. ``[path]``: the G2 complete add at the vote path's widths (16, 32,
-     the profiled batch's widest launch, and 2^14) and K1 in Fr at the
-     batch's large calls with their real tables (the COO products, the R1CS
-     check, H, the matmul NTT's twiddle), against their plain versions,
-     timed per call and per launch on the device;
+     the profiled batch's widest launch, and 2^14), in every multiplier
+     mode, and K1 in Fr at the batch's large calls with their real tables
+     (the COO products, the R1CS check, H, the matmul NTT's twiddle),
+     against their plain versions, timed per call and per launch on the
+     device;
+  7c. ``[modes]``: under ``VSTPU_MUL=v1`` and then ``=fold`` (restored
+     after), as a user selects a mode: depth-6 setup on the card against
+     the host-native blobs; phase 7's first three device-arm batches again,
+     from the same seed and votes, byte-identical to the loop mode's (the
+     second timed by stage, the third under torch.profiler, the first two
+     verified); the depth-2 golden through both arms; phase 4's buckets
+     through the combination phase with both adders.  Each path launches
+     every one of its kernels as the mode's instance and no instance of
+     another mode;
   8. the tally of the first timed batch's 16 ballots (``tally_admin_phase``,
      ``tally_voter_phase``; host code): the counts equal that batch's
      votes, the proof verifies, a forged result is rejected, and no kernel
@@ -90,11 +103,12 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
 
 Every count of kernel launches is set to 0 just before a path runs (setup,
 the combination phase through K5/K6, the probes, the timed device-arm
-batches, the host-witness batch, the tally, each pass of the stream and of
-its sequential comparison, each ``vote_phase_batch`` call, the Merkle
-trees, each CLI phase that votes or sets up, the C-ABI vote) and read
-just after it; the ``kernels`` line reports each kernel's count on its
-path (and K1 Fr's on the Merkle build, ``merkle_launches``), and its
+batches, each path of ``[modes]`` in each mode, the host-witness batch,
+the tally, each pass of the stream and of its sequential comparison, each
+``vote_phase_batch`` call, the Merkle trees, each CLI phase that votes or
+sets up, the C-ABI vote) and read just after it; the ``kernels`` line reports each kernel's count on its
+path (a v1 or fold instance, K1's included: on that mode's path in
+``[modes]``; K1 Fr's on the Merkle build, ``merkle_launches``), and its
 registers and spill bytes from ptxas's report.  A kernel of a path that launched 0 times fails
 the run, and so does a launch of K2's single-row form on the vote path,
 which runs the scan.  Each kernel's ``bound_ms`` is the larger of
@@ -142,6 +156,9 @@ HOST_ARM_KERNELS = tuple(k for k in VOTE_KERNELS if k != "mont_inv_fr")
 B1_KERNELS = tuple(k for k in VOTE_KERNELS if k not in ("mont_mul_fq", "mont_inv_fq"))
 COMBINE_KERNELS = ("g1_addx", "g2_addx")
 K1_MODE_KERNELS = ("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold")
+# [modes]: the multiplier modes past loop (VSTPU_MUL), each with an instance
+# of every curve kernel and of K1's Fermat chain (hopper_field.CURVE_KERNELS)
+CURVE_MODES = ("v1", "fold")
 # the probes whose fold product runs on the int8 tensor cores (csrc/fold_mma.cuh)
 FOLD_KERNELS = ("mul_chain_k7_fold", "mul_chain_k10_fold")
 # H100 SXM published peaks: HBM bytes/s, fp32 FLOP/s, int8 OP/s
@@ -260,6 +277,23 @@ def _curve_mads(kind: str, g2: bool, lanes: int) -> int:
     return lanes * (sq * 2 + mul * 3 if g2 else sq + mul) * MADS["fq"]
 
 
+def mode_work(work: dict, mode: str, field: str = "fq") -> dict:
+    """The work a kernel's bound counts in `mode`, from its loop work (bytes
+    and multiply-adds): loop and v1 run the same 2L^2 + L multiply-adds a
+    multiply; fold runs, for each of the mads / MADS[field] multiplies, K1
+    fold's work (its row in check_kernels): the fp32 digit columns, the
+    fold's int8 products and its word steps."""
+    from vote_saver_tpu_torch.ops import fold_mul
+    from vote_saver_tpu_torch.ops import limbs as lb
+
+    if mode != "fold":
+        return dict(work)
+    p = fold_mul.plan(lb.spec_for(field))
+    muls = work["mads"] // MADS[field]
+    return dict(bytes=work["bytes"], f32_flops=muls * 2 * p["nd"] ** 2, int8_ops=muls * 2 * p["mat"].size,
+                mads=muls * 2 * (p["L"] + 1))
+
+
 def device_ms(fn, reps: int, family: str):
     """Mean device milliseconds per launch of the kernels whose name holds
     `family` over `reps` calls of fn, from torch.profiler's CUDA activity;
@@ -283,12 +317,14 @@ def _ms(v) -> str:
 
 
 def check_chains(rnd, points: dict) -> dict:
-    """The chain kernels at CHAIN_SHAPES against their plain versions:
-    mont_inv on 0, 1, N - 1, R mod N and random lanes; the doublings on the
-    first lanes of check_kernels' special lanes (lane 0 canonical
-    infinity).  Each row: equality, the event-timed ms per call (wrapper
-    and launch included), the profiler's device ms per launch, the plain
-    ms and the work its bound is computed from."""
+    """The chain kernels at CHAIN_SHAPES against their plain versions, in
+    every multiplier mode (one plain run a shape: it is the same function in
+    every mode): mont_inv on 0, 1, N - 1, R mod N and random lanes; the
+    doublings on the first lanes of check_kernels' special lanes (lane 0
+    canonical infinity).  Each row, under the instance's name: equality,
+    the event-timed ms per call (wrapper and launch included), the
+    profiler's device ms per launch, the plain ms and the work its bound is
+    computed from."""
     import torch
 
     from vote_saver_tpu_torch.micro import time_ms
@@ -297,49 +333,54 @@ def check_chains(rnd, points: dict) -> dict:
 
     out = {}
     for kname, shapes in CHAIN_SHAPES.items():
-        rows = []
         for lanes, times in shapes:
             if kname.startswith("mont_inv"):
-                name = kname[-2:]
+                name = field = kname[-2:]
                 spec = lb.spec_for(name)
                 N = spec.modulus
                 xs = [0, 1, N - 1, spec.mont_r % N] + [rnd.randrange(N) for _ in range(lanes - 4)]
                 a = lb.ints_to_tensor(xs, spec, "cuda")
                 ins = (a,)
-                kern = lambda name=name, a=a: (hf.mont_inv(name, a),)  # noqa: E731
+                kern = lambda mode, name=name, a=a: (hf.mont_inv(name, a, mode),)  # noqa: E731
                 plain = lambda name=name, a=a: (hf.mont_inv_plain(name, a),)  # noqa: E731
                 mads = lanes * INV_MULS[name] * MADS[name]
                 family = "k_mont_inv"
             else:
-                g2 = kname.startswith("g2")
+                g2, field = kname.startswith("g2"), "fq"
                 ins = tuple(c[:lanes].contiguous() for c in points[g2])
                 dbl = hf.g2_double if g2 else hf.g1_double
-                kern = lambda dbl=dbl, ins=ins, times=times: dbl(ins, times)  # noqa: E731
+                kern = lambda mode, dbl=dbl, ins=ins, times=times: dbl(ins, times, mode)  # noqa: E731
                 plain = lambda g2=g2, ins=ins, times=times: hf.double_plain(g2, ins, times)  # noqa: E731
                 mads = times * _curve_mads("double", g2, lanes)
                 family = "k_double"
-            got, exp = kern(), plain()
-            torch.cuda.synchronize()
-            if kname.startswith("mont_inv") and list(lb.tensor_to_ints(got[0][:64], spec)) != [
-                    pow(x, N - 2, N) for x in xs[:64]]:
-                fail(f"{kname} at {lanes} lanes disagrees with Python integers")
+            exp = plain()
             reps = 20 if lanes <= 1024 else 5
-            row = dict(lanes=lanes, times=times, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
-                       max_abs_err=_diff(got, exp), ms=time_ms(kern, reps), device_ms=device_ms(kern, reps, family),
-                       plain_ms=time_ms(plain, 1 if lanes > 1024 else 3),
-                       work=dict(bytes=_nbytes(*ins, *got), mads=mads))
-            log(f"[kernels] {kname}: lanes={lanes} times={times} equal={row['equal']} "
-                f"max_abs_err={row['max_abs_err']} kernel {row['ms']:.4f} ms a call, device "
-                f"{_ms(row['device_ms'])} a launch, plain {row['plain_ms']:.3f} ms")
-            if not row["equal"]:
-                fail(f"{kname} at {lanes} lanes x {times} disagrees with its plain version")
-            rows.append(row)
-        out[kname] = rows
+            plain_ms = time_ms(plain, 1 if lanes > 1024 else 3)
+            for mode in hf.MODES:
+                inst = hf.instance(kname, mode)
+                run = lambda kern=kern, mode=mode: kern(mode)  # noqa: E731
+                got = run()
+                torch.cuda.synchronize()
+                if kname.startswith("mont_inv") and list(lb.tensor_to_ints(got[0][:64], spec)) != [
+                        pow(x, N - 2, N) for x in xs[:64]]:
+                    fail(f"{inst} at {lanes} lanes disagrees with Python integers")
+                work = mode_work(dict(bytes=_nbytes(*ins, *got), mads=mads), mode, field)
+                row = dict(lanes=lanes, times=times, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
+                           max_abs_err=_diff(got, exp), ms=time_ms(run, reps), device_ms=device_ms(run, reps, family),
+                           plain_ms=plain_ms, work=work)
+                log(f"[{'kernels' if mode == 'loop' else 'modes'}] {inst}: lanes={lanes} times={times} "
+                    f"equal={row['equal']} max_abs_err={row['max_abs_err']} kernel {row['ms']:.4f} ms a call, "
+                    f"device {_ms(row['device_ms'])} a launch, plain {row['plain_ms']:.3f} ms")
+                if not row["equal"]:
+                    fail(f"{inst} at {lanes} lanes x {times} disagrees with its plain version")
+                out.setdefault(inst, []).append(row)
     return out
 
 
 def check_kernels(rnd) -> dict:
-    """Each kernel against its plain version.  Besides the times, each
+    """Each kernel against its plain version, the curve kernels and the
+    chains in every multiplier mode (the plain version runs once for all
+    three: it is the same function in each).  Besides the times, each
     result carries the work that its bound is computed from: bytes read and
     written once, and the operations these inputs need (lanes with an
     infinite operand or an inactive madd lane take the formula's early exit
@@ -399,16 +440,17 @@ def check_kernels(rnd) -> dict:
         add = hf.g2_add if g2 else hf.g1_add
         dbl = hf.g2_double if g2 else hf.g1_double
         addx = hf.g2_addx if g2 else hf.g1_addx
+        # (kernel in a mode, plain version): the plain version is the same in every mode
         cases = {
-            f"{pre}_madd": (lambda: madd(A, QA, S, ACT), lambda: hf.madd_plain(g2, A, QA, S, ACT)),
-            f"{pre}_add": (lambda: add(P, Qd), lambda: hf.add_plain(g2, P, Qd)),
-            f"{pre}_double": (lambda: dbl(P), lambda: hf.double_plain(g2, P)),
-            f"{pre}_addx": (lambda: addx(P, Qd), lambda: hf.addx_plain(g2, P, Qd)),
+            f"{pre}_madd": (lambda m: madd(A, QA, S, ACT, mode=m), lambda: hf.madd_plain(g2, A, QA, S, ACT)),
+            f"{pre}_add": (lambda m: add(P, Qd, mode=m), lambda: hf.add_plain(g2, P, Qd)),
+            f"{pre}_double": (lambda m: dbl(P, mode=m), lambda: hf.double_plain(g2, P)),
+            f"{pre}_addx": (lambda m: addx(P, Qd, mode=m), lambda: hf.addx_plain(g2, P, Qd)),
         }
         # K3d at the FixedBaseTable width: the special lanes, four times over
         P4, Q4 = (tuple(torch.cat([c] * (FB_LANES // CURVE_LANES)) for c in pts) for pts in (P, Qd))
         addd = hf.g2_add_distinct if g2 else hf.g1_add_distinct
-        cases[f"{pre}_add_distinct"] = (lambda: addd(P4, Q4), lambda: hf.add_distinct_plain(g2, P4, Q4))
+        cases[f"{pre}_add_distinct"] = (lambda m: addd(P4, Q4, mode=m), lambda: hf.add_distinct_plain(g2, P4, Q4))
         live_madd = int((ACT & ~((A[2] == 0).reshape(CURVE_LANES, -1).all(dim=1))
                          & ~((QA[0] == 0) & (QA[1] == 0)).reshape(CURVE_LANES, -1).all(dim=1)).sum())
         work = {
@@ -419,31 +461,39 @@ def check_kernels(rnd) -> dict:
             f"{pre}_add_distinct": dict(mads=_curve_mads("add", g2, _finite(P4[2], Q4[2]))),
         }
         for kname, (kern, plain) in cases.items():
-            got, exp = kern(), plain()
+            exp = plain()
+            if kname.endswith("madd") or kname.endswith("addx"):
+                exp = (*exp[0], exp[1])
+            plain_ms = time_ms(plain, 3)
             flat_in = (*A, *QA, S, ACT) if kname.endswith("madd") else (
                 (*P4, *Q4) if kname.endswith("distinct") else (*P, *Qd) if not kname.endswith("double") else P)
-            if kname.endswith("madd") or kname.endswith("addx"):
-                got, exp = (*got[0], got[1]), (*exp[0], exp[1])
-                flags = got[-1][: len(MADD_EXC)].tolist()
-                if flags != (MADD_EXC if kname.endswith("madd") else ADDX_EXC):
-                    fail(f"{kname} exc flags on the special lanes: {flags}")
-            if kname.endswith("distinct") and (got[2][3].any() or got[2][4].any()):
-                fail(f"{kname}: the h = 0 lanes do not give z3 = 0")
-            if kname.endswith("addx") and (got[2][3].any() or got[2][4].any() or got[2][5].any()):
-                fail(f"{kname}: the p = q and p = -q lanes do not give z3 = 0")
-            torch.cuda.synchronize()
-            work[kname]["bytes"] = _nbytes(*flat_in, *got)
-            results[kname] = dict(
-                equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
-                max_abs_err=_diff(got, exp),
-                ms=time_ms(kern, 20), plain_ms=time_ms(plain, 3),
-                lanes=FB_LANES if kname.endswith("distinct") else CURVE_LANES, work=work[kname],
-            )
+            for mode in hf.MODES:
+                inst = hf.instance(kname, mode)
+                run = lambda kern=kern, mode=mode: kern(mode)  # noqa: E731
+                got = run()
+                if kname.endswith("madd") or kname.endswith("addx"):
+                    got = (*got[0], got[1])
+                    flags = got[-1][: len(MADD_EXC)].tolist()
+                    if flags != (MADD_EXC if kname.endswith("madd") else ADDX_EXC):
+                        fail(f"{inst} exc flags on the special lanes: {flags}")
+                if kname.endswith("distinct") and (got[2][3].any() or got[2][4].any()):
+                    fail(f"{inst}: the h = 0 lanes do not give z3 = 0")
+                if kname.endswith("addx") and (got[2][3].any() or got[2][4].any() or got[2][5].any()):
+                    fail(f"{inst}: the p = q and p = -q lanes do not give z3 = 0")
+                torch.cuda.synchronize()
+                results[inst] = dict(
+                    equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
+                    max_abs_err=_diff(got, exp),
+                    ms=time_ms(run, 20), plain_ms=plain_ms,
+                    lanes=FB_LANES if kname.endswith("distinct") else CURVE_LANES,
+                    work=mode_work(dict(work[kname], bytes=_nbytes(*flat_in, *got)), mode),
+                )
         # K5/K6 at the K3d width, beside K3d in the same call
         ms4 = time_ms(lambda: addx(P4, Q4), 20)
         log(f"[kernels] {pre}_addx at {FB_LANES} lanes: {ms4:.4f} ms (K3d {results[f'{pre}_add_distinct']['ms']:.4f} ms)")
     for kname, r in results.items():
-        log(f"[kernels] {kname}: lanes={r['lanes']} equal={r['equal']} max_abs_err={r['max_abs_err']} "
+        log(f"[{'modes' if hf.mode_of(kname) != 'loop' and kname not in K1_MODE_KERNELS else 'kernels'}] "
+            f"{kname}: lanes={r['lanes']} equal={r['equal']} max_abs_err={r['max_abs_err']} "
             f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.3f} ms")
         if not r["equal"]:
             fail(f"{kname} kernel disagrees with its plain version")
@@ -488,8 +538,9 @@ def _msm_inputs(g2: bool, rnd, dev):
 
 def check_msm_kernels(rnd, dev="cuda") -> dict:
     """The bucket scan and the suffix round at MSM_SHAPES against their
-    plain versions on the same inputs (the scan's special lanes must flag
-    as testing.SCAN_EXC): equality, the event-timed ms a call, the
+    plain versions on the same inputs, in every multiplier mode (one plain
+    run a shape; the scan's special lanes must flag as testing.SCAN_EXC):
+    equality, the event-timed ms a call, the
     profiler's device ms a launch, the plain version's ms (one call: at the
     path's shapes it takes seconds) and the work the bound counts: the
     scan's madds past each lane's first entry (which lifts its point) and
@@ -507,12 +558,11 @@ def check_msm_kernels(rnd, dev="cuda") -> dict:
         scan = hf.g2_madd_scan if g2 else hf.g1_madd_scan
         shift_add = hf.g2_add_shift if g2 else hf.g1_add_shift
         for kname in (f"{pre}_madd_scan", f"{pre}_add_shift"):
-            rows = []
             for shape in MSM_SHAPES[kname]:
                 if kname.endswith("scan"):
                     steps, lanes = shape
                     c = codes[:steps, :lanes].contiguous()
-                    kern = lambda c=c: scan(table, c)  # noqa: E731
+                    kern = lambda mode, c=c: scan(table, c, mode=mode)  # noqa: E731
                     plain = lambda c=c: hf.madd_scan_plain(g2, table, c)  # noqa: E731
                     live = c != 0
                     mads = _curve_mads("madd", g2, int(live.sum()) - int(live.any(dim=0).sum()))
@@ -521,31 +571,37 @@ def check_msm_kernels(rnd, dev="cuda") -> dict:
                 else:
                     nrows, bw, shift = shape
                     gr = tuple(t[:nrows].contiguous() for t in grid)
-                    kern = lambda gr=gr, shift=shift: shift_add(gr, shift)  # noqa: E731
+                    kern = lambda mode, gr=gr, shift=shift: shift_add(gr, shift, mode=mode)  # noqa: E731
                     plain = lambda gr=gr, shift=shift: hf.add_shift_plain(g2, gr, shift)  # noqa: E731
                     fin = (gr[2] != 0).reshape(nrows, bw, -1).any(dim=-1)
                     pairs = fin[:, : bw - shift] & fin[:, shift:] if shift < bw else fin[:, :0]
                     mads = _curve_mads("add", g2, int(pairs.sum()))
                     ins, lanes = gr, nrows * bw
                     family, desc = "k_add_shift", f"{nrows} x {bw} shift {shift}"
-                got = kern()
                 exp, plain_ms = timed(plain)
                 if kname.endswith("scan"):
-                    got, exp = (*got[0], got[1]), (*exp[0], exp[1])
-                if kname.endswith("scan") and got[-1][: len(SCAN_EXC)].tolist() != SCAN_EXC:
-                    fail(f"{kname} exc flags on the special lanes: {got[-1][: len(SCAN_EXC)].tolist()}")
+                    exp = (*exp[0], exp[1])
                 reps = 3 if lanes > (1 << 14) else 10
-                row = dict(shape=list(shape), lanes=lanes, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
-                           max_abs_err=_diff(got, exp), ms=time_ms(kern, reps),
-                           device_ms=device_ms(kern, reps, family), plain_ms=plain_ms,
-                           work=dict(bytes=_nbytes(*ins, *got), mads=mads))
-                log(f"[kernels] {kname}: {desc} equal={row['equal']} max_abs_err={row['max_abs_err']} kernel "
-                    f"{row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} a launch, plain {plain_ms:.1f} ms")
-                if not row["equal"]:
-                    fail(f"{kname} at {desc} disagrees with its plain version")
-                rows.append(row)
-                del got, exp
-            out[kname] = rows
+                for mode in hf.MODES:
+                    inst = hf.instance(kname, mode)
+                    run = lambda kern=kern, mode=mode: kern(mode)  # noqa: E731
+                    got = run()
+                    if kname.endswith("scan"):
+                        got = (*got[0], got[1])
+                        if got[-1][: len(SCAN_EXC)].tolist() != SCAN_EXC:
+                            fail(f"{inst} exc flags on the special lanes: {got[-1][: len(SCAN_EXC)].tolist()}")
+                    work = mode_work(dict(bytes=_nbytes(*ins, *got), mads=mads), mode)
+                    row = dict(shape=list(shape), lanes=lanes, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
+                               max_abs_err=_diff(got, exp), ms=time_ms(run, reps),
+                               device_ms=device_ms(run, reps, family), plain_ms=plain_ms, work=work)
+                    log(f"[{'kernels' if mode == 'loop' else 'modes'}] {inst}: {desc} equal={row['equal']} "
+                        f"max_abs_err={row['max_abs_err']} kernel {row['ms']:.4f} ms a call, device "
+                        f"{_ms(row['device_ms'])} a launch, plain {plain_ms:.1f} ms")
+                    if not row["equal"]:
+                        fail(f"{inst} at {desc} disagrees with its plain version")
+                    out.setdefault(inst, []).append(row)
+                    del got
+                del exp
     return out
 
 
@@ -594,17 +650,19 @@ def check_msm(rnd) -> dict:
              ("g2", MSM_G2_N, ms.g2_affine_to_device(g2_pts, "cuda"), g2_sched,
               nb.msm(g2_pts, g2_scalars, group="g2")))
     out["combine"] = check_combination(cases)
+    out["cases"] = cases  # [modes] runs them again in each mode
     return out
 
 
-def check_combination(cases) -> dict:
+def check_combination(cases, mode: str = "loop") -> dict:
     """One set of buckets per MSM through the combination phase, once with
-    the complete adder and once with the flagged distinct adder K5/K6.
-    With uniform scalars every bucket below a window's top digit is
-    non-empty, so the flag is expected clear; if it fires, the flagged
-    lanes are counted and the complete adder's result is taken, as
-    ``msm_scheduled``'s fallback does.  Launch counts are set to 0 just
-    before the flagged run and read just after it."""
+    the complete adder and once with the flagged distinct adder K5/K6, in
+    the process's multiplier mode, which is `mode` (the kernels that must
+    launch are its instances).  With uniform scalars every bucket below a
+    window's top digit is non-empty, so the flag is expected clear; if it
+    fires, the flagged lanes are counted and the complete adder's result is
+    taken, as ``msm_scheduled``'s fallback does.  Launch counts are set to
+    0 just before each run and read just after it."""
     import torch
 
     from vote_saver_tpu_torch.ops import curve_ops as co
@@ -649,12 +707,17 @@ def check_combination(cases) -> dict:
                 fail(f"{group} combination phase through the {adder} adder does not match native_bridge.msm")
             r[adder] = dict(res=res, ms=sorted(times)[1] * 1e3, flag=bool(flag), flagged_lanes=flagged,
                             launches=launches)
-            log(f"[combine] {group} {n} points w={MSM_W}, {adder} adder: {r[adder]['ms']:.2f} ms, "
+            log(f"[{'combine' if mode == 'loop' else 'modes'}] {group} {n} points w={MSM_W}, {adder} adder"
+                f"{'' if mode == 'loop' else f' in {mode}'}: {r[adder]['ms']:.2f} ms, "
                 f"flag {'set' if flag else 'clear'}; launches {launches}; matches native")
         out[group] = {k: {kk: vv for kk, vv in v.items() if kk != "res"} for k, v in r.items()}
-        missing = [k for k in COMBINE_KERNELS if k.startswith(group) and not r["addx"]["launches"].get(k)]
+        missing = [hf.instance(k, mode) for k in COMBINE_KERNELS
+                   if k.startswith(group) and not r["addx"]["launches"].get(hf.instance(k, mode))]
         if missing:
             fail(f"kernels of the {group} combination phase never launched: {missing}")
+        other = sorted({k for v in r.values() for k in v["launches"] if hf.mode_of(k) != mode})
+        if other:
+            fail(f"the {group} combination phase in {mode} launched other modes' instances: {other}")
     return out
 
 
@@ -717,8 +780,9 @@ def election(depth: int):
     return dict(e, setup_s=setup_s)
 
 
-def check_setup(e: dict) -> dict:
-    """The same keys through Groth16 setup on the card."""
+def check_setup(e: dict, mode: str = "loop") -> dict:
+    """The same keys through Groth16 setup on the card, in the process's
+    multiplier mode, which is `mode`: only its instances may launch."""
     import torch
 
     from vote_saver_tpu_torch.ops import hopper_field as hf
@@ -734,14 +798,18 @@ def check_setup(e: dict) -> dict:
     names = ("pk_crs", "vk_crs", "pk_eid", "sk_eid", "vk_eid")
     differ = [n for n, a, b in zip(names, keys, e["keys"]) if a != b]
     host = "cached" if e["setup_s"] is None else f"{e['setup_s']:.2f} s"
-    log(f"[setup] depth {DEPTH} on the card: {secs:.2f} s (host-native arm: {host}); "
+    tag = "[setup]" if mode == "loop" else f"[modes] {mode}: setup"
+    log(f"{tag} depth {DEPTH} on the card: {secs:.2f} s (host-native arm: {host}); "
         f"launches {({k: v for k, v in launches.items() if v})}")
     if differ:
-        fail(f"setup on the card wrote other blobs than the host-native arm: {differ}")
-    log(f"[setup] the five blobs are byte-identical to the host-native arm's ({sum(map(len, keys))} bytes)")
-    missing = [k for k in SETUP_KERNELS if launches[k] == 0]
+        fail(f"setup on the card in {mode} wrote other blobs than the host-native arm: {differ}")
+    log(f"{tag}: the five blobs are byte-identical to the host-native arm's ({sum(map(len, keys))} bytes)")
+    missing = [hf.instance(k, mode) for k in SETUP_KERNELS if launches[hf.instance(k, mode)] == 0]
     if missing:
         fail(f"kernels of the setup path never launched: {missing}")
+    other = sorted(k for k, v in launches.items() if v and hf.mode_of(k) != mode)
+    if other:
+        fail(f"setup in {mode} launched other modes' instances: {other}")
     return dict(device_s=secs, host_s=e["setup_s"], launches=launches)
 
 
@@ -884,7 +952,7 @@ def check_ntt(gpu: str) -> tuple[dict, set]:
 # ---------------------------------------------------------------------------
 
 
-def check_golden() -> None:
+def check_golden(tag: str = "[golden]") -> None:
     from vote_saver_tpu_torch.protocol import phases
     from vote_saver_tpu_torch.utils.rng import FrRandom
 
@@ -903,30 +971,29 @@ def check_golden() -> None:
         )
         if [[x.hex() for x in b] for b in ballots] != expect:
             fail(f"depth-2 ballots of the {arm} arm differ from tests/golden/torch_slice_d2.json")
-        log(f"[golden] {arm} arm: depth-2 ballots for voters {golden['voters']} byte-identical to the "
+        log(f"{tag} {arm} arm: depth-2 ballots for voters {golden['voters']} byte-identical to the "
             f"JAX golden ({time.perf_counter() - t0:.1f} s)")
 
 
 def kernel_key(name: str) -> str | None:
-    """The port's kernel name (``hopper_field.KERNELS``) of a device kernel
-    as the profiler names it (``(anonymous namespace)::k_double<Fq2,
-    MulLoop>(...)``) or as ``_build.short_name`` shortens ptxas's name, None
-    for a kernel that is not in hopper_field; the G2 complete add's team
-    kernel ``k_add_team<AddTeamG2>`` is ``g2_add``."""
+    """The port's kernel instance name (``hopper_field.KERNELS``) of a
+    device kernel as the profiler names it (``(anonymous
+    namespace)::k_double<Fq2, MulLoop>(...)``) or as ``_build.short_name``
+    shortens ptxas's name, None for a kernel that is not in hopper_field:
+    the loop name, with ``_v1`` / ``_fold`` for an instance in MulV1 /
+    MulFold (``Called<MulV1>`` too); the G2 complete add's team kernel
+    ``k_add_team<AddTeamG2,M>`` is ``g2_add``."""
     m = re.search(r"\bk_(mont_mul_mode|mont_mul|mont_inv|madd_scan|madd|add_distinct|addx|add_shift|add_team|add|double)"
                   r"<([^,>]+)", name)
     if not m:
         return None
     fam, arg = m.groups()
+    mode = "_v1" if "MulV1" in name else "_fold" if "MulFold" in name else ""
     if fam == "add_team":
-        return "g2_add"
-    if fam.startswith("mont_mul"):
-        fam = "mont_mul"
-        mode = "_v1" if "MulV1" in name else "_fold" if "MulFold" in name else ""
-        return f"{fam}_{'fq' if 'FqParams' in arg else 'fr'}{mode}"
+        return "g2_add" + mode
     if fam.startswith("mont_"):
-        return f"{fam}_{'fq' if 'FqParams' in arg else 'fr'}"
-    return f"{'g2' if 'Fq2' in arg else 'g1'}_{fam}"
+        return f"{fam[:8]}_{'fq' if 'FqParams' in arg else 'fr'}{mode}"
+    return f"{'g2' if 'Fq2' in arg else 'g1'}_{fam}{mode}"
 
 
 def instance_name(short: str) -> str | None:
@@ -1192,12 +1259,13 @@ def run_slice(rnd, e: dict, library: set) -> dict:
 def check_path_kernels(vote: dict, dev="cuda") -> dict:
     """K3 in G2 and K1 in Fr at the vote path's own shapes, each against
     its plain version on the same inputs: the G2 complete add (a team of
-    threads a lane) at G2_ADD_WIDTHS and the widest launch of [profile]'s
-    batch (its largest orphan merge) on testing.team_add_lanes' special
-    lanes, and K1 in Fr at the depth-6 B = 16 batch's large calls with
-    their real tables: the three COO products (the coefficient table read
-    in place), the R1CS check, H times the constant zh_coset_inv (from_mont's
-    shape too) and the matmul NTT's twiddle.  Each row: equality, the
+    threads a lane), in every multiplier mode, at G2_ADD_WIDTHS and the
+    widest launch of [profile]'s batch (its largest orphan merge) on
+    testing.team_add_lanes' special lanes, and K1 in Fr at the depth-6 B =
+    16 batch's large calls with their real tables: the three COO products
+    (the coefficient table read in place), the R1CS check, H times the
+    constant zh_coset_inv (from_mont's shape too) and the matmul NTT's
+    twiddle.  Each row: equality, the
     event-timed ms a call, the profiler's device ms a launch, the plain ms
     and the work the bound counts (a broadcast table's lanes once)."""
     import torch
@@ -1212,26 +1280,32 @@ def check_path_kernels(vote: dict, dev="cuda") -> dict:
 
     dev = torch.device(dev)
     rnd = random.Random(SEED + 10)
-    out = {"g2_add": [], "mont_mul_fr": []}
+    out = {"mont_mul_fr": []}
     hist = (vote["profile"] or {}).get("widths", {}).get("g2_add", {})
     widths = sorted(set(G2_ADD_WIDTHS) | ({max(hist)} if hist else set()))
     for lanes in widths:
         p, q = team_add_lanes(True, lanes, rnd)
         P, Qd = (_to_dev(zip(*pts), dev) for pts in (p, q))
-        kern = lambda P=P, Qd=Qd: hf.g2_add(P, Qd)  # noqa: E731
         plain = lambda P=P, Qd=Qd: hf.add_plain(True, P, Qd)  # noqa: E731
-        got, exp = kern(), plain()
-        torch.cuda.synchronize()
+        exp = plain()
+        plain_ms = time_ms(plain, 3)
         reps = 50 if lanes <= 1024 else 20
-        row = dict(shape=[lanes], lanes=lanes, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
-                   max_abs_err=_diff(got, exp), ms=time_ms(kern, reps), device_ms=device_ms(kern, reps, "k_add_team"),
-                   plain_ms=time_ms(plain, 3), work=dict(bytes=_nbytes(*P, *Qd, *got),
-                                                         mads=_curve_mads("add", True, _finite(P[2], Qd[2]))))
-        log(f"[kernels] g2_add: {lanes} lanes equal={row['equal']} max_abs_err={row['max_abs_err']} kernel "
-            f"{row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} a launch, plain {row['plain_ms']:.3f} ms")
-        if not row["equal"]:
-            fail(f"g2_add at {lanes} lanes disagrees with its plain version")
-        out["g2_add"].append(row)
+        for mode in hf.MODES:
+            inst = hf.instance("g2_add", mode)
+            kern = lambda P=P, Qd=Qd, mode=mode: hf.g2_add(P, Qd, mode=mode)  # noqa: E731
+            got = kern()
+            torch.cuda.synchronize()
+            work = mode_work(dict(bytes=_nbytes(*P, *Qd, *got), mads=_curve_mads("add", True, _finite(P[2], Qd[2]))),
+                             mode)
+            row = dict(shape=[lanes], lanes=lanes, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
+                       max_abs_err=_diff(got, exp), ms=time_ms(kern, reps),
+                       device_ms=device_ms(kern, reps, "k_add_team"), plain_ms=plain_ms, work=work)
+            log(f"[{'kernels' if mode == 'loop' else 'modes'}] {inst}: {lanes} lanes equal={row['equal']} "
+                f"max_abs_err={row['max_abs_err']} kernel {row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} "
+                f"a launch, plain {row['plain_ms']:.3f} ms")
+            if not row["equal"]:
+                fail(f"{inst} at {lanes} lanes disagrees with its plain version")
+            out.setdefault(inst, []).append(row)
     ctx = vote["ctx"]
     pk, B, n = ctx.pk, BATCH, ctx.pk.domain
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
@@ -1269,6 +1343,98 @@ def check_path_kernels(vote: dict, dev="cuda") -> dict:
         if not row["equal"]:
             fail(f"mont_mul_fr at {desc} disagrees with its plain version")
         out["mont_mul_fr"].append(row)
+    return out
+
+
+def run_modes(e: dict, vote: dict, cases, library: set) -> dict:
+    """[modes]: the vote path, setup and the combination phase in each of
+    CURVE_MODES, chosen as a user chooses it, by VSTPU_MUL (restored
+    after).  Per mode: depth-6 setup on the card (check_setup: the host-
+    native arm's blobs, only the mode's instances launched); [slice]'s
+    device-arm batches 0-2 again from FrRandom(SEED + 1) with their votes,
+    byte for byte: batch 0 the warm-up, batch 1 timed by stage, batch 2
+    under torch.profiler (the device's busy share), the first two verified
+    (batch 2 equals [slice]'s verified one); the depth-2 golden through both
+    arms; the combination phase on [msm]'s buckets through both adders
+    (check_combination).  Each path's launch counts are set to 0 just
+    before it and read just after: every kernel of the path launched as the
+    mode's instance, and no other mode's instance launched."""
+    import os
+
+    import torch
+
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.protocol import groth16, phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
+
+    _pk_crs, vk_crs, _pk_eid, _sk_eid, vk_eid = e["keys"]
+    ctx, idx, sks = vote["ctx"], list(range(BATCH)), [v[1] for v in e["voters"]]
+    loop = vote["device_batches"][:3]
+    before = os.environ.get("VSTPU_MUL")
+    out = {}
+
+    def only(mode: str, counts: dict, kernels, what: str) -> None:
+        missing = [hf.instance(k, mode) for k in kernels if counts[hf.instance(k, mode)] == 0]
+        other = sorted(k for k, v in counts.items() if v and hf.mode_of(k) != mode)
+        if missing or other:
+            fail(f"{what} in {mode}: never launched {missing}, launched other modes' instances {other}")
+
+    try:
+        for mode in CURVE_MODES:
+            os.environ["VSTPU_MUL"] = mode
+            r = out[mode] = {}
+            t0 = time.perf_counter()
+            r["setup"] = check_setup(e, mode)
+            rng = FrRandom(SEED + 1)
+            ballots, prof = [], {}
+            for k, (votes, _b) in enumerate(loop):
+                hf.reset_launches()
+                timer = groth16.StageTimer("cuda") if k == 1 else None
+                t1 = time.perf_counter()
+                if k == 2:
+                    got, prof = profile_batch(lambda v=votes: phases.vote_with_context(ctx, idx, v, sks, rng), library)
+                else:
+                    got = phases.vote_with_context(ctx, idx, votes, sks, rng, timer=timer)
+                torch.cuda.synchronize()
+                if k == 1:
+                    r.update(batch_s=time.perf_counter() - t1, stages_s=dict(timer.seconds),
+                             stage_launches=dict(timer.launches), launches=dict(hf.launches))
+                    only(mode, hf.launches, VOTE_KERNELS, "the device-arm batch")
+                    stray = {k2: hf.launches[hf.instance(k2, mode)] for k2 in OFF_VOTE_PATH
+                             if hf.launches[hf.instance(k2, mode)]}
+                    if stray:
+                        fail(f"the device-arm batch in {mode} launched K2's single-row form: {stray}")
+                if [[x.hex() for x in b] for b in got] != [[x.hex() for x in b] for b in loop[k][1]]:
+                    fail(f"depth-6 batch {k} in {mode} differs from the loop batch's ballots")
+                ballots.append(got)
+            r["profile"] = {k: prof.get(k) for k in ("wall_s", "busy_s", "plain_s", "port")} if prof else {}
+            n_ok = sum(phases.verify_ballot(b[0], b[1], b[2], vk_eid, vk_crs) for got in ballots[:2] for b in got)
+            if n_ok != 2 * BATCH:
+                fail(f"a depth-6 ballot in {mode} failed verify_ballot ({n_ok}/{2 * BATCH})")
+            log(f"[modes] {mode}: depth-6 B={BATCH} device-arm batches 0-2 byte-identical to the loop mode's; "
+                f"{n_ok}/{2 * BATCH} ballots of batches 0-1 verified (batch 2 equals [slice]'s verified one); "
+                f"timed batch {r['batch_s']:.3f} s; stage seconds "
+                + ", ".join(f"{k} {v:.3f}" for k, v in r["stages_s"].items()))
+            log(f"[modes] {mode}: launches of the timed batch {({k: v for k, v in r['launches'].items() if v})}")
+            if prof:
+                log(f"[modes] {mode}: one batch under torch.profiler: {prof['wall_s']:.3f} s wall, device busy "
+                    f"{prof['busy_s']:.3f} s = {100 * prof['busy_s'] / prof['wall_s']:.1f}%; plain PyTorch "
+                    f"kernels {prof['plain_s']:.3f} s")
+                for k, v in sorted(prof["port"].items(), key=lambda kv: -kv[1]["device_s"]):
+                    log(f"[modes] {mode} profile {k}: {v['launches']} launches, {1e3 * v['device_s']:.3f} ms on "
+                        f"the device")
+            else:
+                log(f"[modes] {mode}: device busy share not measured (the profiler recorded no device kernel)")
+            hf.reset_launches()
+            check_golden(f"[modes] {mode}: golden")
+            only(mode, hf.launches, (), "the depth-2 golden")
+            r["combine"] = check_combination(cases, mode)
+            r["seconds"] = time.perf_counter() - t0
+    finally:
+        if before is None:
+            os.environ.pop("VSTPU_MUL", None)
+        else:
+            os.environ["VSTPU_MUL"] = before
     return out
 
 
@@ -1824,7 +1990,8 @@ def main() -> None:
 
     rnd = random.Random(SEED)
     kern = phase("kernels", check_kernels, rnd)
-    combine = phase("msm", check_msm, rnd)["combine"]
+    msm = phase("msm", check_msm, rnd)
+    combine = msm["combine"]
     probes = phase("probes", run_probes, gpu)
     e = phase("election", election, DEPTH)
     setup_launches = phase("setup", check_setup, e)["launches"]
@@ -1834,6 +2001,7 @@ def main() -> None:
     vote_launches = vote["launches"]
     for kname, rows in phase("path", check_path_kernels, vote).items():
         kern[kname]["shapes"] = rows
+    modes = phase("modes", run_modes, e, vote, msm["cases"], library)
     phase("tally", run_tally, e, vote["device_batches"], gpu)
     phase("stream", run_stream, e, vote["device_batches"], rnd, library, gpu)
     phase("api", run_api, e, rnd, gpu)
@@ -1846,6 +2014,12 @@ def main() -> None:
     paths.update(dict.fromkeys(COMBINE_KERNELS, {k: combine[k[:2]]["addx"]["launches"].get(k, 0)
                                                  for k in COMBINE_KERNELS}))
     paths.update(dict.fromkeys((*K1_MODE_KERNELS, *micro.KERNELS), probes["launches"]))
+    # each mode's instances: their launches on that mode's setup, batch and combination phase
+    for mode, r in modes.items():
+        paths.update({hf.instance(k, mode): r["setup"]["launches"] for k in SETUP_KERNELS})
+        paths.update({hf.instance(k, mode): r["launches"] for k in (*VOTE_KERNELS, *OFF_VOTE_PATH)})
+        paths.update({hf.instance(k, mode): {hf.instance(k, mode): r["combine"][k[:2]]["addx"]["launches"].get(
+            hf.instance(k, mode), 0)} for k in COMBINE_KERNELS})
     entries = []
     for k in (*hf.KERNELS, *micro.KERNELS):
         src = hf if k in hf.KERNELS else micro

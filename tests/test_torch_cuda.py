@@ -19,9 +19,18 @@ parity, and the tensor-core fold of K7 and K10 must equal its plain version
 at ragged lane counts; a proof made on the card must be byte-identical to the same proof
 made by the plain versions on the CPU; setup on the card must write the
 host-native arm's CRS; the int8 matmul NTT must equal the radix-2 path on
-the card for each of its four kinds.
+the card for each of its four kinds.  The curve kernels and the inversion
+chain in the v1 and fold multiplier modes must equal the same plain
+versions, each launch counted under its mode's instance; a fold launch
+must find its unit's matrix in place; and a depth-2 vote under
+``VSTPU_MUL=v1`` or ``=fold`` must launch only that mode's instances and
+give the golden ballots.
 """
 
+import json
+import os
+import pathlib
+import pickle
 import random
 
 import numpy as np
@@ -32,6 +41,7 @@ from vote_saver_tpu_torch import micro
 from vote_saver_tpu_torch import native_bridge as nb
 from vote_saver_tpu_torch.circuit.r1cs import ConstraintSystem, lc
 from vote_saver_tpu_torch.ops import curve_ops as co
+from vote_saver_tpu_torch.ops import fold_mul
 from vote_saver_tpu_torch.ops import hopper_field as hf
 from vote_saver_tpu_torch.ops import limbs as lb
 from vote_saver_tpu_torch.ops import msm_sched as ms
@@ -108,8 +118,8 @@ def test_team_kernel_does_not_spill(dev):
     from vote_saver_tpu_torch.ops import _build
 
     usage = {name: (regs, spill) for name, regs, spill in _build.resource_lines(_build.load().resource_usage)}
-    regs, spill = usage["k_add_team<AddTeamG2>"]
-    assert spill == 0 and regs < 128, usage["k_add_team<AddTeamG2>"]
+    regs, spill = usage["k_add_team<AddTeamG2,MulLoop>"]
+    assert spill == 0 and regs < 128, usage["k_add_team<AddTeamG2,MulLoop>"]
 
 
 # K1 in Fr at the vote path's large shapes (a's and b's leading dims): the
@@ -456,3 +466,139 @@ def test_merkle_tree_on_card_matches_host(dev):
     assert all(np.array_equal(a, b) for a, b in zip(on_card, host, strict=True))
     pairs = on_card[0].reshape(4, 510)
     assert torch.equal(po.pedersen_hash_bits(pairs, 510, dev).cpu(), po.pedersen_hash_bits(pairs, 510, "cpu"))
+
+
+CURVE_MODES = ("v1", "fold")
+
+
+def _put(points, k, dev):
+    return tuple(lb.ints_to_tensor([pt[i] for pt in points], lb.FQ, dev) for i in range(k))
+
+
+def _once(kernel: str, mode: str, fn):
+    """fn() and a check that it launched `kernel`'s `mode` instance once
+    and nothing else."""
+    hf.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in hf.launches.items() if v} == {hf.instance(kernel, mode): 1}, hf.launches
+    return out
+
+
+@pytest.mark.parametrize("mode", CURVE_MODES)
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_curve_mode_instances_match_plain(dev, g2, mode):
+    """Every curve kernel's v1 / fold instance on the special lanes: K2
+    (and in place), K3 (G2: the team, at ragged widths), K3d, K4 with a
+    count, K5/K6, the bucket scan and the suffix round, each one launch of
+    the mode's instance, equal to the plain version."""
+    pre = "g2" if g2 else "g1"
+    p, q, acc, qm, sign, active = special_lanes(g2, 1024, random.Random(20 + g2))
+    P, Qd, A, QA = _put(p, 3, dev), _put(q, 3, dev), _put(acc, 3, dev), _put(qm, 2, dev)
+    S, ACT = torch.tensor(sign, device=dev), torch.tensor(active, device=dev)
+    madd = hf.g2_madd if g2 else hf.g1_madd
+    (mo, me) = _once(f"{pre}_madd", mode, lambda: madd(A, QA, S, ACT, mode=mode))
+    po, pe = hf.madd_plain(g2, A, QA, S, ACT)
+    assert all(torch.equal(x, y) for x, y in zip(mo, po)) and torch.equal(me, pe)
+    assert me[: len(MADD_EXC)].tolist() == MADD_EXC
+    out, exc = _once(f"{pre}_madd", mode, lambda: madd(A, QA, S, ACT, out=tuple(c.clone() for c in A), mode=mode))
+    assert all(torch.equal(x, y) for x, y in zip(out, mo)) and torch.equal(exc, me)
+    add = hf.g2_add if g2 else hf.g1_add
+    assert all(torch.equal(x, y) for x, y in zip(_once(f"{pre}_add", mode, lambda: add(P, Qd, mode=mode)),
+                                                  hf.add_plain(g2, P, Qd)))
+    addd = hf.g2_add_distinct if g2 else hf.g1_add_distinct
+    assert all(torch.equal(x, y) for x, y in zip(
+        _once(f"{pre}_add_distinct", mode, lambda: addd(P, Qd, mode=mode)), hf.add_distinct_plain(g2, P, Qd)))
+    dbl = hf.g2_double if g2 else hf.g1_double
+    assert all(torch.equal(x, y) for x, y in zip(_once(f"{pre}_double", mode, lambda: dbl(P, 3, mode=mode)),
+                                                  hf.double_plain(g2, P, 3)))
+    addx = hf.g2_addx if g2 else hf.g1_addx
+    got, gexc = _once(f"{pre}_addx", mode, lambda: addx(P, Qd, mode=mode))
+    exp, eexc = hf.addx_plain(g2, P, Qd)
+    assert all(torch.equal(x, y) for x, y in zip(got, exp)) and torch.equal(gexc, eexc)
+    assert gexc[: len(ADDX_EXC)].tolist() == ADDX_EXC
+    pts, codes = scan_lanes(g2, 64, 1024, 16, random.Random(22 + g2))
+    pxy = (ms.g2_affine_to_device if g2 else ms.g1_affine_to_device)(pts, dev)
+    c = torch.from_numpy(codes).to(dev)
+    scan = hf.g2_madd_scan if g2 else hf.g1_madd_scan
+    (acc2, exc2) = _once(f"{pre}_madd_scan", mode, lambda: scan(pxy, c, mode=mode))
+    pacc, pexc = hf.madd_scan_plain(g2, pxy, c)
+    assert all(torch.equal(x, y) for x, y in zip(acc2, pacc)) and torch.equal(exc2, pexc)
+    assert exc2[: len(SCAN_EXC)].tolist() == SCAN_EXC
+    rows, bw = 2, 512
+    grid = tuple(t.reshape((rows, bw) + tuple(t.shape[1:])) for t in _put(shift_grid(g2, rows, bw, random.Random(23)),
+                                                                          3, dev))
+    shift_add = hf.g2_add_shift if g2 else hf.g1_add_shift
+    for shift in (1, 2, 4, 256):
+        assert all(torch.equal(x, y) for x, y in zip(_once(f"{pre}_add_shift", mode, lambda: shift_add(
+            grid, shift, mode=mode)), hf.add_shift_plain(g2, grid, shift))), shift
+    if g2:
+        for lanes in (1, 16, 33):
+            tp, tq = (_put(pts, 3, dev) for pts in team_add_lanes(True, lanes, random.Random(lanes)))
+            assert all(torch.equal(x, y) for x, y in zip(_once("g2_add", mode, lambda: hf.g2_add(tp, tq, mode=mode)),
+                                                          hf.add_plain(True, tp, tq))), lanes
+
+
+@pytest.mark.parametrize("mode", CURVE_MODES)
+@pytest.mark.parametrize("name,N", [("fq", Q), ("fr", R)])
+def test_mont_inv_modes_match_plain(dev, name, N, mode):
+    spec = lb.spec_for(name)
+    rnd = random.Random(24)
+    xs = [0, 1, N - 1, spec.mont_r % N] + [rnd.randrange(N) for _ in range(460)]
+    a = lb.ints_to_tensor(xs, spec, dev)
+    got = _once(f"mont_inv_{name}", mode, lambda: hf.mont_inv(name, a, mode))
+    assert torch.equal(got, hf.mont_inv_plain(name, a))
+    assert list(lb.tensor_to_ints(got, spec)) == [pow(x, N - 2, N) for x in xs]
+
+
+def test_fold_launch_uploads_its_units_matrix_first(dev):
+    """The fold unit's __constant__ matrices are written before its first
+    launch on a card: with zeros put there and the record of the upload
+    dropped, the next fold launch uploads them again and is right."""
+    lib = hf._lib()
+    p, q, *_ = special_lanes(False, 256, random.Random(25))
+    P, Qd = _put(p, 3, dev), _put(q, 3, dev)
+    key = lambda field: (lib.vs_curve_fold_upload.__name__, field, P[0].device.index)  # noqa: E731
+    want = hf.add_plain(False, P, Qd)
+    assert all(torch.equal(x, y) for x, y in zip(hf.g1_add(P, Qd, mode="fold"), want))
+    assert {key(0), key(1)} <= hf._fold_uploaded
+    for field, spec in ((0, lb.FQ), (1, lb.FR)):
+        zeros = np.zeros(fold_mul.packed_matrix(spec).size, np.int32)
+        with torch.cuda.device(dev):
+            assert lib.vs_curve_fold_upload(field, zeros.ctypes.data, zeros.size) == 0
+    # the matrix is what the fold reads: zeros in place give other limbs
+    assert not all(torch.equal(x, y) for x, y in zip(hf.g1_add(P, Qd, mode="fold"), want))
+    hf._fold_uploaded.difference_update({key(0), key(1)})
+    assert all(torch.equal(x, y) for x, y in zip(hf.g1_add(P, Qd, mode="fold"), want))
+    rnd = random.Random(26)
+    a = lb.ints_to_tensor([rnd.randrange(R) for _ in range(64)], lb.FR, dev)
+    assert torch.equal(hf.mont_inv("fr", a, "fold"), hf.mont_inv_plain("fr", a))
+    assert {key(0), key(1)} <= hf._fold_uploaded
+
+
+@pytest.mark.parametrize("mode", CURVE_MODES)
+def test_vote_in_mode_launches_its_instances_and_gives_the_golden(dev, mode, monkeypatch):
+    """A depth-2 vote (the device arm) with VSTPU_MUL naming the mode, as a
+    user selects it: every kernel it launches is that mode's instance, the
+    curve kernels and the inversions among them, and the ballots are the
+    golden ones."""
+    from vote_saver_tpu_torch.protocol import phases
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    golden = json.loads((root / "tests" / "golden" / "torch_slice_d2.json").read_text())
+    e = pickle.loads((root / golden["source"]).read_bytes())
+    monkeypatch.setenv("VSTPU_MUL", mode)
+    assert hf.mul_mode() == mode and os.environ["VSTPU_MUL"] == mode
+    ctx = phases.prepare_vote_context(golden["tree_depth"], golden["eid_bits"], e["tree"], e["rt"], e["eid"],
+                                      e["pk_eid"], e["pk_crs"], e["vk_crs"], device="cuda")
+    hf.reset_launches()
+    ballots = phases.vote_with_context(ctx, golden["voters"], golden["votes"],
+                                       [e["voters"][i][1] for i in golden["voters"]], FrRandom(golden["seed"]))
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in hf.launches.items() if v}
+    assert launched and all(hf.mode_of(k) == mode for k in launched), launched
+    curve = [hf.instance(k, mode) for k in ("g1_madd_scan", "g2_madd_scan", "g1_add", "g2_add", "g1_double",
+                                             "g2_double", "mont_inv_fr")]
+    assert all(launched.get(k) for k in curve), launched
+    assert [[x.hex() for x in b] for b in ballots] == [[g[k] for k in ("proof", "pinput", "ct", "sn")]
+                                                       for g in golden["ballots"]]

@@ -230,12 +230,16 @@ ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__71d456d0_10_kernels_c
 ptxas info    : Function properties for _ZN39_GLOBAL__N__71d456d0_10_kernels_cu_kFqN11k_add_shiftI3Fq27MulLoopEEvPKjS4_S4_PjS5_S5_xii
     776 bytes stack frame, 1520 bytes spill stores, 2624 bytes spill loads
 ptxas info    : Used 255 registers, used 0 barriers, 776 bytes cumulative stack size
-ptxas info    : Function properties for _Z8mul_callI8FqParamsE2FpIT_ES3_S3_
+ptxas info    : Function properties for _Z10mul_calledI7MulLoop8FqParamsE2FpIT0_ES4_S4_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__71d456d0_10_kernels_cu_kFqN11k_madd_scanI2FpI8FqParamsE7MulCallEEvPKjS6_PKiixPjS9_S9_Pi' for 'sm_90a'
-ptxas info    : Function properties for _ZN39_GLOBAL__N__71d456d0_10_kernels_cu_kFqN11k_madd_scanI2FpI8FqParamsE7MulCallEEvPKjS6_PKiixPjS9_S9_Pi
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__71d456d0_10_kernels_cu_kFqN11k_madd_scanI2FpI8FqParamsE6CalledI7MulLoopEEEvPKjS9_PKiixPjSC_SC_Pi' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__71d456d0_10_kernels_cu_kFqN11k_madd_scanI2FpI8FqParamsE6CalledI7MulLoopEEEvPKjS9_PKiixPjSC_SC_Pi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 198 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__56a1e2f0_12_curve_fold_cu_kFqN10k_add_teamI9AddTeamG27MulFoldEEvPK5uint4S6_S6_S6_S6_S6_PS4_S7_S7_x' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__56a1e2f0_12_curve_fold_cu_kFqN10k_add_teamI9AddTeamG27MulFoldEEvPK5uint4S6_S6_S6_S6_S6_PS4_S7_S7_x
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 0 barriers
 """
 
 
@@ -249,10 +253,16 @@ def test_ptxas_report_names_each_instance():
     from vote_saver_tpu_torch.ops import _build
 
     lines = _build.resource_lines(_PTXAS)
-    assert lines == [("k_add_shift<Fq2,MulLoop>", 255, 1520), ("k_madd_scan<FqParams,MulCall>", 198, 0)]
-    assert [chip_smoke.instance_name(n) for n, _r, _s in lines] == ["g2_add_shift", "g1_madd_scan"]
-    assert chip_smoke.kernel_key("(anonymous namespace)::k_madd_scan<Fp<FqParams>, MulCall>(...)") \
+    assert lines == [("k_add_shift<Fq2,MulLoop>", 255, 1520), ("k_madd_scan<FqParams,Called<MulLoop>>", 198, 0),
+                     ("k_add_team<AddTeamG2,MulFold>", 168, 0)]
+    assert [chip_smoke.instance_name(n) for n, _r, _s in lines] == ["g2_add_shift", "g1_madd_scan", "g2_add_fold"]
+    assert chip_smoke.kernel_key("(anonymous namespace)::k_madd_scan<Fp<FqParams>, Called<MulLoop> >(...)") \
         == "g1_madd_scan"
+    # the v1 and fold instances of the curve kernels and of the inversion chain
+    assert chip_smoke.kernel_key("(anonymous namespace)::k_add<Fp<FqParams>, Called<MulV1> >(...)") == "g1_add_v1"
+    assert chip_smoke.instance_name("k_mont_inv<FrParams,MulFold>") == "mont_inv_fr_fold"
+    assert chip_smoke.instance_name("k_mont_inv<FqParams,MulLoop>") == "mont_inv_fq"
+    assert chip_smoke.instance_name("k_addx<Fq2,MulV1>") == "g2_addx_v1"
     assert chip_smoke.kernel_key("(anonymous namespace)::k_mont_mul<FqParams, MulV1>(...)") == "mont_mul_fq_v1"
     assert chip_smoke.instance_name("k_mont_mul_mode<FrParams,MulFold>") == "mont_mul_fr_fold"
     assert chip_smoke.instance_name("k_op<6,8>") == "op_u32_mul_wide_x8"
@@ -261,7 +271,7 @@ def test_ptxas_report_names_each_instance():
     assert _build.short_name("_Z15k_mul_chain_mmaI8FqParamsLi4ELi6EEvPKjS2_PjS3_x") == "k_mul_chain_mma<FqParams,4,6>"
     assert chip_smoke.instance_name("k_mul_chain_mma<FqParams,4,6>") == "mul_chain_k7_fold"
     assert chip_smoke.instance_name("k_mul_chain_mma<FqParams,1,16>") == "mul_chain_k10_fold"
-    assert chip_smoke.instance_name("mul_call<FqParams>") is None
+    assert chip_smoke.instance_name("mul_called<MulLoop,FqParams>") is None
 
 
 # the emitter tests swap the JAX modules for 16-bit copies: they run last

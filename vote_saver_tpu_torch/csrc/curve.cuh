@@ -5,7 +5,8 @@
 // kernels are built from: _jac_double (l.348-363), _jac_addx (l.366-403),
 // _jac_add with complete=True and complete=False (l.406-441) and _jac_madd
 // (l.818-866).  Every formula takes the multiplier mode M (mul_modes.cuh) as
-// a template parameter; the kernels instantiate them in MulLoop only.
+// a template parameter; the kernels (curve_kernels.cuh) instantiate them in
+// each of the three modes.
 // One thread owns one lane; the results equal the Pallas formulas' select
 // chains limb for limb:
 //
@@ -38,7 +39,7 @@ struct Jac {
   E x, y, z;
 };
 
-template <class E, class M = MulLoop>
+template <class E, class M>
 __device__ __forceinline__ Jac<E> jac_double(const Jac<E>& p) {
   const E a = fsq<M>(p.x);
   const E b = fsq<M>(p.y);
@@ -63,7 +64,7 @@ __device__ __forceinline__ Jac<E> jac_infinity() {
 }
 
 // Complete Jacobian add.
-template <class E, class M = MulLoop>
+template <class E, class M>
 __device__ Jac<E> jac_add(const Jac<E>& p, const Jac<E>& q) {
   const bool p_inf = is_zero(p.z);
   const bool q_inf = is_zero(q.z);
@@ -103,7 +104,7 @@ __device__ Jac<E> jac_add(const Jac<E>& p, const Jac<E>& q) {
 // promise is broken, h = 0 and the result is the formula's own (x3, y3, 0),
 // NOT canonical infinity: the Pallas kernel computes exactly that, so this
 // one must not branch on h either.
-template <class E, class M = MulLoop>
+template <class E, class M>
 __device__ Jac<E> jac_add_distinct(const Jac<E>& p, const Jac<E>& q) {
   if (is_zero(p.z)) return q;
   if (is_zero(q.z)) return p;
@@ -132,7 +133,7 @@ __device__ Jac<E> jac_add_distinct(const Jac<E>& p, const Jac<E>& q) {
 // r = 0, both finite), which it does not handle.  p = -q (h = 0, r != 0)
 // falls out as z3 = 0; p = q gives the formula's own (x3, y3, 0) and sets
 // `exc`, which the caller ORs into its fallback decision.
-template <class E, class M = MulLoop>
+template <class E, class M>
 __device__ Jac<E> jac_addx(const Jac<E>& p, const Jac<E>& q, uint32_t& exc) {
   exc = 0u;
   if (is_zero(p.z)) return q;
@@ -159,7 +160,7 @@ __device__ Jac<E> jac_addx(const Jac<E>& p, const Jac<E>& q, uint32_t& exc) {
 }
 
 // acc += (-1)^sign * (x2, y2) where active; returns the doubling-corner flag.
-template <class E, class M = MulLoop>
+template <class E, class M>
 __device__ uint32_t jac_madd(Jac<E>& acc, const E& x2, E y2, bool sign, bool active) {
   active = active && !(is_zero(x2) && is_zero(y2));
   if (!active) return 0u;

@@ -27,14 +27,15 @@
 //
 // Inlined or called: `mul` is inlined where it is used, except in the curve
 // kernels.  There each Fq multiply is a call of one out-of-line copy
-// (mul_modes.cuh: MulCall in the G1 kernels K2, its scan, K3, its shift
-// form and K4, all of kernels.cu; fq_mul_call inside the Fq2 multiply of
-// every G2 kernel).  Inlined, a G1 formula is 7-23 copies of a 300
-// multiply-add body: the call form ran 0.45-0.6x the inlined form's time
-// in each of those kernels on the card, at 16 lanes and at 248,832
-// (PERF.md, Findings), with fewer registers (K3 254 -> 234, the
-// scan 244 -> 198) and half the ptxas time.  The distinct adds K3d and K5/K6
-// (add_distinct.cu) and K1 keep the inlined form.
+// (mul_modes.cuh: Called<M> in the G1 kernels K2, its scan, K3, its shift
+// form and K4, and in every G1 kernel of the v1 and fold modes;
+// fq_mul_call inside the Fq2 multiply of every G2 kernel).  Inlined, a G1
+// formula is 7-23 copies of a 300 multiply-add body: the call form ran
+// 0.45-0.6x the inlined form's time in each of those kernels on the card,
+// at 16 lanes and at 248,832 (PERF.md, Findings), with fewer registers (K3
+// 254 -> 234, the scan 244 -> 198) and half the ptxas time.  The loop
+// instances of the distinct adds K3d and K5/K6 (add_distinct.cu), K1 and
+// its inversion chain keep the inlined form.
 #pragma once
 
 #include <cstdint>

@@ -1,33 +1,24 @@
-// The port's kernels K1-K4 and their extern "C" launchers.
+// K1 and the loop-mode instances of the curve kernels, with their extern
+// "C" launchers.
 //
 //   K1 k_mont_mul<P>  <- pallas_field._mul_call / mont_mul_pallas (Fq, Fr)
-//      k_mont_inv<P>  <- the same call, repeated by field_ops.FieldOps.inv's
-//                        lax.scan: the whole Fermat inversion in one launch
-//   K2 k_madd<E>      <- pallas_field._g1_madd_call / _g2_madd_call
-//      k_madd_scan<E> <- the same call, repeated by msm_sched._msm_device's
-//                        lax.scan over schedule rows: the bucket scan in one
-//                        launch
-//   K3 k_add<Fq>      <- pallas_field._g1_add_call (complete); G2's
-//                        _g2_add_call is add_team.cu's team kernel
-//      k_add_shift<E> <- the same call in _suffix_and_total's rounds, with
-//                        the roll and select of its partner inside
-//   K4 k_double<E>    <- pallas_field._g1_dbl_call / _g2_dbl_call, with a
-//                        count: the fori_loop of doublings that msm_sched's
-//                        _horner and curve_ops' scalar_mul_windowed wrap
-//                        around the call, in one launch
+//      k_mont_inv<P, MulLoop> <- the same call, repeated by
+//                        field_ops.FieldOps.inv's lax.scan: the whole Fermat
+//                        inversion in one launch
+//   K2 k_madd, k_madd_scan; K3 k_add (G1), k_add_shift; K4 k_double: the
+//                        templates of curve_kernels.cuh (which says what
+//                        each replaces), G1 as Called<MulLoop>, G2 as MulLoop
 //
-// Each is one thread per lane over (B, L) / (B, 2, L) int32 tensors read as
-// uint32_t* (K1 as uint4*), with every limb in registers.  The Pallas kernels tile the
-// batch into (S, T) vregs and transpose to (L, S, T) around every call; here
-// the tensors keep the framework layout, so nothing is repacked per call.
-// Bound and design notes: field.cuh (arithmetic), mul_modes.cuh (the
-// multiplier modes) and curve.cuh (formulas).  Every curve kernel takes the
-// multiplier mode as a template parameter; here each is instantiated in the
-// default `loop` mode only, its CIOS body inlined or, in the G1 curve kernels
-// (MulCall), called out of line: field.cuh says why.  K1 runs `loop` (its v1
-// and fold instances: mont_mul_modes.cu).
-// Register use and spills per kernel are printed by `nvcc --resource-usage`
-// at build time (ops/_build.py keeps the report beside the library).
+// in the default `loop` multiplier mode (VSTPU_MUL unset or loop): CIOS,
+// K1 and the inversion inlined, the G1 curve kernels calling one
+// out-of-line copy of its body (field.cuh says why).  K3 in G2 is the team
+// kernel of add_team.cu, K3d and K5/K6 are add_distinct.cu's; K1 in the
+// other modes is mont_mul_modes.cu's, the curve kernels in them
+// curve_v1.cu's and curve_fold.cu's.
+//
+// K1 is one thread per lane over (B, L) int32 tensors read as uint4*, with
+// every limb in registers; the tensors keep the framework layout, so
+// nothing is repacked per call.
 //
 // Launchers run on the caller's stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError() (0 on success).
@@ -36,16 +27,9 @@
 
 #include <cstdint>
 
-#include "curve.cuh"
+#include "curve_kernels.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int32_t kIdxMask = (1 << 30) - 1;
-
-__host__ __forceinline__ unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
 
 // Lane i of the product is a[i] * b[i % nb]: nb = n for two operands of
 // one shape, nb < n for a table broadcast over the batch (twiddles, the
@@ -86,213 +70,6 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 0; k < V; ++k) out[i * V + k] = make_uint4(z.v[4 * k], z.v[4 * k + 1], z.v[4 * k + 2], z.v[4 * k + 3]);
 }
 
-// a^(N - 2) = a^-1 for canonical a != 0 (0 maps to 0), by square-and-multiply
-// over the bits of N - 2, MSB first, as FieldOps.inv scans them; the top bit
-// seeds the result with a itself.  Fr: 254 squares + 163 multiplies, Fq:
-// 380 + 228, all on K1's CIOS body (field.cuh mul) with the state in
-// registers; one load and one store per lane.
-//
-// What bounds it on the main path: latency.  The callers invert 16 lanes
-// (the device witness, one per voter) to a few hundred (the ballot tail's
-// affine conversion): one to four warps on 132 SMs, each running 417 (Fr)
-// or 608 (Fq) dependent multiplies.  Before this kernel each multiply was a
-// launch of its own, and the chain cost its launches, not its arithmetic.
-// A fixed 4-bit window would cut the multiplies to about 64 / 97, but its
-// 16-entry table (128 / 192 registers) would spill, so the binary chain was
-// built: it keeps the registers of k_mont_mul.  The next step is to split
-// one lane's multiply across threads (limb products spread over a warp,
-// carries by shuffles), so that a chain of 16 lanes fills more than one
-// warp's issue slots.
-template <class P>
-__global__ void __launch_bounds__(kThreads)
-    k_mont_inv(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Fp<P> x;
-  load(x, a, i);
-  Fp<P> r = x;
-#pragma unroll 1
-  for (int k = P::NM2_BITS - 2; k >= 0; --k) {
-    r = sq(r);
-    if ((P::nm2(k >> 5) >> (k & 31)) & 1u) r = mul(r, x);
-  }
-  store(out, i, r);
-}
-
-// In-place safe: every lane reads all of its inputs before it writes.
-template <class E, class M = MulLoop>
-__global__ void __launch_bounds__(kThreads)
-    k_madd(const uint32_t* ax, const uint32_t* ay, const uint32_t* az,
-           const uint32_t* qx, const uint32_t* qy, const uint8_t* sign,
-           const uint8_t* active, uint32_t* ox, uint32_t* oy, uint32_t* oz,
-           int32_t* exc, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Jac<E> acc;
-  E x2, y2;
-  load(acc.x, ax, i);
-  load(acc.y, ay, i);
-  load(acc.z, az, i);
-  load(x2, qx, i);
-  load(y2, qy, i);
-  const uint32_t e = jac_madd<E, M>(acc, x2, y2, sign[i] != 0, active[i] != 0);
-  store(ox, i, acc.x);
-  store(oy, i, acc.y);
-  store(oz, i, acc.z);
-  exc[i] = (int32_t)e;
-}
-
-template <class E, class M = MulLoop>
-__global__ void __launch_bounds__(kThreads)
-    k_add(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
-          const uint32_t* qx, const uint32_t* qy, const uint32_t* qz,
-          uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Jac<E> p, q;
-  load(p.x, px, i);
-  load(p.y, py, i);
-  load(p.z, pz, i);
-  load(q.x, qx, i);
-  load(q.y, qy, i);
-  load(q.z, qz, i);
-  const Jac<E> r = jac_add<E, M>(p, q);
-  store(ox, i, r.x);
-  store(oy, i, r.y);
-  store(oz, i, r.z);
-}
-
-// The affine point `code` names in the table, or (0, 0) for an idle code.
-// The wrapper (hopper_field._madd_scan) has checked that every code names a
-// point of the table.
-template <class E>
-__device__ __forceinline__ void scan_point(int32_t code, const uint32_t* __restrict__ px,
-                                           const uint32_t* __restrict__ py, E& x, E& y) {
-  if (code == 0) {
-    x = zero_of<E>();
-    y = zero_of<E>();
-    return;
-  }
-  const long long k = max((code & kIdxMask) - 1, 0);
-  load_ro(x, px, k);
-  load_ro(y, py, k);
-}
-
-// K2's bucket scan: the whole (steps, lanes) schedule in one launch.  Each
-// thread owns one bucket lane: it starts from canonical infinity (1, 1, 0),
-// keeps the Jacobian accumulator and the OR of its doubling-corner flags in
-// registers across every row, and writes both once.  Row s: code =
-// codes[s, lane] (0 idle, else (pidx + 1) | sign << 30), the affine point
-// pidx read from the table, jac_madd as k_madd runs it.  Each lane runs the
-// same madds in the same order as one k_madd launch per row, so the limbs
-// and exc are those of the row loop (msm_sched.bucket_phase before the scan).
-//
-// What bounds it: the madd's 11 Fq multiplies (G1; G2 29) per entry, as in
-// k_madd.  What it removes: per row and lane, k_madd read and wrote the
-// 144 B (G1) accumulator and read a 96 B point that an index_select had
-// gathered and written, and each row paid a launch plus five decode ops and
-// two gathers.  Here a row costs a 4 B coalesced code and a read of the
-// point table (at most 2^15 points: 3.1 MB in G1, 6.3 MB in G2), which
-// stays in L2.  Row s + 1's loads are issued before row s's multiplies, so
-// their L2 latency hides behind the arithmetic, at the cost of a second
-// point in registers (G1 198 registers against 194 without; 1-4% faster on
-// the card at the vote path's schedules, PERF.md).
-template <class E, class M>
-__global__ void __launch_bounds__(kThreads)
-    k_madd_scan(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                const int32_t* __restrict__ codes, int steps, long long lanes, uint32_t* ox,
-                uint32_t* oy, uint32_t* oz, int32_t* exc) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  Jac<E> acc = jac_infinity<E>();
-  uint32_t e = 0u;
-  int32_t code = steps > 0 ? __ldg(codes + i) : 0;
-  E x2, y2;
-  scan_point(code, px, py, x2, y2);
-#pragma unroll 1
-  for (int s = 0; s < steps; ++s) {
-    const int32_t next = s + 1 < steps ? __ldg(codes + (long long)(s + 1) * lanes + i) : 0;
-    E nx, ny;
-    scan_point(next, px, py, nx, ny);
-    e |= jac_madd<E, M>(acc, x2, y2, ((code >> 30) & 1) != 0, code != 0);
-    code = next;
-    x2 = nx;
-    y2 = ny;
-  }
-  store(ox, i, acc.x);
-  store(oy, i, acc.y);
-  store(oz, i, acc.z);
-  exc[i] = (int32_t)e;
-}
-
-// K3 in the form the MSM's suffix rounds run it: over the (rows, bw) bucket
-// grid flattened to n = rows * bw lanes,
-//   out[w, b] = add(in[w, b], b + shift < bw ? in[w, b + shift] : infinity)
-// with the complete jac_add; a lane with no partner keeps in[w, b], or
-// becomes canonical infinity (1, 1, 0) if it is infinite, which is what
-// jac_add(p, infinity) gives.  The partner is read here, so a round runs no
-// roll or select before it and allocates nothing (the caller ping-pongs two
-// buffers; out must not alias in).
-//
-// Each round stays one launch (9 a pass, 18 per MSM): a form that ran all
-// rounds in one launch would hold a window's 512 partial sums (72 KB in G1,
-// 147 KB in G2) between rounds behind a block-wide barrier, and at this
-// kernel's 234 registers (G1; G2 255 and 1,520 B of spill stores, ptxas)
-// a block of 512 threads would need 119,808 of the SM's 65,536.
-template <class E, class M>
-__global__ void __launch_bounds__(kThreads)
-    k_add_shift(const uint32_t* px, const uint32_t* py, const uint32_t* pz, uint32_t* ox,
-                uint32_t* oy, uint32_t* oz, long long n, int bw, int shift) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Jac<E> p;
-  load(p.x, px, i);
-  load(p.y, py, i);
-  load(p.z, pz, i);
-  Jac<E> r;
-  if ((long long)(i % bw) + shift < bw) {
-    Jac<E> q;
-    load(q.x, px, i + shift);
-    load(q.y, py, i + shift);
-    load(q.z, pz, i + shift);
-    r = jac_add<E, M>(p, q);
-  } else {
-    r = is_zero(p.z) ? jac_infinity<E>() : p;
-  }
-  store(ox, i, r.x);
-  store(oy, i, r.y);
-  store(oz, i, r.z);
-}
-
-// `times` >= 1 doublings of each lane, in registers between one load and one
-// store.  Canonical infinity (1, 1, 0) doubles to itself through the
-// formula, so `times` doublings here give the limbs of `times` launches.
-//
-// What bounds it on the main path: latency.  Horner's step runs 10
-// doublings on `parts` = 16 lanes per MSM, the ballot tail's windowed
-// multiplies 4 on 32-480 lanes: 1 to 4 blocks on 132 SMs, each doubling 7
-// dependent Fq multiplies (G2: 7 Fq2 products).  One launch per doubling
-// paid a launch and a global round trip for each; `times` pays them once
-// per chain.
-template <class E, class M = MulLoop>
-__global__ void __launch_bounds__(kThreads)
-    k_double(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
-             uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n, int times) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Jac<E> p;
-  load(p.x, px, i);
-  load(p.y, py, i);
-  load(p.z, pz, i);
-#pragma unroll 1
-  for (int t = 0; t < times; ++t) p = jac_double<E, M>(p);
-  store(ox, i, p.x);
-  store(oy, i, p.y);
-  store(oz, i, p.z);
-}
-
-using u32p = const uint32_t*;
-
 }  // namespace
 
 extern "C" {
@@ -315,81 +92,34 @@ int vs_mont_mul(int field, const void* a, const void* b, void* out, long long n,
 int vs_madd(int g2, const void* ax, const void* ay, const void* az, const void* qx,
             const void* qy, const void* sign, const void* active, void* ox, void* oy,
             void* oz, void* exc, long long n, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (g2) {
-    k_madd<Fq2><<<blocks_for(n), kThreads, 0, s>>>(
-        (u32p)ax, (u32p)ay, (u32p)az, (u32p)qx, (u32p)qy, (const uint8_t*)sign,
-        (const uint8_t*)active, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int32_t*)exc, n);
-  } else {
-    k_madd<Fq, MulCall><<<blocks_for(n), kThreads, 0, s>>>(
-        (u32p)ax, (u32p)ay, (u32p)az, (u32p)qx, (u32p)qy, (const uint8_t*)sign,
-        (const uint8_t*)active, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int32_t*)exc, n);
-  }
-  return (int)cudaGetLastError();
+  return launch_madd<Called<MulLoop>, MulLoop>(g2, ax, ay, az, qx, qy, sign, active, ox, oy, oz, exc,
+                                               n, stream);
 }
 
 int vs_g1_add(const void* px, const void* py, const void* pz, const void* qx, const void* qy,
               const void* qz, void* ox, void* oy, void* oz, long long n, void* stream) {
-  k_add<Fq, MulCall><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      (u32p)px, (u32p)py, (u32p)pz, (u32p)qx, (u32p)qy, (u32p)qz, (uint32_t*)ox, (uint32_t*)oy,
-      (uint32_t*)oz, n);
-  return (int)cudaGetLastError();
+  return launch_g1_add<Called<MulLoop>>(px, py, pz, qx, qy, qz, ox, oy, oz, n, stream);
 }
 
 int vs_mont_inv(int field, const void* a, void* out, long long n, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (field == 0) {
-    k_mont_inv<FqParams><<<blocks_for(n), kThreads, 0, s>>>((u32p)a, (uint32_t*)out, n);
-  } else {
-    k_mont_inv<FrParams><<<blocks_for(n), kThreads, 0, s>>>((u32p)a, (uint32_t*)out, n);
-  }
-  return (int)cudaGetLastError();
+  return launch_mont_inv<MulLoop>(field, a, out, n, stream);
 }
 
 int vs_double(int g2, const void* px, const void* py, const void* pz, void* ox, void* oy,
               void* oz, long long n, int times, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (g2) {
-    k_double<Fq2><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz,
-                                                     (uint32_t*)ox, (uint32_t*)oy,
-                                                     (uint32_t*)oz, n, times);
-  } else {
-    k_double<Fq, MulCall><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz,
-                                                               (uint32_t*)ox, (uint32_t*)oy,
-                                                               (uint32_t*)oz, n, times);
-  }
-  return (int)cudaGetLastError();
+  return launch_double<Called<MulLoop>, MulLoop>(g2, px, py, pz, ox, oy, oz, n, times, stream);
 }
 
-// points (npts, L) / (npts, 2, L), every code naming one of them; codes
-// (steps, lanes) int32; out (lanes, ...) x3 and exc (lanes,) int32.
 int vs_madd_scan(int g2, const void* px, const void* py, const void* codes, int steps,
                  long long lanes, void* ox, void* oy, void* oz, void* exc, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (g2) {
-    k_madd_scan<Fq2, MulLoop><<<blocks_for(lanes), kThreads, 0, s>>>(
-        (u32p)px, (u32p)py, (const int32_t*)codes, steps, lanes, (uint32_t*)ox, (uint32_t*)oy,
-        (uint32_t*)oz, (int32_t*)exc);
-  } else {
-    k_madd_scan<Fq, MulCall><<<blocks_for(lanes), kThreads, 0, s>>>(
-        (u32p)px, (u32p)py, (const int32_t*)codes, steps, lanes, (uint32_t*)ox, (uint32_t*)oy,
-        (uint32_t*)oz, (int32_t*)exc);
-  }
-  return (int)cudaGetLastError();
+  return launch_madd_scan<Called<MulLoop>, MulLoop>(g2, px, py, codes, steps, lanes, ox, oy, oz, exc,
+                                                    stream);
 }
 
-// coordinates (rows * bw, ...) in and out, 1 <= shift; out must not alias in.
 int vs_add_shift(int g2, const void* px, const void* py, const void* pz, void* ox, void* oy,
                  void* oz, long long n, int bw, int shift, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (g2) {
-    k_add_shift<Fq2, MulLoop><<<blocks_for(n), kThreads, 0, s>>>(
-        (u32p)px, (u32p)py, (u32p)pz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, bw, shift);
-  } else {
-    k_add_shift<Fq, MulCall><<<blocks_for(n), kThreads, 0, s>>>(
-        (u32p)px, (u32p)py, (u32p)pz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, bw, shift);
-  }
-  return (int)cudaGetLastError();
+  return launch_add_shift<Called<MulLoop>, MulLoop>(g2, px, py, pz, ox, oy, oz, n, bw, shift,
+                                                    stream);
 }
 
 }  // extern "C"

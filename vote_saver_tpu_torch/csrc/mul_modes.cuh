@@ -15,12 +15,14 @@
 //               steps and a conditional subtract.
 //
 // A mode is a type with `template <class P> static Fp<P> mul(a, b)`.  The
-// kernels take it as a template parameter: K1 is instantiated in all three
-// modes (kernels.cu: loop; mont_mul_modes.cu: v1 and fold), the curve
-// kernels K2-K6 in loop only (kernels.cu's G1 curve kernels as MulCall,
-// loop's body called out of line), and the probes of micro.cu in the modes
-// they compare.  All three return the same
-// canonical value, limb for limb.
+// kernels take it as a template parameter, and every kernel of the
+// curve_kernels.cuh / add_team.cuh templates is instantiated in all three
+// modes: loop in kernels.cu, add_distinct.cu and add_team.cu, v1 in
+// curve_v1.cu, fold in curve_fold.cu; K1 in mont_mul_modes.cu (v1, fold)
+// beside kernels.cu, and the probes of micro.cu in the modes they compare.
+// The G1 curve kernels take Called<M>, the mode's body called out of line
+// (field.cuh says why).  All three return the same canonical value, limb
+// for limb.
 //
 // What bounds each: loop and v1, the 2L^2 + L 32x32->64 multiply-adds (Fq:
 // 300, Fr: 136) plus their carry chains.  Fold, per Fq multiply, 2,304 fp32
@@ -47,21 +49,6 @@ struct MulLoop {
   template <class P>
   __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
     return ::mul(a, b);
-  }
-};
-
-// MulLoop's body as a real call (one copy per kernel) instead of inlined at
-// every multiply: the G1 curve kernels' form (kernels.cu; field.cuh says
-// why), as G2's Karatsuba already calls its Fq multiply.  Same limbs.
-template <class P>
-__device__ __noinline__ Fp<P> mul_call(const Fp<P> a, const Fp<P> b) {
-  return ::mul(a, b);
-}
-
-struct MulCall {
-  template <class P>
-  __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
-    return mul_call<P>(a, b);
   }
 };
 
@@ -122,7 +109,9 @@ struct FoldGeom<FrParams> {
 };
 
 // ops/fold_mul.packed_matrix: word [g][d] holds, in byte k, the matrix entry
-// of row 4g + k and output byte d.  Uploaded once per library by fold_upload.
+// of row 4g + k and output byte d.  Every translation unit has its own copy,
+// which fold_upload fills once per library and card (hopper_field's
+// upload_fold_matrix, before the unit's first fold launch).
 __constant__ int32_t kFoldFq[FoldGeom<FqParams>::GROUPS * FoldGeom<FqParams>::NBYTES];
 __constant__ int32_t kFoldFr[FoldGeom<FrParams>::GROUPS * FoldGeom<FrParams>::NBYTES];
 
@@ -251,6 +240,24 @@ struct MulFold {
   template <class P>
   __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
     return mul_fold<P>(a, b);
+  }
+};
+
+// Mode M's body as a real call (one copy per kernel) instead of inlined at
+// every multiply: the G1 curve kernels' form in every mode (field.cuh says
+// why), as G2's Karatsuba already calls its Fq multiply (fq_mul_call
+// below).  Called<MulLoop> is the loop instances' form; in fold the call
+// wraps mul_fold's own.  Same limbs as M.
+template <class M, class P>
+__device__ __noinline__ Fp<P> mul_called(const Fp<P> a, const Fp<P> b) {
+  return M::mul(a, b);
+}
+
+template <class M>
+struct Called {
+  template <class P>
+  __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
+    return mul_called<M, P>(a, b);
   }
 };
 

@@ -25,7 +25,8 @@ import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_build"
-HEADERS = ("field.cuh", "mul_modes.cuh", "curve.cuh", "fold_mma.cuh", "add_team_g2.cuh")
+HEADERS = ("field.cuh", "mul_modes.cuh", "curve.cuh", "curve_kernels.cuh", "curve_unit.cuh", "fold_mma.cuh",
+           "add_team.cuh", "add_team_g2.cuh")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
@@ -60,6 +61,14 @@ UNITS = {
         "vs_micro_fold_mma_upload": [ctypes.c_int, _VP, _LL],
     },
 }
+# the curve kernels and K1's Fermat chain in v1 and fold (curve_v1.cu,
+# curve_fold.cu): every loop launcher of these units but K1's, with the
+# mode's suffix, and the fold unit's own fold-matrix upload
+CURVE_LAUNCHERS = {name: args for unit in ("kernels.cu", "add_team.cu", "add_distinct.cu")
+                   for name, args in UNITS[unit].items() if name != "vs_mont_mul"}
+UNITS["curve_v1.cu"] = {f"{name}_v1": args for name, args in CURVE_LAUNCHERS.items()}
+UNITS["curve_fold.cu"] = {**{f"{name}_fold": args for name, args in CURVE_LAUNCHERS.items()},
+                          "vs_curve_fold_upload": [ctypes.c_int, _VP, _LL]}
 
 
 def nvcc() -> str:
@@ -150,13 +159,15 @@ def compile_seconds(unit: str, defines: tuple[str, ...] = ()) -> tuple[float, st
 
 def short_name(mangled: str) -> str:
     """k_add<Fq2,MulLoop>-style name of a mangled kernel or device function
-    (template arguments: the field, the multiplier mode, integer
-    constants)."""
-    m = re.search(r"(k_[a-z_]+|mul_fold|mul_call|fq_mul_call)(I.*)?$", mangled)
+    (template arguments: the field, the multiplier mode, Called<mode> for
+    its out-of-line form, integer constants)."""
+    m = re.search(r"(k_[a-z_]+|mul_fold|mul_called|fq_mul_call)(I.*)?$", mangled)
     if not m:
         return mangled
-    args = re.findall(r"FqParams|FrParams|AddTeamG2|Fq2|MulLoop|MulV1|MulFold|MulCall|Li\d+E", m.group(2) or "")
-    args = [a[2:-1] if a.startswith("Li") else a for a in args]
+    args = re.findall(r"FqParams|FrParams|AddTeamG2|Fq2|CalledI\d*Mul(?:Loop|V1|Fold)|MulLoop|MulV1|MulFold|Li\d+E",
+                      m.group(2) or "")
+    args = [a[2:-1] if a.startswith("Li") else f"Called<{a[a.index('Mul'):]}>" if a.startswith("Called") else a
+            for a in args]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 

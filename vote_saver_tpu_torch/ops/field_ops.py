@@ -2,7 +2,8 @@
 
 Counterpart of ``vote_saver_tpu/ops/field_ops.py``.  ``mul`` is kernel K1
 (``hopper_field.mont_mul``) on CUDA tensors and its plain version on CPU,
-``inv`` K1's Fermat chain in one launch (``hopper_field.mont_inv``);
+``inv`` K1's Fermat chain in one launch (``hopper_field.mont_inv``), both
+in the multiplier mode ``VSTPU_MUL`` names (``hopper_field.mul_mode``);
 add/sub/neg/reduce_lazy are plain PyTorch on 16-bit half-limbs with
 vectorised carry resolution (a few dozen tensor ops each, no per-limb
 loop).  The JAX package's f32-matmul column-sum multiply is a TPU device

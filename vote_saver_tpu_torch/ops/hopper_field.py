@@ -3,8 +3,9 @@
 Counterpart of ``vote_saver_tpu/ops/pallas_field.py``.  Each public function
 keeps the signature and layout of its Pallas entry point:
 
-  K1 ``mont_mul(name, a, b, mode="loop")``         <- mont_mul_pallas
-     ``mont_inv(name, a)``: a^(N-2), the Fermat chain of K1 in one launch
+  K1 ``mont_mul(name, a, b, mode=None)``           <- mont_mul_pallas
+     ``mont_inv(name, a, mode=None)``: a^(N-2), the Fermat chain of K1 in
+     one launch
   K2 ``g1_madd``/``g2_madd(acc, q_affine, sign, active) -> (acc', exc)``
                                                     <- g1/g2_madd_pallas
      ``g1_madd_scan``/``g2_madd_scan(points_xy, codes) -> (acc, exc)``: the
@@ -19,12 +20,17 @@ keeps the signature and layout of its Pallas entry point:
      ``times`` doublings in one launch
   K5/K6 ``g1_addx``/``g2_addx(p, q) -> (coords, exc)`` <- g1/g2_addx_pallas
 
-K1's multiplier mode is an argument (the JAX package reads ``VSTPU_MUL``):
-``loop`` (CIOS, every kernel's default), ``v1`` (separated operand
-scanning) or ``fold`` (digit columns and a constant-matrix fold,
-``ops/fold_mul.py``); all three give the same canonical limbs.  The curve
-kernels run in ``loop`` (the G1 ones of ``csrc/kernels.cu`` calling one
-out-of-line copy of its body).
+Every wrapper takes the multiplier mode ``mode``: ``loop`` (CIOS),
+``v1`` (separated operand scanning) or ``fold`` (digit columns and a
+constant-matrix fold, ``ops/fold_mul.py``); ``None``, the default, is
+``mul_mode()``, which reads ``VSTPU_MUL`` at each call as the JAX package
+does (unset: ``loop``).  All three give the same canonical limbs.  On a
+CUDA tensor a wrapper launches that mode's instance (loop: ``kernels.cu``,
+``add_team.cu``, ``add_distinct.cu``; v1 / fold: ``curve_v1.cu`` /
+``curve_fold.cu``, K1 ``mont_mul_modes.cu``), counted under its name, the
+loop name with ``_v1`` / ``_fold`` (``instance``), and raises where that
+instance is missing or fails; it never runs another mode's instance.  On
+a CPU tensor it runs the plain version, one function in every mode.
 
 Coordinates are int32 tensors ``(..., L)`` (G1, Fq/Fr) or ``(..., 2, L)``
 (G2) of 32-bit Montgomery limbs.  On a CUDA tensor a wrapper launches its
@@ -43,6 +49,7 @@ from, ``REPLACES`` the pallas_call it replaces.
 
 from __future__ import annotations
 
+import os
 from collections import Counter
 
 import numpy as np
@@ -53,6 +60,13 @@ from . import fold_mul
 from .limbs import FQ, FR, spec_for
 
 MODES = ("loop", "v1", "fold")
+# the curve kernels K2-K6, K3d and K1's Fermat chain, by their loop names:
+# each has an instance in every mode
+CURVE_KERNELS = (
+    "mont_inv_fq", "mont_inv_fr", "g1_madd", "g2_madd", "g1_madd_scan", "g2_madd_scan",
+    "g1_add", "g2_add", "g1_add_shift", "g2_add_shift", "g1_add_distinct", "g2_add_distinct",
+    "g1_double", "g2_double", "g1_addx", "g2_addx",
+)
 KERNELS = (
     "mont_mul_fq", "mont_mul_fr", "g1_madd", "g2_madd",
     "g1_add", "g2_add", "g1_double", "g2_double",
@@ -60,7 +74,36 @@ KERNELS = (
     "mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold",
     "g1_addx", "g2_addx", "mont_inv_fq", "mont_inv_fr",
     "g1_madd_scan", "g2_madd_scan", "g1_add_shift", "g2_add_shift",
+    *(f"{k}_{mode}" for mode in MODES[1:] for k in CURVE_KERNELS),
 )
+
+
+def instance(kernel: str, mode: str) -> str:
+    """The name of `kernel`'s (its loop name's) instance in `mode`."""
+    return kernel if mode == "loop" else f"{kernel}_{mode}"
+
+
+def mode_of(name: str) -> str:
+    """The multiplier mode of the kernel instance `name`."""
+    return next((m for m in MODES[1:] if name.endswith(f"_{m}")), "loop")
+
+
+def mul_mode() -> str:
+    """The process's multiplier mode, read from ``VSTPU_MUL`` at each call
+    as ``pallas_field._mul_mode`` reads it (unset: ``loop``); ValueError on
+    a value that names no mode."""
+    mode = os.environ.get("VSTPU_MUL", "loop")
+    if mode not in MODES:
+        raise ValueError(f"VSTPU_MUL={mode!r} names no multiplier mode (one of {MODES})")
+    return mode
+
+
+def _mode(mode: str | None) -> str:
+    mode = mul_mode() if mode is None else mode
+    if mode not in MODES:
+        raise ValueError(f"unknown multiplier mode {mode!r}")
+    return mode
+
 # file:line of the pallas_call each instance replaces
 REPLACES = {
     "mont_mul_fq": "vote_saver_tpu/ops/pallas_field.py:786",
@@ -89,6 +132,8 @@ REPLACES = {
     "g1_add_shift": "vote_saver_tpu/ops/pallas_field.py:517",
     "g2_add_shift": "vote_saver_tpu/ops/pallas_field.py:570",
 }
+# v1 and fold: the pallas_call of the loop instance, compiled in that mode
+REPLACES.update({instance(k, mode): REPLACES[k] for mode in MODES[1:] for k in CURVE_KERNELS})
 # the csrc/ translation unit each kernel is built from
 SOURCES = dict.fromkeys(KERNELS, "vote_saver_tpu_torch/csrc/kernels.cu")
 SOURCES["g2_add"] = "vote_saver_tpu_torch/csrc/add_team.cu"
@@ -96,6 +141,8 @@ SOURCES.update(dict.fromkeys(("g1_add_distinct", "g2_add_distinct", "g1_addx", "
                              "vote_saver_tpu_torch/csrc/add_distinct.cu"))
 SOURCES.update(dict.fromkeys(("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold"),
                              "vote_saver_tpu_torch/csrc/mont_mul_modes.cu"))
+SOURCES.update({instance(k, mode): f"vote_saver_tpu_torch/csrc/curve_{mode}.cu"
+                for mode in MODES[1:] for k in CURVE_KERNELS})
 launches = dict.fromkeys(KERNELS, 0)
 widths = {k: Counter() for k in KERNELS}
 
@@ -570,6 +617,19 @@ def _lib():
     return _build.load().lib
 
 
+def _launcher(fn: str, mode: str, device):
+    """The extern "C" launcher `fn` (its loop name) of `mode`'s unit, with
+    the fold unit's matrices in its __constant__ memory on `device` before
+    its first launch there.  A missing launcher raises AttributeError."""
+    lib = _lib()
+    if mode == "loop":
+        return getattr(lib, fn)
+    if mode == "fold":
+        for field in (0, 1):
+            upload_fold_matrix(lib.vs_curve_fold_upload, field, device)
+    return getattr(lib, f"{fn}_{mode}")
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
@@ -651,15 +711,14 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def mont_mul(name: str, a: torch.Tensor, b: torch.Tensor, mode: str = "loop") -> torch.Tensor:
+def mont_mul(name: str, a: torch.Tensor, b: torch.Tensor, mode: str | None = None) -> torch.Tensor:
     """K1: Montgomery a*b*R^-1 mod p on (..., L) limbs ('fq' or 'fr'), with
-    the multiplier `mode` ('loop', 'v1' or 'fold').  In ``loop`` an operand
-    broadcast over the other's leading dims is read in place
-    (``mul_operands``); the other modes materialise it."""
-    if mode not in MODES:
-        raise ValueError(f"unknown multiplier mode {mode!r}")
+    the multiplier `mode` ('loop', 'v1' or 'fold'; None: ``mul_mode()``).
+    In ``loop`` an operand broadcast over the other's leading dims is read
+    in place (``mul_operands``); the other modes materialise it."""
+    mode = _mode(mode)
     field = 0 if name == "fq" else 1
-    kname = f"mont_mul_{name}" + ("" if mode == "loop" else f"_{mode}")
+    kname = instance(f"mont_mul_{name}", mode)
     L = spec_for(name).num_limbs
     if mode == "loop":
         x, y, shape, n, nb = mul_operands(a, b)
@@ -691,26 +750,30 @@ def mont_mul(name: str, a: torch.Tensor, b: torch.Tensor, mode: str = "loop") ->
     return out.reshape(shape)
 
 
-def mont_inv(name: str, a: torch.Tensor) -> torch.Tensor:
+def mont_inv(name: str, a: torch.Tensor, mode: str | None = None) -> torch.Tensor:
     """K1's Fermat chain: a^(N-2) on (..., L) Montgomery limbs ('fq' or
-    'fr') in one launch; 0 maps to 0 (callers mask zeros)."""
+    'fr') in one launch, its multiplies in `mode`; 0 maps to 0 (callers
+    mask zeros)."""
+    mode = _mode(mode)
     if not _on_cuda(a):
         return mont_inv_plain(name, a)
     L = spec_for(name).num_limbs
     (a,), shape, n = _flat((a,), 1)
     _check((a,), (L,), n, a.device)
     out = torch.empty_like(a)
-    kname = f"mont_inv_{name}"
+    kname = instance(f"mont_inv_{name}", mode)
     if n:
-        rc = _lib().vs_mont_inv(0 if name == "fq" else 1, a.data_ptr(), out.data_ptr(), n, _stream(a.device))
+        rc = _launcher("vs_mont_inv", mode, a.device)(0 if name == "fq" else 1, a.data_ptr(), out.data_ptr(), n,
+                                                      _stream(a.device))
         _raise_on(rc, kname)
         _count(kname, n)
     return out.reshape(shape)
 
 
-def _madd(g2: bool, acc, q_affine, sign, active, out=None):
+def _madd(g2: bool, acc, q_affine, sign, active, out=None, mode=None):
     """K2.  ``out`` may be ``acc`` itself: each lane reads its inputs before
     it writes, so the bucket scan updates its accumulator in place."""
+    mode = _mode(mode)
     if not _on_cuda(acc[0]):
         return madd_plain(g2, acc, q_affine, sign, active)
     tail = (2, _L) if g2 else (_L,)
@@ -723,26 +786,27 @@ def _madd(g2: bool, acc, q_affine, sign, active, out=None):
     out = tuple(torch.empty_like(c) for c in acc) if out is None else out
     _check(out, tail, n, acc[0].device)
     exc = torch.empty((n,), dtype=torch.int32, device=acc[0].device)
-    name = "g2_madd" if g2 else "g1_madd"
+    name = instance("g2_madd" if g2 else "g1_madd", mode)
     if n:
         ptrs = [c.data_ptr() for c in (*acc, *q_affine, sign, active, *out, exc)]
-        _raise_on(_lib().vs_madd(int(g2), *ptrs, n, _stream(acc[0].device)), name)
+        _raise_on(_launcher("vs_madd", mode, acc[0].device)(int(g2), *ptrs, n, _stream(acc[0].device)), name)
         _count(name, n)
     return out, exc
 
 
-def g1_madd(acc, q_affine, sign, active, out=None):
+def g1_madd(acc, q_affine, sign, active, out=None, mode=None):
     """acc: Jacobian (B, L) x3; q_affine: (x, y) (B, L); sign/active (B,)
     bool -> ((B, L) x3, (B,) int32 doubling-corner flag)."""
-    return _madd(False, acc, q_affine, sign, active, out)
+    return _madd(False, acc, q_affine, sign, active, out, mode)
 
 
-def g2_madd(acc, q_affine, sign, active, out=None):
+def g2_madd(acc, q_affine, sign, active, out=None, mode=None):
     """G2 variant: coords (B, 2, L)."""
-    return _madd(True, acc, q_affine, sign, active, out)
+    return _madd(True, acc, q_affine, sign, active, out, mode)
 
 
-def _madd_scan(g2: bool, points_xy, codes, checked: bool):
+def _madd_scan(g2: bool, points_xy, codes, checked: bool, mode):
+    mode = _mode(mode)
     px, py = points_xy
     if not _on_cuda(px):
         return madd_scan_plain(g2, points_xy, codes)
@@ -757,32 +821,33 @@ def _madd_scan(g2: bool, points_xy, codes, checked: bool):
     steps, lanes = codes.shape
     out = tuple(torch.empty((lanes,) + tail, dtype=torch.int32, device=dev) for _ in range(3))
     exc = torch.empty((lanes,), dtype=torch.int32, device=dev)
-    name = "g2_madd_scan" if g2 else "g1_madd_scan"
+    name = instance("g2_madd_scan" if g2 else "g1_madd_scan", mode)
     if lanes:
         ptrs = [t.data_ptr() for t in (*out, exc)]
-        rc = _lib().vs_madd_scan(int(g2), px.data_ptr(), py.data_ptr(), codes.data_ptr(), steps, lanes,
-                                 *ptrs, _stream(dev))
+        rc = _launcher("vs_madd_scan", mode, dev)(int(g2), px.data_ptr(), py.data_ptr(), codes.data_ptr(), steps,
+                                                  lanes, *ptrs, _stream(dev))
         _raise_on(rc, name)
         _count(name, lanes)
     return out, exc
 
 
-def g1_madd_scan(points_xy, codes, checked: bool = False):
+def g1_madd_scan(points_xy, codes, checked: bool = False, mode=None):
     """K2's bucket scan: points_xy (x, y) (n, L) affine, (0, 0) for
     infinity; codes (steps, lanes) int32 -> (Jacobian (lanes, L) x3, the
     (lanes,) int32 OR of each lane's doubling-corner flags).  A code naming
     no point of the table raises IndexError; ``checked=True`` says the
     caller has run ``check_codes`` on them already, and the kernel's
     wrapper then reads nothing back from the card."""
-    return _madd_scan(False, points_xy, codes, checked)
+    return _madd_scan(False, points_xy, codes, checked, mode)
 
 
-def g2_madd_scan(points_xy, codes, checked: bool = False):
+def g2_madd_scan(points_xy, codes, checked: bool = False, mode=None):
     """G2 variant: points (n, 2, L)."""
-    return _madd_scan(True, points_xy, codes, checked)
+    return _madd_scan(True, points_xy, codes, checked, mode)
 
 
-def _add_shift(g2: bool, coords, shift: int, out=None):
+def _add_shift(g2: bool, coords, shift: int, out=None, mode=None):
+    mode = _mode(mode)
     if int(shift) != shift or shift < 1:
         raise ValueError(f"shift must be an integer >= 1, got {shift!r}")
     if not _on_cuda(coords[0]):
@@ -801,73 +866,77 @@ def _add_shift(g2: bool, coords, shift: int, out=None):
     _check(out, (bw,) + tail, rows, dev)
     if any(o.data_ptr() == c.data_ptr() for o in out for c in coords):
         raise ValueError("add_shift's output must not alias its input")
-    name = "g2_add_shift" if g2 else "g1_add_shift"
+    name = instance("g2_add_shift" if g2 else "g1_add_shift", mode)
     if rows * bw:
         ptrs = [c.data_ptr() for c in (*coords, *out)]
-        _raise_on(_lib().vs_add_shift(int(g2), *ptrs, rows * bw, bw, min(int(shift), bw), _stream(dev)), name)
+        _raise_on(_launcher("vs_add_shift", mode, dev)(int(g2), *ptrs, rows * bw, bw, min(int(shift), bw),
+                                                       _stream(dev)), name)
         _count(name, rows * bw)
     return out
 
 
-def g1_add_shift(coords, shift: int, out=None):
+def g1_add_shift(coords, shift: int, out=None, mode=None):
     """K3 as one suffix round over the (rows, bw, L) bucket grid:
     out[w, b] = add(in[w, b], in[w, b + shift] if b + shift < bw else
     infinity), complete; `out` (the same shape, not aliasing coords) is
     written and returned when given."""
-    return _add_shift(False, coords, shift, out)
+    return _add_shift(False, coords, shift, out, mode)
 
 
-def g2_add_shift(coords, shift: int, out=None):
+def g2_add_shift(coords, shift: int, out=None, mode=None):
     """G2 variant: coords (rows, bw, 2, L)."""
-    return _add_shift(True, coords, shift, out)
+    return _add_shift(True, coords, shift, out, mode)
 
 
-def _add(g2: bool, p, q, complete: bool = True):
+def _add(g2: bool, p, q, complete: bool = True, mode=None):
     """K3 (K3d where not `complete`); G2's complete add is the team kernel."""
+    mode = _mode(mode)
     if not _on_cuda(p[0]):
         return (add_plain if complete else add_distinct_plain)(g2, p, q)
     tail = (2, _L) if g2 else (_L,)
     coords, shape, n = _flat((*p, *q), len(tail))
     _check(coords, tail, n, coords[0].device)
     out = tuple(torch.empty_like(coords[0]) for _ in range(3))
-    name = ("g2_add" if g2 else "g1_add") + ("" if complete else "_distinct")
+    name = instance(("g2_add" if g2 else "g1_add") + ("" if complete else "_distinct"), mode)
     if n:
-        if name == "g2_add":
+        if g2 and complete:
             coords = tuple(map(_aligned16, coords))
         ptrs = [c.data_ptr() for c in (*coords, *out)]
-        stream = _stream(coords[0].device)
+        dev = coords[0].device
+        stream = _stream(dev)
         if not complete:
-            rc = _lib().vs_add_distinct(int(g2), *ptrs, n, stream)
+            rc = _launcher("vs_add_distinct", mode, dev)(int(g2), *ptrs, n, stream)
         else:
-            rc = (_lib().vs_g2_add_team if g2 else _lib().vs_g1_add)(*ptrs, n, stream)
+            rc = _launcher("vs_g2_add_team" if g2 else "vs_g1_add", mode, dev)(*ptrs, n, stream)
         _raise_on(rc, name)
         _count(name, n)
     return tuple(o.reshape(shape) for o in out)
 
 
-def g1_add(p, q):
+def g1_add(p, q, mode=None):
     """K3: complete Jacobian add; coords (..., L), broadcast-compatible."""
-    return _add(False, p, q)
+    return _add(False, p, q, mode=mode)
 
 
-def g2_add(p, q):
+def g2_add(p, q, mode=None):
     """K3 over Fq2; coords (..., 2, L): a team of 16 threads a lane
-    (``csrc/add_team.cu``)."""
-    return _add(True, p, q)
+    (``csrc/add_team.cuh``)."""
+    return _add(True, p, q, mode=mode)
 
 
-def g1_add_distinct(p, q):
+def g1_add_distinct(p, q, mode=None):
     """K3d: distinct-operand Jacobian add (p != +-q where both are finite);
     coords (..., L), broadcast-compatible."""
-    return _add(False, p, q, complete=False)
+    return _add(False, p, q, complete=False, mode=mode)
 
 
-def g2_add_distinct(p, q):
+def g2_add_distinct(p, q, mode=None):
     """K3d over Fq2; coords (..., 2, L)."""
-    return _add(True, p, q, complete=False)
+    return _add(True, p, q, complete=False, mode=mode)
 
 
-def _addx(g2: bool, p, q):
+def _addx(g2: bool, p, q, mode=None):
+    mode = _mode(mode)
     if not _on_cuda(p[0]):
         return addx_plain(g2, p, q)
     tail = (2, _L) if g2 else (_L,)
@@ -875,27 +944,29 @@ def _addx(g2: bool, p, q):
     _check(coords, tail, n, coords[0].device)
     out = tuple(torch.empty_like(coords[0]) for _ in range(3))
     exc = torch.empty((n,), dtype=torch.int32, device=coords[0].device)
-    name = "g2_addx" if g2 else "g1_addx"
+    name = instance("g2_addx" if g2 else "g1_addx", mode)
     if n:
         ptrs = [c.data_ptr() for c in (*coords, *out, exc)]
-        _raise_on(_lib().vs_addx(int(g2), *ptrs, n, _stream(coords[0].device)), name)
+        dev = coords[0].device
+        _raise_on(_launcher("vs_addx", mode, dev)(int(g2), *ptrs, n, _stream(dev)), name)
         _count(name, n)
     lead = shape[: len(shape) - len(tail)]
     return tuple(o.reshape(shape) for o in out), exc.reshape(lead)
 
 
-def g1_addx(p, q):
+def g1_addx(p, q, mode=None):
     """K5: distinct add with the doubling-corner flag; coords (..., L),
     broadcast-compatible -> (coords, (...) int32 exc)."""
-    return _addx(False, p, q)
+    return _addx(False, p, q, mode)
 
 
-def g2_addx(p, q):
+def g2_addx(p, q, mode=None):
     """K6: K5 over Fq2; coords (..., 2, L)."""
-    return _addx(True, p, q)
+    return _addx(True, p, q, mode)
 
 
-def _double(g2: bool, p, times: int):
+def _double(g2: bool, p, times: int, mode=None):
+    mode = _mode(mode)
     if int(times) != times or times < 1:
         raise ValueError(f"times must be an integer >= 1, got {times!r}")
     if not _on_cuda(p[0]):
@@ -904,19 +975,20 @@ def _double(g2: bool, p, times: int):
     coords, shape, n = _flat(p, len(tail))
     _check(coords, tail, n, coords[0].device)
     out = tuple(torch.empty_like(coords[0]) for _ in range(3))
-    name = "g2_double" if g2 else "g1_double"
+    name = instance("g2_double" if g2 else "g1_double", mode)
     if n:
         ptrs = [c.data_ptr() for c in (*coords, *out)]
-        _raise_on(_lib().vs_double(int(g2), *ptrs, n, int(times), _stream(coords[0].device)), name)
+        dev = coords[0].device
+        _raise_on(_launcher("vs_double", mode, dev)(int(g2), *ptrs, n, int(times), _stream(dev)), name)
         _count(name, n)
     return tuple(o.reshape(shape) for o in out)
 
 
-def g1_double(p, times: int = 1):
+def g1_double(p, times: int = 1, mode=None):
     """K4: `times` Jacobian doublings (a = 0) in one launch; coords (..., L)."""
-    return _double(False, p, times)
+    return _double(False, p, times, mode)
 
 
-def g2_double(p, times: int = 1):
+def g2_double(p, times: int = 1, mode=None):
     """K4 over Fq2; coords (..., 2, L)."""
-    return _double(True, p, times)
+    return _double(True, p, times, mode)
