@@ -18,9 +18,21 @@ code:
     zh_coset_inv, the matmul NTT's twiddle), the operands passed as the
     vote path passes them: the device time of every kernel one call
     launches (a materialised broadcast's copy included) and of K1 alone;
+  * the fold mode's G1 bucket scan and G1 doubling, each called with an
+    explicit ``mode="fold"``: the scan at ``MSM_SHAPES``' path shape (the h
+    schedule's 80 rows x 248,832 lanes), the doubling at ``FOLD_DOUBLE``
+    (Horner's 16 lanes x 10, the ballot tail's 4 on 32 and 480 lanes):
+    device ms a launch from torch.profiler, ms a call from CUDA events, the
+    share of the fold bound (``chip_smoke.mode_work`` and ``bound``, the
+    multiply-adds at the Programming Guide's rate), each output equal to
+    the loop instance's;
   * chip_smoke.py's ``[slice]`` (``run_slice``: the depth-6 B = 16 vote
     phase, its stage seconds, the host-witness and radix-2 batches and the
-    profiled batch's device time per kernel).
+    profiled batch's device time per kernel), its device-arm batches 0-2
+    three times more (``loop_batches``), then ``[modes]``' fold batch
+    (``fold_batch``: the batch under ``VSTPU_MUL=fold``, byte-identical to
+    the loop batch, timed by stage, and one profiled: busy share, device ms
+    per kernel).
 
 Each run prints one JSON line (``[ab] {...}``) and writes it under
 ``--out`` (``.chip_scratch/ab/``); the last line sets the runs side by
@@ -38,6 +50,8 @@ import sys
 import time
 
 WIDTHS = (16, 32, 1 << 14)
+# the fold doubling's (lanes, doublings) on the vote path: Horner's step, the ballot tail's
+FOLD_DOUBLE = ((16, 10), (32, 4), (480, 4))
 
 
 def _per_call(fn, reps: int):
@@ -57,7 +71,7 @@ def _per_call(fn, reps: int):
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -71,6 +85,132 @@ def _per_call(fn, reps: int):
 
 def _ms(v) -> str:
     return "not measured" if v is None else f"{v:.5f} ms"
+
+
+def fold_kernels(cs, dev, reps: int = 5) -> dict:
+    """g1_madd_scan and g1_double with mode="fold" at the vote path's shapes
+    (module docstring), each against the loop instance's output: {shape:
+    device ms a launch (chip_smoke.device_ms: the mean over the launches the
+    profiler recorded), ms a call (CUDA events), bound ms, share of the
+    bound}."""
+    import random
+
+    import torch
+
+    from vote_saver_tpu_torch import micro
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.testing import special_lanes
+
+    rnd = random.Random(cs.SEED + 12)
+    # the multiply-adds at the Programming Guide's rate (K9 raises it only where it measures more)
+    rates = micro.card_int_rates({k: {"giter_s": 0.0} for k in micro.MUL_WIDE_KINDS})
+    table, codes, _grid = cs._msm_inputs(False, rnd, dev)
+    p, *_ = special_lanes(False, max(n for n, _t in FOLD_DOUBLE), rnd)
+    pts = cs._to_dev(zip(*p), dev)
+    live = codes != 0
+    cases = [("g1_madd_scan", f"{codes.shape[0]}x{codes.shape[1]}", "k_madd_scan",
+              lambda m: hf.g1_madd_scan(table, codes, checked=True, mode=m), (*table, codes),
+              cs._curve_mads("madd", False, int(live.sum()) - int(live.any(dim=0).sum())))]
+    for lanes, times in FOLD_DOUBLE:
+        P = tuple(c[:lanes].contiguous() for c in pts)
+        cases.append(("g1_double", f"{lanes}x{times}", "k_double", lambda m, P=P, t=times: hf.g1_double(P, t, mode=m),
+                      P, times * cs._curve_mads("double", False, lanes)))
+    out = {}
+    for kname, shape, family, run, ins, mads in cases:
+        got, want = run("fold"), run("loop")
+        flat = lambda r: (*r[0], r[1]) if kname.endswith("scan") else r  # noqa: E731
+        if not all(torch.equal(x, y) for x, y in zip(flat(got), flat(want))):
+            raise SystemExit(f"{kname}_fold at {shape} differs from the loop instance")
+        n = reps if family == "k_madd_scan" else 20
+        ms = micro.time_ms(lambda run=run: run("fold"), n)
+        dev_ms = cs.device_ms(lambda run=run: run("fold"), n, family)
+        work = cs.mode_work(dict(bytes=cs._nbytes(*ins, *flat(got)), mads=mads), "fold")
+        bound_ms, bound_by = cs.bound(work, rates)
+        share = None if dev_ms is None else bound_ms / dev_ms
+        out[f"{kname}_fold {shape}"] = dict(device_ms=dev_ms, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                                            share=share)
+        print(f"[ab] {kname}_fold {shape}: device {_ms(dev_ms)} a launch, {ms:.4f} ms a call, bound "
+              f"{bound_ms:.5f} ms ({bound_by}), " + ("share not measured" if share is None else
+                                                     f"{100 * share:.2f}% of it"), flush=True)
+    return out
+
+
+def loop_batches(cs, e: dict, vote: dict, cycles: int = 3) -> list:
+    """More samples of the loop batch than [slice]'s mean of two: under
+    VSTPU_MUL=loop (restored after), [slice]'s device-arm batches 0-2 again
+    from FrRandom(SEED + 1) with their votes, `cycles` times over, each
+    byte-identical to [slice]'s; the wall seconds of each batch."""
+    import os
+
+    import torch
+
+    from vote_saver_tpu_torch.protocol import phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
+
+    ctx, idx, sks = vote["ctx"], list(range(cs.BATCH)), [v[1] for v in e["voters"]]
+    before = os.environ.get("VSTPU_MUL")
+    os.environ["VSTPU_MUL"] = "loop"
+    secs = []
+    try:
+        for _ in range(cycles):
+            rng = FrRandom(cs.SEED + 1)
+            for k, (votes, ballots) in enumerate(vote["device_batches"][:3]):
+                t0 = time.perf_counter()
+                got = phases.vote_with_context(ctx, idx, votes, sks, rng)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                if [[x.hex() for x in b] for b in got] != [[x.hex() for x in b] for b in ballots]:
+                    raise SystemExit(f"loop batch {k} differs from [slice]'s ballots")
+    finally:
+        if before is None:
+            os.environ.pop("VSTPU_MUL", None)
+        else:
+            os.environ["VSTPU_MUL"] = before
+    print(f"[ab] loop batches: {', '.join(f'{v:.3f}' for v in secs)} s; byte-identical to [slice]'s", flush=True)
+    return secs
+
+
+def fold_batch(cs, e: dict, vote: dict) -> dict:
+    """[modes]' fold batch with the tree's own code: under VSTPU_MUL=fold
+    (restored after), [slice]'s device-arm batches 0-2 again from
+    FrRandom(SEED + 1) with their votes, each byte-identical to [slice]'s:
+    batch 1 timed by stage, batch 2 under torch.profiler (the device's busy
+    share, device ms per kernel)."""
+    import os
+
+    import torch
+
+    from vote_saver_tpu_torch.protocol import groth16, phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
+
+    ctx, idx, sks = vote["ctx"], list(range(cs.BATCH)), [v[1] for v in e["voters"]]
+    before = os.environ.get("VSTPU_MUL")
+    os.environ["VSTPU_MUL"] = "fold"
+    out: dict = {}
+    try:
+        rng = FrRandom(cs.SEED + 1)
+        for k, (votes, loop_ballots) in enumerate(vote["device_batches"][:3]):
+            if k == 2:
+                got, prof = cs.profile_batch(lambda v=votes: phases.vote_with_context(ctx, idx, v, sks, rng), set())
+                out["profile"] = {key: prof.get(key) for key in ("wall_s", "busy_s", "plain_s", "port")}
+            else:
+                timer = groth16.StageTimer("cuda") if k == 1 else None
+                t0 = time.perf_counter()
+                got = phases.vote_with_context(ctx, idx, votes, sks, rng, timer=timer)
+                torch.cuda.synchronize()
+                if k == 1:
+                    out.update(batch_s=time.perf_counter() - t0, stages_s=dict(timer.seconds))
+            if [[x.hex() for x in b] for b in got] != [[x.hex() for x in b] for b in loop_ballots]:
+                raise SystemExit(f"fold batch {k} differs from the loop batch's ballots")
+    finally:
+        if before is None:
+            os.environ.pop("VSTPU_MUL", None)
+        else:
+            os.environ["VSTPU_MUL"] = before
+    prof = out.get("profile") or {}
+    busy = "not measured" if not prof.get("busy_s") else f"busy {prof['busy_s']:.3f} s of {prof['wall_s']:.3f} s"
+    print(f"[ab] fold batch: {out['batch_s']:.3f} s, {busy}; byte-identical to the loop batches", flush=True)
+    return out
 
 
 def one(tree: pathlib.Path, widths) -> dict:
@@ -100,6 +240,8 @@ def one(tree: pathlib.Path, widths) -> dict:
         dev_ms, by, ms = _per_call(lambda P=P, Qd=Qd: hf.g2_add(P, Qd), 50 if lanes <= 1024 else 20)
         res["g2_add"][lanes] = dict(device_ms=dev_ms, kernels=by, ms=ms)
         print(f"[ab] g2_add {lanes} lanes: device {_ms(dev_ms)} a launch {by}, {ms:.4f} ms a call", flush=True)
+
+    res["fold_kernels"] = fold_kernels(cs, dev)
 
     e = cs.election(cs.DEPTH)
     pk_crs, vk_crs, pk_eid, _sk_eid, _vk_eid = e["keys"]
@@ -132,6 +274,8 @@ def one(tree: pathlib.Path, widths) -> dict:
     res["slice"] = {k: vote[k] for k in keep}
     prof = vote.get("profile") or {}
     res["slice"]["profile"] = {k: prof.get(k) for k in ("wall_s", "busy_s", "plain_s", "port", "top_plain")}
+    res["loop_batches_s"] = loop_batches(cs, e, vote)
+    res["fold_batch"] = fold_batch(cs, e, vote)
     return res
 
 
@@ -164,8 +308,14 @@ def main() -> None:
         print(f"[ab] run {i} ({tree}): {time.perf_counter() - t0:.1f} s", flush=True)
     side = {}
     for r in runs:
-        t = side.setdefault(r["tree"], dict(batch_s=[], g2_add={}, mont_mul_fr={}))
+        t = side.setdefault(r["tree"], dict(batch_s=[], loop_batches_s=[], fold_batch_s=[], fold_busy_s=[], g2_add={},
+                                            mont_mul_fr={}, fold_kernels={}))
         t["batch_s"].append(r["slice"]["batch_s"])
+        t["loop_batches_s"] += r["loop_batches_s"]
+        t["fold_batch_s"].append(r["fold_batch"]["batch_s"])
+        t["fold_busy_s"].append((r["fold_batch"].get("profile") or {}).get("busy_s"))
+        for k, v in r["fold_kernels"].items():
+            t["fold_kernels"].setdefault(k, []).append((v["device_ms"], v["ms"]))
         for k, v in r["g2_add"].items():
             t["g2_add"].setdefault(k, []).append(v["device_ms"])
         for k, v in r["mont_mul_fr"].items():

@@ -32,8 +32,12 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      version on every lane; each chain probe's registers, local bytes,
      dynamic shared memory and resident warps a SM as the CUDA runtime
      reports them.  K7 and K10 fold run their fold product on the int8
-     tensor cores: right after the build, ``cuobjdump -sass`` of the probe
-     library must show IMMA and no IDP (dp4a) in both (``[sass]``);
+     tensor cores, and so do the fold instances of the G1 bucket scan and
+     the G1 doubling (``g1_madd_scan_fold``, ``g1_double_fold``; their
+     registers, local bytes, shared memory and warps a SM logged from the
+     CUDA runtime in ``[kernels]`` and ``[modes]``): right after the build,
+     ``cuobjdump -sass`` of the probe library and of the curve library must
+     show IMMA and no IDP (dp4a) in all four (``[sass]``);
   5. admin key generation for the depth-6 election on the card (Groth16
      setup through FixedBaseTable and K3d): its five blobs byte-identical to
      the host-native arm's, both arms timed;
@@ -159,8 +163,12 @@ K1_MODE_KERNELS = ("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont
 # [modes]: the multiplier modes past loop (VSTPU_MUL), each with an instance
 # of every curve kernel and of K1's Fermat chain (hopper_field.CURVE_KERNELS)
 CURVE_MODES = ("v1", "fold")
-# the probes whose fold product runs on the int8 tensor cores (csrc/fold_mma.cuh)
-FOLD_KERNELS = ("mul_chain_k7_fold", "mul_chain_k10_fold")
+# the kernels whose fold product runs on the int8 tensor cores (csrc/fold_mma.cuh):
+# the probes K7 and K10 fold, and the fold unit's G1 bucket scan and G1
+# doubling (hopper_field.MMA_KERNELS)
+FOLD_KERNELS = ("mul_chain_k7_fold", "mul_chain_k10_fold", "g1_madd_scan_fold", "g1_double_fold")
+# the built libraries [sass] reads for them
+FOLD_LIBS = ("libvstorch_micro_", "libvstorch_curve_fold_")
 # H100 SXM published peaks: HBM bytes/s, fp32 FLOP/s, int8 OP/s
 HBM_BPS, F32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 # 32x32->64 multiply-adds of one Fq / Fr Montgomery multiply: 2L^2 + L
@@ -503,7 +511,22 @@ def check_kernels(rnd) -> dict:
     for kname, rows in check_msm_kernels(rnd).items():
         results[kname] = dict({k: rows[0][k] for k in ("equal", "max_abs_err", "ms", "plain_ms", "lanes", "work")},
                               shapes=rows)
+    for kname in hf.MMA_KERNELS:
+        info = log_mma_info(kname)
+        results[kname].update(smem_bytes=info["smem_bytes"], warps_per_sm=info["warps_per_sm"])
     return results
+
+
+def log_mma_info(kname: str) -> dict:
+    """Logs what the CUDA runtime reports of the tensor-core instance kname
+    (hopper_field.MMA_KERNELS) and returns it."""
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+
+    info = hf.mma_info(kname)
+    log(f"[modes] {kname}: {info['registers']} registers, {info['local_bytes']} B local memory a thread, "
+        f"{info['smem_bytes']} B dynamic shared memory a block, {info['blocks_per_sm']} blocks = "
+        f"{info['warps_per_sm']} warps a SM (CUDA runtime)")
+    return info
 
 
 def _msm_inputs(g2: bool, rnd, dev):
@@ -1027,7 +1050,10 @@ def instance_name(short: str) -> str | None:
 def sass_counts(text: str) -> dict:
     """``cuobjdump -sass`` output -> {kernels-line name: {"IMMA": n, "IDP":
     n, "FFMA": n, "all": n}} per kernel of the port: the instructions of
-    each kind, and of every kind, in the kernel's code."""
+    each kind, and of every kind, in the kernel's code.  cuobjdump lists a
+    device function that a kernel calls out of line (``Called<M>``'s
+    multiply) inside that kernel's code, behind its ``CALL.REL.NOINC``
+    target address, so its instructions count with the kernel's."""
     from vote_saver_tpu_torch.ops import _build
 
     out: dict = {}
@@ -1046,18 +1072,19 @@ def sass_counts(text: str) -> dict:
 
 
 def check_fold_sass(kl) -> dict:
-    """The fold probes run on the tensor cores: ``cuobjdump -sass`` of the
-    built probe library must show IMMA instructions and no IDP (dp4a) in
-    each of FOLD_KERNELS."""
+    """The fold products on the tensor cores: ``cuobjdump -sass`` of the
+    built probe and curve libraries (FOLD_LIBS) must show IMMA instructions
+    and no IDP (dp4a) in each of FOLD_KERNELS."""
     import subprocess
 
     from vote_saver_tpu_torch.ops import _build
 
-    lib = next(p for p in kl.paths if p.name.startswith("libvstorch_micro_"))
     tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    counts = sass_counts(text)
+    counts = {}
+    for prefix in FOLD_LIBS:
+        lib = next(p for p in kl.paths if p.name.startswith(prefix))
+        counts.update(sass_counts(subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                                                 check=True, timeout=300).stdout))
     for k in FOLD_KERNELS:
         c = counts.get(k)
         log(f"[sass] {k}: {c}")
@@ -1429,6 +1456,8 @@ def run_modes(e: dict, vote: dict, cases, library: set) -> dict:
             check_golden(f"[modes] {mode}: golden")
             only(mode, hf.launches, (), "the depth-2 golden")
             r["combine"] = check_combination(cases, mode)
+            if mode == "fold":
+                r["mma_info"] = {k: log_mma_info(k) for k in hf.MMA_KERNELS}
             r["seconds"] = time.perf_counter() - t0
     finally:
         if before is None:

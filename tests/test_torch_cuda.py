@@ -22,7 +22,11 @@ host-native arm's CRS; the int8 matmul NTT must equal the radix-2 path on
 the card for each of its four kinds.  The curve kernels and the inversion
 chain in the v1 and fold multiplier modes must equal the same plain
 versions, each launch counted under its mode's instance; a fold launch
-must find its unit's matrix in place; and a depth-2 vote under
+must find its unit's matrix in place; the fold G1 bucket scan and G1
+doubling, whose fold product runs on the tensor cores, must equal their
+plain versions at 1 to 2^14 lanes and the scan at the vote path's h
+schedule, and a launch of either must find its B operand in place; and a
+depth-2 vote under
 ``VSTPU_MUL=v1`` or ``=fold`` must launch only that mode's instances and
 give the golden ballots.
 """
@@ -602,3 +606,78 @@ def test_vote_in_mode_launches_its_instances_and_gives_the_golden(dev, mode, mon
     assert all(launched.get(k) for k in curve), launched
     assert [[x.hex() for x in b] for b in ballots] == [[g[k] for k in ("proof", "pinput", "ct", "sn")]
                                                        for g in golden["ballots"]]
+
+
+# the widths the tensor-core instances are held to their plain versions at:
+# one lane, Horner's 16, a warp short and a warp past, the batch's widest
+# orphan merge, 2^14
+MMA_LANES = (1, 16, 31, 33, 5925, 1 << 14)
+
+
+@pytest.mark.parametrize("lanes", MMA_LANES)
+def test_fold_mma_instances_match_plain(dev, lanes):
+    """The fold unit's G1 bucket scan and G1 doubling, whose fold product
+    runs on the tensor cores (a warp's lanes one tile; the lanes past n of
+    a ragged warp compute on lane n - 1 and store nothing): each one launch
+    of its fold instance, equal to the plain version, the doubling with
+    `times` 1 and 10, the scan on scan_lanes' special lanes (lanes 0-6,
+    the doubling corner among them) and 16 rows."""
+    p, *_ = special_lanes(False, max(lanes, 8), random.Random(30 + lanes))
+    P = tuple(c[:lanes].contiguous() for c in _put(p, 3, dev))
+    for times in (1, 10):
+        got = _once("g1_double", "fold", lambda: hf.g1_double(P, times, mode="fold"))
+        assert all(torch.equal(x, y) for x, y in zip(got, hf.double_plain(False, P, times))), times
+    pts, codes = scan_lanes(False, 64, max(lanes, 64), 16, random.Random(31 + lanes))
+    pxy = ms.g1_affine_to_device(pts, dev)
+    c = torch.from_numpy(codes[:, :lanes].copy()).to(dev)
+    acc, exc = _once("g1_madd_scan", "fold", lambda: hf.g1_madd_scan(pxy, c, mode="fold"))
+    pacc, pexc = hf.madd_scan_plain(False, pxy, c)
+    assert all(torch.equal(x, y) for x, y in zip(acc, pacc)) and torch.equal(exc, pexc)
+    assert exc[: len(SCAN_EXC)].tolist() == SCAN_EXC[:lanes]
+
+
+def test_fold_mma_scan_matches_plain_at_the_path_shape(dev):
+    """The fold scan at the vote path's h schedule (80 rows x 248,832 lanes)
+    over a table of 2^15 - 1 random field elements, equal to its plain
+    version and to the loop instance."""
+    from vote_saver_tpu_torch.testing import h_schedule
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    n = (1 << 15) - 1
+    table = tuple(micro.random_limbs("fq", n, dev, gen) for _ in range(2))
+    codes = torch.from_numpy(h_schedule(32).codes).to(dev)
+    assert tuple(codes.shape) == (80, 248832)
+    acc, exc = _once("g1_madd_scan", "fold", lambda: hf.g1_madd_scan(table, codes, mode="fold"))
+    for want in (hf.madd_scan_plain(False, table, codes), hf.g1_madd_scan(table, codes, mode="loop")):
+        assert all(torch.equal(x, y) for x, y in zip(acc, want[0])) and torch.equal(exc, want[1])
+
+
+def test_fold_mma_launch_uploads_its_b_operand_first(dev):
+    """The tensor-core fold's B operand is in the curve unit's device memory
+    before its first launch on a card: with zeros put there and the record
+    of the upload dropped, the next launch of either instance uploads it
+    again and gives the plain limbs; the runtime reports each instance with
+    its 55,936 B of dynamic shared memory a block."""
+    lib = hf._lib()
+    p, *_ = special_lanes(False, 256, random.Random(33))
+    P = _put(p, 3, dev)
+    pts, codes = scan_lanes(False, 64, 256, 8, random.Random(34))
+    pxy = ms.g1_affine_to_device(pts, dev)
+    c = torch.from_numpy(codes).to(dev)
+    want_dbl, want_scan = hf.double_plain(False, P, 2), hf.madd_scan_plain(False, pxy, c)[0]
+
+    def right():
+        return (all(torch.equal(x, y) for x, y in zip(hf.g1_double(P, 2, mode="fold"), want_dbl)),
+                all(torch.equal(x, y) for x, y in zip(hf.g1_madd_scan(pxy, c, mode="fold")[0], want_scan)))
+
+    key = (lib.vs_curve_fold_mma_upload.__name__, 0, P[0].device.index)
+    assert right() == (True, True) and key in hf._fold_uploaded
+    zeros = np.zeros(fold_mul.mma_operand(lb.FQ).size, np.int8)
+    with torch.cuda.device(dev):
+        assert lib.vs_curve_fold_mma_upload(0, zeros.ctypes.data, zeros.size) == 0
+    assert right() == (False, False)  # the B operand is what the tensor-core fold reads
+    hf._fold_uploaded.discard(key)
+    assert right() == (True, True) and key in hf._fold_uploaded
+    for name in hf.MMA_KERNELS:
+        info = hf.mma_info(name, dev)
+        assert info["smem_bytes"] == 55936 and info["warps_per_sm"] >= 4 and info["registers"] <= 255, info

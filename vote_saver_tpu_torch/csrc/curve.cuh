@@ -30,6 +30,9 @@
 // the same value; the doubling in the complete add and the whole madd of an
 // inactive lane are computed only where they are taken, which keeps the
 // doubling's temporaries out of the generic path's register live range.
+// jac_madd_select is the madd in the Pallas form, every multiply on every
+// lane and the result selected, for a mode whose multiply a warp runs
+// together (the tensor-core fold: mma.sync is .sync.aligned).
 #pragma once
 
 #include "mul_modes.cuh"
@@ -193,4 +196,41 @@ __device__ uint32_t jac_madd(Jac<E>& acc, const E& x2, E y2, bool sign, bool act
   const E z3 = sub(sub(fsq<M>(add(acc.z, h)), z1z1), hh);
   acc = {x3, y3, z3};
   return (h_zero && r_zero) ? 1u : 0u;
+}
+
+// jac_madd without a data-dependent branch: all 11 multiplies on every lane,
+// then the selects in the order of the Pallas _jac_madd
+// (vote_saver_tpu/ops/pallas_field.py:818-866) and of the plain
+// hopper_field.jac_madd: the lift where acc is infinite, infinity where
+// h = 0, r != 0 and acc is finite, acc kept where the lane is inactive; the
+// flag where h = 0, r = 0, acc finite and the lane active.  Same limbs and
+// flag as jac_madd.
+template <class E, class M>
+__device__ uint32_t jac_madd_select(Jac<E>& acc, const E& x2, E y2, bool sign, bool active) {
+  active = active && !(is_zero(x2) && is_zero(y2));
+  y2 = sel(sign, sub(zero_of<E>(), y2), y2);
+  const E z1z1 = fsq<M>(acc.z);
+  const E u2 = fmul<M>(x2, z1z1);
+  const E s2 = fmul<M>(fmul<M>(y2, acc.z), z1z1);
+  const E h = sub(u2, acc.x);
+  const E hh = fsq<M>(h);
+  E i = add(hh, hh);
+  i = add(i, i);
+  const E j = fmul<M>(h, i);
+  E r = sub(s2, acc.y);
+  r = add(r, r);
+  const E v = fmul<M>(acc.x, i);
+  const E x3 = sub(sub(fsq<M>(r), j), add(v, v));
+  const E y1j = fmul<M>(acc.y, j);
+  const E y3 = sub(fmul<M>(r, sub(v, x3)), add(y1j, y1j));
+  const E z3 = sub(sub(fsq<M>(add(acc.z, h)), z1z1), hh);
+  const bool p_inf = is_zero(acc.z);
+  const bool h_zero = is_zero(h);
+  const bool r_zero = is_zero(r);
+  const E one = one_of<E>();
+  Jac<E> out = {sel(p_inf, x2, x3), sel(p_inf, y2, y3), sel(p_inf, one, z3)};
+  const bool opposite = h_zero && !r_zero && !p_inf;
+  out = {sel(opposite, one, out.x), sel(opposite, one, out.y), sel(opposite, zero_of<E>(), out.z)};
+  acc = {sel(active, out.x, acc.x), sel(active, out.y, acc.y), sel(active, out.z, acc.z)};
+  return (h_zero && r_zero && !p_inf && active) ? 1u : 0u;
 }

@@ -32,7 +32,25 @@
 // loop, curve_v1.cu in v1, curve_fold.cu in fold.  A G1 kernel takes
 // Called<M> (one out-of-line copy of the mode's multiply; the loop
 // instances of K3d and K5/K6 take MulLoop inlined), a G2 kernel M, whose
-// Fq2 multiply calls its Fq multiply out of line (fq_mul_call).
+// Fq2 multiply calls its Fq multiply out of line (fq_mul_call).  The fold
+// unit's G1 bucket scan and G1 doubling take Called<MulFoldMma>, the fold
+// product on the int8 tensor cores (fold_mma.cuh).
+//
+// The converged form.  A mode whose multiply a warp runs together
+// (M::kConverged: mma.sync and ldmatrix are .sync.aligned) needs every
+// thread of a warp at each multiply.  k_madd_scan and k_double take this
+// form for such a mode (if constexpr; the other modes' code is the one
+// form they had): every thread of the block runs M::prologue() first; then
+// a warp whose lanes are all past n exits, and a thread past n inside a
+// live warp computes on lane n - 1's data (lane_in) and skips its stores;
+// the scan's madd is jac_madd_select (curve.cuh: every multiply on every
+// lane, then selects) instead of jac_madd's early returns.  The one branch
+// left before a multiply, scan_point's idle code, ends before the multiply,
+// and mul_fold_mma synchronises the warp (__syncwarp) between its pieces
+// and its product.  The launchers pass M::smem_bytes(kThreads) as the
+// launch's dynamic shared memory (0 for the other modes); a kernel may take
+// more than 48 KB of it only once the card's limit for it is lifted, which
+// the fold unit's B operand upload does (curve_fold.cu).
 //
 // Each is one thread per lane over (B, L) / (B, 2, L) int32 tensors read as
 // uint32_t*, with every limb in registers.  The Pallas kernels tile the
@@ -60,6 +78,26 @@ constexpr int32_t kIdxMask = (1 << 30) - 1;
 
 __host__ __forceinline__ unsigned blocks_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+// Converged form: true where the thread's whole warp is past n (else where
+// the thread is), and the lane a thread computes on.
+template <class M>
+__device__ __forceinline__ bool past_end(long long i, long long n) {
+  if constexpr (M::kConverged) {
+    return i - (threadIdx.x & 31) >= n;
+  } else {
+    return i >= n;
+  }
+}
+
+template <class M>
+__device__ __forceinline__ long long lane_in(long long i, long long n) {
+  if constexpr (M::kConverged) {
+    return i < n ? i : n - 1;
+  } else {
+    return i;
+  }
 }
 
 // a^(N - 2) = a^-1 for canonical a != 0 (0 maps to 0), by square-and-multiply
@@ -173,13 +211,23 @@ __device__ __forceinline__ void scan_point(int32_t code, const uint32_t* __restr
 // their L2 latency hides behind the arithmetic, at the cost of a second
 // point in registers (G1 198 registers against 194 without; 1-4% faster on
 // the card at the vote path's schedules, PERF.md).
+//
+// In a converged mode (the fold unit's G1 instance) each madd is
+// jac_madd_select, the rows run on every thread of a live warp, and row
+// s's point is read after row s - 1's madd: without the prefetch the
+// converged scan ran 0.5-0.7% faster at the vote path's schedule, with a
+// third of the spill stores (PERF.md).  There the lane's multiplies
+// are the fp32 digit columns and the tail of mul_fold_mma, the fold
+// product a warp's tile on the tensor cores.
 template <class E, class M>
 __global__ void __launch_bounds__(kThreads)
     k_madd_scan(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                 const int32_t* __restrict__ codes, int steps, long long lanes, uint32_t* ox,
                 uint32_t* oy, uint32_t* oz, int32_t* exc) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
+  M::prologue();
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (past_end<M>(t, lanes)) return;
+  const long long i = lane_in<M>(t, lanes);
   Jac<E> acc = jac_infinity<E>();
   uint32_t e = 0u;
   int32_t code = steps > 0 ? __ldg(codes + i) : 0;
@@ -189,11 +237,22 @@ __global__ void __launch_bounds__(kThreads)
   for (int s = 0; s < steps; ++s) {
     const int32_t next = s + 1 < steps ? __ldg(codes + (long long)(s + 1) * lanes + i) : 0;
     E nx, ny;
-    scan_point(next, px, py, nx, ny);
-    e |= jac_madd<E, M>(acc, x2, y2, ((code >> 30) & 1) != 0, code != 0);
+    if constexpr (!M::kConverged) scan_point(next, px, py, nx, ny);
+    if constexpr (M::kConverged) {
+      e |= jac_madd_select<E, M>(acc, x2, y2, ((code >> 30) & 1) != 0, code != 0);
+    } else {
+      e |= jac_madd<E, M>(acc, x2, y2, ((code >> 30) & 1) != 0, code != 0);
+    }
     code = next;
-    x2 = nx;
-    y2 = ny;
+    if constexpr (!M::kConverged) {
+      x2 = nx;
+      y2 = ny;
+    } else {
+      scan_point(code, px, py, x2, y2);
+    }
+  }
+  if constexpr (M::kConverged) {
+    if (t >= lanes) return;
   }
   store(ox, i, acc.x);
   store(oy, i, acc.y);
@@ -249,19 +308,27 @@ __global__ void __launch_bounds__(kThreads)
 // multiplies 4 on 32-480 lanes: 1 to 4 blocks on 132 SMs, each doubling 7
 // dependent Fq multiplies (G2: 7 Fq2 products).  One launch per doubling
 // paid a launch and a global round trip for each; `times` pays them once
-// per chain.
+// per chain.  In a converged mode (the fold unit's G1 instance: one to four
+// warps, each a chain of 7 dependent multiplies a doubling) each multiply's
+// fold product is a warp's tile on the tensor cores, the lanes past n of a
+// ragged warp padding rows of it.
 template <class E, class M>
 __global__ void __launch_bounds__(kThreads)
     k_double(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
              uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n, int times) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  M::prologue();
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (past_end<M>(t, n)) return;
+  const long long i = lane_in<M>(t, n);
   Jac<E> p;
   load(p.x, px, i);
   load(p.y, py, i);
   load(p.z, pz, i);
 #pragma unroll 1
-  for (int t = 0; t < times; ++t) p = jac_double<E, M>(p);
+  for (int k = 0; k < times; ++k) p = jac_double<E, M>(p);
+  if constexpr (M::kConverged) {
+    if (t >= n) return;
+  }
   store(ox, i, p.x);
   store(oy, i, p.y);
   store(oz, i, p.z);
@@ -368,9 +435,8 @@ int launch_double(int g2, const void* px, const void* py, const void* pz, void* 
                                                          (uint32_t*)ox, (uint32_t*)oy,
                                                          (uint32_t*)oz, n, times);
   } else {
-    k_double<Fq, M1><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz,
-                                                        (uint32_t*)ox, (uint32_t*)oy,
-                                                        (uint32_t*)oz, n, times);
+    k_double<Fq, M1><<<blocks_for(n), kThreads, M1::smem_bytes(kThreads), s>>>(
+        (u32p)px, (u32p)py, (u32p)pz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, times);
   }
   return (int)cudaGetLastError();
 }
@@ -386,7 +452,7 @@ int launch_madd_scan(int g2, const void* px, const void* py, const void* codes, 
         (u32p)px, (u32p)py, (const int32_t*)codes, steps, lanes, (uint32_t*)ox, (uint32_t*)oy,
         (uint32_t*)oz, (int32_t*)exc);
   } else {
-    k_madd_scan<Fq, M1><<<blocks_for(lanes), kThreads, 0, s>>>(
+    k_madd_scan<Fq, M1><<<blocks_for(lanes), kThreads, M1::smem_bytes(kThreads), s>>>(
         (u32p)px, (u32p)py, (const int32_t*)codes, steps, lanes, (uint32_t*)ox, (uint32_t*)oy,
         (uint32_t*)oz, (int32_t*)exc);
   }

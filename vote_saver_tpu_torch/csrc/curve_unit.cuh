@@ -6,14 +6,21 @@
 //   VS_MODE    the multiplier mode type (MulV1, MulFold; mul_modes.cuh)
 //   VS_SUFFIX  the launchers' name suffix (_v1, _fold)
 //
+// and may define
+//
+//   VS_MODE_G1_MMA  the mode of the G1 bucket scan and the G1 doubling
+//                   (default Called<VS_MODE>; the fold unit's:
+//                   Called<MulFoldMma>, the fold product on the tensor cores)
+//
 // and gets vs_mont_inv<suffix>, vs_madd<suffix>, vs_g1_add<suffix>,
 // vs_g2_add_team<suffix>, vs_double<suffix>, vs_madd_scan<suffix>,
 // vs_add_shift<suffix>, vs_add_distinct<suffix> and vs_addx<suffix>, each
 // with the signature of the loop launcher of the same name (kernels.cu,
 // add_team.cu, add_distinct.cu).  Every G1 kernel takes Called<VS_MODE>
-// (one out-of-line copy of the mode's multiply a kernel), every G2 kernel
-// VS_MODE (its Fq2 multiply calls the Fq one out of line), the inversion
-// chain and the team add VS_MODE itself.
+// (one out-of-line copy of the mode's multiply a kernel) but the scan and
+// the doubling, which take VS_MODE_G1_MMA, every G2 kernel VS_MODE (its Fq2
+// multiply calls the Fq one out of line), the inversion chain and the team
+// add VS_MODE itself.
 //
 // The launchers run on the caller's stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError() (0 on success).
@@ -29,6 +36,11 @@
 namespace {
 using ModeG1 = Called<VS_MODE>;
 using ModeG2 = VS_MODE;
+#ifdef VS_MODE_G1_MMA
+using ModeG1Mma = VS_MODE_G1_MMA;
+#else
+using ModeG1Mma = ModeG1;
+#endif
 }  // namespace
 
 extern "C" {
@@ -61,12 +73,13 @@ int VS_FN(vs_g2_add_team)(const void* px, const void* py, const void* pz, const 
 
 int VS_FN(vs_double)(int g2, const void* px, const void* py, const void* pz, void* ox, void* oy,
                      void* oz, long long n, int times, void* stream) {
-  return launch_double<ModeG1, ModeG2>(g2, px, py, pz, ox, oy, oz, n, times, stream);
+  return launch_double<ModeG1Mma, ModeG2>(g2, px, py, pz, ox, oy, oz, n, times, stream);
 }
 
 int VS_FN(vs_madd_scan)(int g2, const void* px, const void* py, const void* codes, int steps,
                         long long lanes, void* ox, void* oy, void* oz, void* exc, void* stream) {
-  return launch_madd_scan<ModeG1, ModeG2>(g2, px, py, codes, steps, lanes, ox, oy, oz, exc, stream);
+  return launch_madd_scan<ModeG1Mma, ModeG2>(g2, px, py, codes, steps, lanes, ox, oy, oz, exc,
+                                                stream);
 }
 
 int VS_FN(vs_add_shift)(int g2, const void* px, const void* py, const void* pz, void* ox,

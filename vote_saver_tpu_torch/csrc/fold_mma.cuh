@@ -1,7 +1,9 @@
 // The fold multiply with its fold product on the int8 tensor cores: a warp
 // multiplies its 32 lanes together.
 //
-// Replaces, for the probes K7 and K10 (micro.cu), the fold product of
+// Replaces, for the probes K7 and K10 (micro.cu) and, as the multiplier
+// mode MulFoldMma below, for the fold unit's G1 bucket scan and G1 doubling
+// (curve_fold.cu), the fold product of
 // vote_saver_tpu/ops/fold_mul.py:fold_columns inside FqEmitFold
 // (vote_saver_tpu/ops/pallas_field.py:187-224): there the pieces of every
 // lane's product columns go through ONE bf16 dot_general against the
@@ -52,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "mul_modes.cuh"
 
@@ -82,6 +85,34 @@ __device__ uint4 kFoldMmaFq[FoldMma<FqParams>::N * FoldMma<FqParams>::K / 16];
 static inline int fold_mma_upload(int field, const void* bytes, long long nbytes) {
   if (field != 0 || (size_t)nbytes != sizeof(kFoldMmaFq)) return (int)cudaErrorInvalidValue;
   return (int)cudaMemcpyToSymbol(kFoldMmaFq, bytes, (size_t)nbytes);
+}
+
+// Host: let kernel fn take `smem` bytes of dynamic shared memory a block,
+// which above 48 KB it may only after this call, on the current device; a
+// cudaError_t, 0 on success.
+static inline int allow_smem(const void* fn, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// Host: what the CUDA runtime reports of kernel fn launched with `threads`
+// threads and `smem` bytes of dynamic shared memory a block on the current
+// device: out = {registers a thread, local (spill and stack) bytes a
+// thread, dynamic shared memory a block, resident blocks a SM, threads a
+// block}; a cudaError_t, 0 on success.
+static inline int kernel_info(const void* fn, int threads, int smem, int* out) {
+  cudaFuncAttributes attr;
+  int err = allow_smem(fn, smem);
+  if (err == 0) err = (int)cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (err == 0) err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, (size_t)smem);
+  if (err != 0) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = smem;
+  out[3] = blocks;
+  out[4] = threads;
+  return 0;
 }
 
 // The block's copy of the B operand into rows of ROW bytes at sb; the caller
@@ -222,3 +253,34 @@ __device__ __forceinline__ Fp<P> mul_fold_mma(const Fp<P>& a, const Fp<P>& b, co
   // 5.-6.
   return fold_finish<P>(g);
 }
+
+// The tensor-core fold as a multiplier mode (mul_modes.cuh), for kernels
+// written over a mode: Fq only.  Its shared memory is the block's dynamic
+// shared memory, smem_bytes(threads) of it: the B operand at offset 0, warp
+// w's tile at B_BYTES + w * WARP_BYTES.  The prologue copies the B operand
+// into it and synchronises the block, so every thread of the block runs it
+// before any thread exits.  kConverged: every thread of a warp calls mul
+// together (a kernel's converged form, curve_kernels.cuh).  Through
+// Called<MulFoldMma> the multiply is one out-of-line copy a kernel, as every
+// G1 multiply of the curve kernels is.
+struct MulFoldMma {
+  static constexpr bool kConverged = true;
+  static constexpr int smem_bytes(int threads) { return FoldMma<FqParams>::smem_bytes(threads); }
+
+  __device__ static __forceinline__ uint8_t* smem() {
+    extern __shared__ __align__(16) uint8_t vs_fold_mma_smem[];
+    return vs_fold_mma_smem;
+  }
+
+  __device__ static __forceinline__ void prologue() {
+    fold_mma_load_b<FqParams>(smem());
+    __syncthreads();
+  }
+
+  template <class P>
+  __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
+    static_assert(std::is_same<P, FqParams>::value, "the tensor-core fold's B operand exists for Fq only");
+    uint8_t* s = smem();
+    return mul_fold_mma<P>(a, b, s, s + FoldMma<P>::B_BYTES + (threadIdx.x >> 5) * FoldMma<P>::WARP_BYTES);
+  }
+};

@@ -231,22 +231,14 @@ constexpr int kNumOps = sizeof(kOps) / sizeof(kOps[0]);
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
-// Lets the instance of p take its dynamic shared memory (above 48 KB only
-// after this call, on the current device).
-cudaError_t allow_smem(const ChainProbe& p) {
-  if (p.smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(reinterpret_cast<const void*>(p.fn), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              p.smem);
-}
-
 extern "C" {
 
 int vs_mul_chain(int probe, const void* x, const void* y, void* out0, void* out1, long long n,
                  void* stream) {
   if (probe < 0 || probe >= kNumChains) return (int)cudaErrorInvalidValue;
   const ChainProbe& p = kChains[probe];
-  const cudaError_t err = allow_smem(p);
-  if (err != cudaSuccess) return (int)err;
+  const int err = allow_smem(reinterpret_cast<const void*>(p.fn), p.smem);
+  if (err != 0) return err;
   p.fn<<<blocks_for(n), kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(y),
       static_cast<uint32_t*>(out0), static_cast<uint32_t*>(out1), n);
@@ -254,23 +246,11 @@ int vs_mul_chain(int probe, const void* x, const void* y, void* out0, void* out1
 }
 
 // What the runtime reports of probe's instance on the current device:
-// out = {registers a thread, local (spill and stack) bytes a thread,
-// dynamic shared memory a block, resident blocks a SM, threads a block}.
+// fold_mma.cuh's kernel_info.
 int vs_mul_chain_info(int probe, int* out) {
   if (probe < 0 || probe >= kNumChains) return (int)cudaErrorInvalidValue;
   const ChainProbe& p = kChains[probe];
-  cudaFuncAttributes attr;
-  cudaError_t err = allow_smem(p);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(p.fn));
-  int blocks = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, p.fn, kThreads, p.smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = p.smem;
-  out[3] = blocks;
-  out[4] = kThreads;
-  return 0;
+  return kernel_info(reinterpret_cast<const void*>(p.fn), kThreads, p.smem, out);
 }
 
 int vs_op(int kind, const void* x, const void* y, void* out, long long n, void* stream) {

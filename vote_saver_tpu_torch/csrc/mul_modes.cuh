@@ -14,8 +14,9 @@
 //               product with a constant matrix, two 16-bit Montgomery word
 //               steps and a conditional subtract.
 //
-// A mode is a type with `template <class P> static Fp<P> mul(a, b)`.  The
-// kernels take it as a template parameter, and every kernel of the
+// A mode is a type with `template <class P> static Fp<P> mul(a, b)` and
+// the traits of ModeTraits below.  The kernels take it as a template
+// parameter, and every kernel of the
 // curve_kernels.cuh / add_team.cuh templates is instantiated in all three
 // modes: loop in kernels.cu, add_distinct.cu and add_team.cu, v1 in
 // curve_v1.cu, fold in curve_fold.cu; K1 in mont_mul_modes.cu (v1, fold)
@@ -36,7 +37,9 @@
 // cores: fold_mma.cuh, a warp's 32 lanes as one tile of 126 mma.sync, so
 // the lane keeps only the fp32 digit columns, which then bound it (2,304
 // FMAs a multiply at the issue rate), and MulFold's steps 1-3 and 5-6
-// around the product; fold_finish below is the tail both forms share.
+// around the product; fold_finish below is the tail both forms share.  The
+// fold unit's G1 bucket scan and G1 doubling (curve_fold.cu) take the same
+// tensor-core fold as a mode of its own, MulFoldMma (fold_mma.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,14 +48,30 @@
 
 #include "field.cuh"
 
-struct MulLoop {
+// What a kernel must know of a mode besides its multiply:
+//   kConverged           every thread of a warp must reach each multiply
+//                        together (mma.sync and ldmatrix are .sync.aligned),
+//                        so the kernel takes its converged form
+//                        (curve_kernels.cuh);
+//   smem_bytes(threads)  the dynamic shared memory a block of `threads` needs;
+//   prologue()           what every thread of a block runs once, before its
+//                        first multiply and before any thread exits.
+// false, 0 and nothing for MulLoop, MulV1 and MulFold; the tensor-core fold
+// MulFoldMma (fold_mma.cuh) sets all three.
+struct ModeTraits {
+  static constexpr bool kConverged = false;
+  static constexpr int smem_bytes(int) { return 0; }
+  __device__ static __forceinline__ void prologue() {}
+};
+
+struct MulLoop : ModeTraits {
   template <class P>
   __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
     return ::mul(a, b);
   }
 };
 
-struct MulV1 {
+struct MulV1 : ModeTraits {
   // SOS: t = a * b in 2L words, then L steps t += m_i N 2^(32 i); the carry
   // out of word i + L rides in `extra` to the next step's word i + L + 1.
   template <class P>
@@ -236,7 +255,7 @@ __device__ __noinline__ Fp<P> mul_fold(const Fp<P> a, const Fp<P> b) {
   return fold_finish<P>(g);
 }
 
-struct MulFold {
+struct MulFold : ModeTraits {
   template <class P>
   __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
     return mul_fold<P>(a, b);
@@ -247,7 +266,7 @@ struct MulFold {
 // every multiply: the G1 curve kernels' form in every mode (field.cuh says
 // why), as G2's Karatsuba already calls its Fq multiply (fq_mul_call
 // below).  Called<MulLoop> is the loop instances' form; in fold the call
-// wraps mul_fold's own.  Same limbs as M.
+// wraps mul_fold's own.  Same limbs and traits as M.
 template <class M, class P>
 __device__ __noinline__ Fp<P> mul_called(const Fp<P> a, const Fp<P> b) {
   return M::mul(a, b);
@@ -255,6 +274,9 @@ __device__ __noinline__ Fp<P> mul_called(const Fp<P> a, const Fp<P> b) {
 
 template <class M>
 struct Called {
+  static constexpr bool kConverged = M::kConverged;
+  static constexpr int smem_bytes(int threads) { return M::smem_bytes(threads); }
+  __device__ static __forceinline__ void prologue() { M::prologue(); }
   template <class P>
   __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
     return mul_called<M, P>(a, b);

@@ -40,7 +40,6 @@ rates exist only there.  On the card:
 
 from __future__ import annotations
 
-import ctypes
 import fractions
 import json
 import math
@@ -154,16 +153,8 @@ def run_chain(probe: str, x: torch.Tensor, y: torch.Tensor):
 
 
 def chain_info(probe: str, device="cuda") -> dict:
-    """What the CUDA runtime reports of chain probe `probe`'s instance on
-    `device`: registers and local (spill and stack) bytes a thread, dynamic
-    shared memory a block, and the blocks and warps resident on one SM."""
-    out = (ctypes.c_int * 5)()
-    with torch.cuda.device(lb.device_of(device)):
-        rc = hf._lib().vs_mul_chain_info(CHAIN_PROBES[probe][0], ctypes.addressof(out))
-    hf._raise_on(rc, f"mul_chain_{probe} info")
-    regs, local, smem, blocks, threads = out
-    return dict(registers=regs, local_bytes=local, smem_bytes=smem, blocks_per_sm=blocks,
-                warps_per_sm=blocks * threads // 32)
+    """hopper_field.kernel_info of chain probe `probe`'s instance."""
+    return hf.kernel_info(hf._lib().vs_mul_chain_info, CHAIN_PROBES[probe][0], f"mul_chain_{probe}", device)
 
 
 def _f32_round(v: fractions.Fraction) -> float:

@@ -63,12 +63,17 @@ UNITS = {
 }
 # the curve kernels and K1's Fermat chain in v1 and fold (curve_v1.cu,
 # curve_fold.cu): every loop launcher of these units but K1's, with the
-# mode's suffix, and the fold unit's own fold-matrix upload
+# mode's suffix, the fold unit's own fold-matrix uploads (the dp4a fold's
+# __constant__ matrices; the tensor-core fold's B operand, which also lets
+# its two instances take their shared memory) and what the runtime reports
+# of those two instances
 CURVE_LAUNCHERS = {name: args for unit in ("kernels.cu", "add_team.cu", "add_distinct.cu")
                    for name, args in UNITS[unit].items() if name != "vs_mont_mul"}
 UNITS["curve_v1.cu"] = {f"{name}_v1": args for name, args in CURVE_LAUNCHERS.items()}
 UNITS["curve_fold.cu"] = {**{f"{name}_fold": args for name, args in CURVE_LAUNCHERS.items()},
-                          "vs_curve_fold_upload": [ctypes.c_int, _VP, _LL]}
+                          "vs_curve_fold_upload": [ctypes.c_int, _VP, _LL],
+                          "vs_curve_fold_mma_upload": [ctypes.c_int, _VP, _LL],
+                          "vs_curve_fold_mma_info": [ctypes.c_int, _VP]}
 
 
 def nvcc() -> str:
@@ -164,8 +169,8 @@ def short_name(mangled: str) -> str:
     m = re.search(r"(k_[a-z_]+|mul_fold|mul_called|fq_mul_call)(I.*)?$", mangled)
     if not m:
         return mangled
-    args = re.findall(r"FqParams|FrParams|AddTeamG2|Fq2|CalledI\d*Mul(?:Loop|V1|Fold)|MulLoop|MulV1|MulFold|Li\d+E",
-                      m.group(2) or "")
+    args = re.findall(r"FqParams|FrParams|AddTeamG2|Fq2|CalledI\d*Mul(?:Loop|V1|FoldMma|Fold)|MulLoop|MulV1|MulFoldMma|"
+                      r"MulFold|Li\d+E", m.group(2) or "")
     args = [a[2:-1] if a.startswith("Li") else f"Called<{a[a.index('Mul'):]}>" if a.startswith("Called") else a
             for a in args]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")

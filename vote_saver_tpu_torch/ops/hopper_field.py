@@ -29,8 +29,10 @@ CUDA tensor a wrapper launches that mode's instance (loop: ``kernels.cu``,
 ``add_team.cu``, ``add_distinct.cu``; v1 / fold: ``curve_v1.cu`` /
 ``curve_fold.cu``, K1 ``mont_mul_modes.cu``), counted under its name, the
 loop name with ``_v1`` / ``_fold`` (``instance``), and raises where that
-instance is missing or fails; it never runs another mode's instance.  On
-a CPU tensor it runs the plain version, one function in every mode.
+instance is missing or fails; it never runs another mode's instance.  In
+fold the G1 bucket scan and the G1 doubling (``MMA_KERNELS``) run the fold
+product on the int8 tensor cores, a warp's lanes one tile.  On a CPU
+tensor a wrapper runs the plain version, one function in every mode.
 
 Coordinates are int32 tensors ``(..., L)`` (G1, Fq/Fr) or ``(..., 2, L)``
 (G2) of 32-bit Montgomery limbs.  On a CUDA tensor a wrapper launches its
@@ -49,6 +51,7 @@ from, ``REPLACES`` the pallas_call it replaces.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from collections import Counter
 
@@ -57,7 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from . import fold_mul
-from .limbs import FQ, FR, spec_for
+from .limbs import FQ, FR, device_of, spec_for
 
 MODES = ("loop", "v1", "fold")
 # the curve kernels K2-K6, K3d and K1's Fermat chain, by their loop names:
@@ -619,15 +622,44 @@ def _lib():
 
 def _launcher(fn: str, mode: str, device):
     """The extern "C" launcher `fn` (its loop name) of `mode`'s unit, with
-    the fold unit's matrices in its __constant__ memory on `device` before
-    its first launch there.  A missing launcher raises AttributeError."""
+    the fold unit's matrices in place on `device` before its first launch
+    there: the dp4a fold's in its __constant__ memory, the tensor-core
+    fold's B operand (``MMA_KERNELS``) in its device memory.  A missing
+    launcher raises AttributeError."""
     lib = _lib()
     if mode == "loop":
         return getattr(lib, fn)
     if mode == "fold":
         for field in (0, 1):
             upload_fold_matrix(lib.vs_curve_fold_upload, field, device)
+        upload_fold_matrix(lib.vs_curve_fold_mma_upload, 0, device, pack=fold_mul.mma_operand)
     return getattr(lib, f"{fn}_{mode}")
+
+
+# the instances whose Fq multiply runs its fold product on the int8 tensor
+# cores (csrc/curve_fold.cu: Called<MulFoldMma>, a warp's lanes as one tile
+# of mma.sync), in the order of vs_curve_fold_mma_info's kernel index
+MMA_KERNELS = ("g1_madd_scan_fold", "g1_double_fold")
+
+
+def kernel_info(entry, index: int, name: str, device="cuda") -> dict:
+    """What the CUDA runtime reports of kernel `index` of the info entry
+    `entry` (``vs_mul_chain_info``, ``vs_curve_fold_mma_info``; csrc
+    fold_mma.cuh's kernel_info) on `device`: registers and local (spill and
+    stack) bytes a thread, dynamic shared memory a block, and the blocks and
+    warps resident on one SM.  `name` labels an error."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device_of(device)):
+        rc = entry(index, ctypes.addressof(out))
+    _raise_on(rc, f"{name} info")
+    regs, local, smem, blocks, threads = out
+    return dict(registers=regs, local_bytes=local, smem_bytes=smem, blocks_per_sm=blocks,
+                warps_per_sm=blocks * threads // 32)
+
+
+def mma_info(name: str, device="cuda") -> dict:
+    """kernel_info of the tensor-core instance `name` (``MMA_KERNELS``)."""
+    return kernel_info(_lib().vs_curve_fold_mma_info, MMA_KERNELS.index(name), name, device)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
