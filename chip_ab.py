@@ -18,10 +18,13 @@ code:
     zh_coset_inv, the matmul NTT's twiddle), the operands passed as the
     vote path passes them: the device time of every kernel one call
     launches (a materialised broadcast's copy included) and of K1 alone;
-  * the fold mode's G1 bucket scan and G1 doubling, each called with an
-    explicit ``mode="fold"``: the scan at ``MSM_SHAPES``' path shape (the h
-    schedule's 80 rows x 248,832 lanes), the doubling at ``FOLD_DOUBLE``
-    (Horner's 16 lanes x 10, the ballot tail's 4 on 32 and 480 lanes):
+  * the fold mode's G1 bucket scan, G1 suffix round and G1 and G2
+    doublings, each called with an explicit ``mode="fold"``: the scan at
+    ``MSM_SHAPES``' path shape (the h schedule's 80 rows x 248,832 lanes),
+    the suffix round on its 432 x 512 grid at shifts 1 and 256
+    (``FOLD_SHIFTS``), the G1 doubling at ``FOLD_DOUBLE`` (Horner's 16
+    lanes x 10, the ballot tail's 4 on 32 and 480 lanes), the G2 doubling
+    at ``FOLD_G2_DOUBLE`` (Horner's 16 x 10, the ballot tail's 32 x 4):
     device ms a launch from torch.profiler, ms a call from CUDA events, the
     share of the fold bound (``chip_smoke.mode_work`` and ``bound``, the
     multiply-adds at the Programming Guide's rate), each output equal to
@@ -31,8 +34,11 @@ code:
     profiled batch's device time per kernel), its device-arm batches 0-2
     three times more (``loop_batches``), then ``[modes]``' fold batch
     (``fold_batch``: the batch under ``VSTPU_MUL=fold``, byte-identical to
-    the loop batch, timed by stage, and one profiled: busy share, device ms
-    per kernel).
+    the loop batch, timed by stage, the G2 doubling's launch widths
+    checked against ``FOLD_G2_DOUBLE``, and one profiled: busy share,
+    device ms per kernel), then one more fold batch with its G1 suffix
+    rounds counted (``suffix_doublings``: the warps that take the
+    doubling of the complete add, and those that skip the add).
 
 Each run prints one JSON line (``[ab] {...}``) and writes it under
 ``--out`` (``.chip_scratch/ab/``); the last line sets the runs side by
@@ -52,6 +58,10 @@ import time
 WIDTHS = (16, 32, 1 << 14)
 # the fold doubling's (lanes, doublings) on the vote path: Horner's step, the ballot tail's
 FOLD_DOUBLE = ((16, 10), (32, 4), (480, 4))
+FOLD_G2_DOUBLE = ((16, 10), (32, 4))
+# the fold suffix round's shifts on the 432 x 512 grid: the first and the last round's
+FOLD_SHIFTS = (1, 256)
+WARP = 32  # a warp's lanes: the suffix round's kernel runs 32 consecutive lanes of its grid together
 
 
 def _per_call(fn, reps: int):
@@ -88,11 +98,11 @@ def _ms(v) -> str:
 
 
 def fold_kernels(cs, dev, reps: int = 5) -> dict:
-    """g1_madd_scan and g1_double with mode="fold" at the vote path's shapes
-    (module docstring), each against the loop instance's output: {shape:
-    device ms a launch (chip_smoke.device_ms: the mean over the launches the
-    profiler recorded), ms a call (CUDA events), bound ms, share of the
-    bound}."""
+    """g1_madd_scan, g1_add_shift, g1_double and g2_double with mode="fold"
+    at the vote path's shapes (module docstring), each against the loop
+    instance's output: {shape: device ms a launch (chip_smoke.device_ms:
+    the mean over the launches the profiler recorded), ms a call (CUDA
+    events), bound ms, share of the bound}."""
     import random
 
     import torch
@@ -104,17 +114,26 @@ def fold_kernels(cs, dev, reps: int = 5) -> dict:
     rnd = random.Random(cs.SEED + 12)
     # the multiply-adds at the Programming Guide's rate (K9 raises it only where it measures more)
     rates = micro.card_int_rates({k: {"giter_s": 0.0} for k in micro.MUL_WIDE_KINDS})
-    table, codes, _grid = cs._msm_inputs(False, rnd, dev)
-    p, *_ = special_lanes(False, max(n for n, _t in FOLD_DOUBLE), rnd)
-    pts = cs._to_dev(zip(*p), dev)
+    table, codes, grid = cs._msm_inputs(False, rnd, dev)
     live = codes != 0
     cases = [("g1_madd_scan", f"{codes.shape[0]}x{codes.shape[1]}", "k_madd_scan",
               lambda m: hf.g1_madd_scan(table, codes, checked=True, mode=m), (*table, codes),
               cs._curve_mads("madd", False, int(live.sum()) - int(live.any(dim=0).sum())))]
-    for lanes, times in FOLD_DOUBLE:
-        P = tuple(c[:lanes].contiguous() for c in pts)
-        cases.append(("g1_double", f"{lanes}x{times}", "k_double", lambda m, P=P, t=times: hf.g1_double(P, t, mode=m),
-                      P, times * cs._curve_mads("double", False, lanes)))
+    rows, bw = grid[0].shape[:2]
+    fin = (grid[2] != 0).any(dim=-1)
+    for shift in FOLD_SHIFTS:
+        pairs = int((fin[:, : bw - shift] & fin[:, shift:]).sum())
+        cases.append(("g1_add_shift", f"{rows}x{bw} shift {shift}", "k_add_shift",
+                      lambda m, s=shift: hf.g1_add_shift(grid, s, mode=m), grid, cs._curve_mads("add", False, pairs)))
+    for g2, shapes in ((False, FOLD_DOUBLE), (True, FOLD_G2_DOUBLE)):
+        p, *_ = special_lanes(g2, max(n for n, _t in shapes), rnd)
+        pts = cs._to_dev(zip(*p), dev)
+        dbl = hf.g2_double if g2 else hf.g1_double
+        for lanes, times in shapes:
+            P = tuple(c[:lanes].contiguous() for c in pts)
+            cases.append((f"{'g2' if g2 else 'g1'}_double", f"{lanes}x{times}", "k_double",
+                          lambda m, P=P, t=times, dbl=dbl: dbl(P, t, mode=m), P,
+                          times * cs._curve_mads("double", g2, lanes)))
     out = {}
     for kname, shape, family, run, ins, mads in cases:
         got, want = run("fold"), run("loop")
@@ -174,12 +193,14 @@ def fold_batch(cs, e: dict, vote: dict) -> dict:
     """[modes]' fold batch with the tree's own code: under VSTPU_MUL=fold
     (restored after), [slice]'s device-arm batches 0-2 again from
     FrRandom(SEED + 1) with their votes, each byte-identical to [slice]'s:
-    batch 1 timed by stage, batch 2 under torch.profiler (the device's busy
-    share, device ms per kernel)."""
+    batch 1 timed by stage, its G2 doublings' launch widths (lanes:
+    launches) held to FOLD_G2_DOUBLE's, batch 2 under torch.profiler (the
+    device's busy share, device ms per kernel)."""
     import os
 
     import torch
 
+    from vote_saver_tpu_torch.ops import hopper_field as hf
     from vote_saver_tpu_torch.protocol import groth16, phases
     from vote_saver_tpu_torch.utils.rng import FrRandom
 
@@ -195,11 +216,16 @@ def fold_batch(cs, e: dict, vote: dict) -> dict:
                 out["profile"] = {key: prof.get(key) for key in ("wall_s", "busy_s", "plain_s", "port")}
             else:
                 timer = groth16.StageTimer("cuda") if k == 1 else None
+                hf.reset_launches()
                 t0 = time.perf_counter()
                 got = phases.vote_with_context(ctx, idx, votes, sks, rng, timer=timer)
                 torch.cuda.synchronize()
                 if k == 1:
-                    out.update(batch_s=time.perf_counter() - t0, stages_s=dict(timer.seconds))
+                    out.update(batch_s=time.perf_counter() - t0, stages_s=dict(timer.seconds),
+                               g2_double_widths=dict(hf.widths[hf.instance("g2_double", "fold")]))
+                    if not set(out["g2_double_widths"]) <= {n for n, _t in FOLD_G2_DOUBLE}:
+                        raise SystemExit(f"the fold batch's G2 doublings ran at {out['g2_double_widths']}, "
+                                         f"not at FOLD_G2_DOUBLE's widths")
             if [[x.hex() for x in b] for b in got] != [[x.hex() for x in b] for b in loop_ballots]:
                 raise SystemExit(f"fold batch {k} differs from the loop batch's ballots")
     finally:
@@ -209,8 +235,66 @@ def fold_batch(cs, e: dict, vote: dict) -> dict:
             os.environ["VSTPU_MUL"] = before
     prof = out.get("profile") or {}
     busy = "not measured" if not prof.get("busy_s") else f"busy {prof['busy_s']:.3f} s of {prof['wall_s']:.3f} s"
-    print(f"[ab] fold batch: {out['batch_s']:.3f} s, {busy}; byte-identical to the loop batches", flush=True)
+    print(f"[ab] fold batch: {out['batch_s']:.3f} s, {busy}; byte-identical to the loop batches; G2 doubling "
+          f"widths {out['g2_double_widths']}", flush=True)
     return out
+
+
+def suffix_doublings(cs, e: dict, vote: dict) -> dict:
+    """The fold batch's G1 suffix rounds, counted by warp: under
+    VSTPU_MUL=fold (restored after), [slice]'s device-arm batch 0 again
+    (byte-identical to [slice]'s), with hopper_field.g1_add_shift wrapped
+    so that each round also runs the flagged add g1_addx (loop instance) on
+    the same operands, its partners from shift_partner.  A warp (32
+    consecutive lanes of the round's flattened grid, as the kernel's) takes
+    the complete add's doubling where the flag, equal finite operands, is
+    set on any of its lanes, and skips the add where none of its lanes has
+    a partner.  {rounds, warps, warps_doubling, warps_skipping}."""
+    import os
+
+    import torch
+
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.protocol import phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
+
+    ctx, idx, sks = vote["ctx"], list(range(cs.BATCH)), [v[1] for v in e["voters"]]
+    votes, ballots = vote["device_batches"][0]
+    counts = dict(rounds=0, warps=0, warps_doubling=0, warps_skipping=0)
+    add_shift = hf.g1_add_shift
+
+    def counted(coords, shift, out=None, mode=None):
+        rows, bw = coords[0].shape[:2]
+        n = rows * bw
+        inf = hf._infinity(False, (rows, bw), coords[0].device)
+        _r, same = hf.g1_addx(coords, hf.shift_partner(coords, shift, inf), mode="loop")
+        partner = torch.arange(n, device=same.device) % bw + shift < bw
+        pad = -n % WARP
+        by_warp = [torch.cat([v.reshape(-1), v.new_zeros(pad)]).reshape(-1, WARP).any(dim=1)
+                   for v in (same != 0, partner)]
+        counts["rounds"] += 1
+        counts["warps"] += by_warp[0].numel()
+        counts["warps_doubling"] += int((by_warp[0] & by_warp[1]).sum())
+        counts["warps_skipping"] += int((~by_warp[1]).sum())
+        return add_shift(coords, shift, out=out, mode=mode)
+
+    before = os.environ.get("VSTPU_MUL")
+    os.environ["VSTPU_MUL"] = "fold"
+    hf.g1_add_shift = counted
+    try:
+        got = phases.vote_with_context(ctx, idx, votes, sks, FrRandom(cs.SEED + 1))
+        torch.cuda.synchronize()
+    finally:
+        hf.g1_add_shift = add_shift
+        if before is None:
+            os.environ.pop("VSTPU_MUL", None)
+        else:
+            os.environ["VSTPU_MUL"] = before
+    if [[x.hex() for x in b] for b in got] != [[x.hex() for x in b] for b in ballots]:
+        raise SystemExit("the counted fold batch differs from [slice]'s ballots")
+    print(f"[ab] fold batch G1 suffix rounds: {counts['rounds']} rounds, {counts['warps']} warps, "
+          f"{counts['warps_doubling']} take the doubling, {counts['warps_skipping']} skip the add", flush=True)
+    return counts
 
 
 def one(tree: pathlib.Path, widths) -> dict:
@@ -276,6 +360,7 @@ def one(tree: pathlib.Path, widths) -> dict:
     res["slice"]["profile"] = {k: prof.get(k) for k in ("wall_s", "busy_s", "plain_s", "port", "top_plain")}
     res["loop_batches_s"] = loop_batches(cs, e, vote)
     res["fold_batch"] = fold_batch(cs, e, vote)
+    res["suffix_doublings"] = suffix_doublings(cs, e, vote)
     return res
 
 

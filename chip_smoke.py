@@ -32,12 +32,13 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      version on every lane; each chain probe's registers, local bytes,
      dynamic shared memory and resident warps a SM as the CUDA runtime
      reports them.  K7 and K10 fold run their fold product on the int8
-     tensor cores, and so do the fold instances of the G1 bucket scan and
-     the G1 doubling (``g1_madd_scan_fold``, ``g1_double_fold``; their
+     tensor cores, and so do the fold instances of the G1 bucket scan, the
+     G1 suffix round and the G1 and G2 doublings (``g1_madd_scan_fold``,
+     ``g1_double_fold``, ``g1_add_shift_fold``, ``g2_double_fold``; their
      registers, local bytes, shared memory and warps a SM logged from the
      CUDA runtime in ``[kernels]`` and ``[modes]``): right after the build,
      ``cuobjdump -sass`` of the probe library and of the curve library must
-     show IMMA and no IDP (dp4a) in all four (``[sass]``);
+     show IMMA and no IDP (dp4a) in all six (``[sass]``);
   5. admin key generation for the depth-6 election on the card (Groth16
      setup through FixedBaseTable and K3d): its five blobs byte-identical to
      the host-native arm's, both arms timed;
@@ -164,9 +165,10 @@ K1_MODE_KERNELS = ("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont
 # of every curve kernel and of K1's Fermat chain (hopper_field.CURVE_KERNELS)
 CURVE_MODES = ("v1", "fold")
 # the kernels whose fold product runs on the int8 tensor cores (csrc/fold_mma.cuh):
-# the probes K7 and K10 fold, and the fold unit's G1 bucket scan and G1
-# doubling (hopper_field.MMA_KERNELS)
-FOLD_KERNELS = ("mul_chain_k7_fold", "mul_chain_k10_fold", "g1_madd_scan_fold", "g1_double_fold")
+# the probes K7 and K10 fold, and the fold unit's G1 bucket scan, G1 suffix
+# round and G1 and G2 doublings (hopper_field.MMA_KERNELS)
+FOLD_KERNELS = ("mul_chain_k7_fold", "mul_chain_k10_fold", "g1_madd_scan_fold", "g1_double_fold",
+                "g1_add_shift_fold", "g2_double_fold")
 # the built libraries [sass] reads for them
 FOLD_LIBS = ("libvstorch_micro_", "libvstorch_curve_fold_")
 # H100 SXM published peaks: HBM bytes/s, fp32 FLOP/s, int8 OP/s

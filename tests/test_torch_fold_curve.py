@@ -1,24 +1,35 @@
-"""The fold mode's G1 bucket scan and G1 doubling with their fold product on
-the int8 tensor cores (``csrc/curve_fold.cu``: ``Called<MulFoldMma>``), on
-the CPU, against the JAX package.
+"""The fold mode's G1 bucket scan, G1 suffix round and G1 and G2 doublings
+with their fold product on the int8 tensor cores (``csrc/curve_fold.cu``:
+``Called<MulFoldMma>`` in G1, ``MulFoldMma`` in G2), on the CPU, against
+the JAX package.
 
-On the card each Fq multiply of these two instances runs the tensor-core
+On the card each Fq multiply of these four instances runs the tensor-core
 fold of ``csrc/fold_mma.cuh``: a warp's 32 lanes of byte pieces as one A
 tile against the fold matrix, the lanes past n of a ragged warp padding
 rows.  Its data flow in plain PyTorch is ``fold_mul.mul_fold_tile``.  Here
 the plain formulas ``hopper_field.jac_madd`` (every multiply on every lane,
 then the selects: the converged kernel's ``jac_madd_select``),
 ``madd_scan_plain`` and ``double_plain`` run over an Fq whose multiply is
-that tile model, at 16 lanes (half a tile) and at 2 x 32 + 7 (the last tile
-ragged), on ``testing.special_lanes`` and ``testing.scan_lanes`` (idle
-codes, (0, 0) points, acc at infinity, h = 0 with r != 0, the doubling
-corner's flag).  They must equal the existing plain versions and, limb for
-limb, the JAX package's ``_jac_madd`` / ``_jac_double`` through the fold
-emitter (``FqEmitFold``, the body of ``_g1_madd_call`` / ``_g1_dbl_call``
-under ``VSTPU_MUL=fold``), run as ``tests/test_torch_curve_modes.py`` runs
-them (the JAX package unchanged), the scan row by row as
+that tile model (G2: an Fq2 over it, each Karatsuba product one tile
+multiply over the lanes, as each ``fq_mul_call`` is, and the 4-warp
+schedule of a G2 doubling of at most 32 lanes), at 16 lanes (half a
+tile) and at 2 x 32 + 7 (the last tile ragged), on
+``testing.special_lanes`` and ``testing.scan_lanes`` (idle codes, (0, 0)
+points, acc at infinity, h = 0 with r != 0, the doubling corner's flag);
+the suffix round as its converged kernel runs it (``_add_shift_converged``:
+partners in, canonical infinity past the row's end, partner-less warps
+skipped, the select-form add with the doubling on the warps that need it)
+on ``testing.shift_grid`` (equal operands, the same limbs, opposite
+points, both infinities) at bw = 16 over a ragged 48 lanes, every shift
+1-8, and at bw = 64, shift 32 (a warp without partners).  They must equal
+the existing plain versions and, limb for limb, the JAX package's
+``_jac_madd`` / ``_jac_add(complete=True)`` / ``_jac_double`` through the
+fold emitter (``FqEmitFold``, the body of ``_g1_madd_call`` /
+``_g1_add_call`` / ``_g1_dbl_call`` / ``_g2_dbl_call`` under
+``VSTPU_MUL=fold``), run as ``tests/test_torch_curve_modes.py`` runs them
+(the JAX package unchanged), the scan row by row as
 ``msm_sched._msm_device`` runs it.  Also: chip_smoke.py's names and SASS
-counts of the two instances, whose multiply is a called device function.
+counts of the four instances, whose multiply is a called device function.
 Exact equality throughout.
 
     python -m pytest tests/test_torch_fold_curve.py -q -p no:cacheprovider
@@ -40,7 +51,7 @@ from vote_saver_tpu_torch.ops import _build, fold_mul
 from vote_saver_tpu_torch.ops import hopper_field as hf
 from vote_saver_tpu_torch.ops import limbs as lb
 from vote_saver_tpu_torch.ops import msm_sched as ms
-from vote_saver_tpu_torch.testing import MADD_EXC, SCAN_EXC, scan_lanes, special_lanes, torch_threads
+from vote_saver_tpu_torch.testing import MADD_EXC, SCAN_EXC, scan_lanes, shift_grid, special_lanes, torch_threads
 
 # half a warp's tile (Horner's 16 lanes), and two tiles and a ragged one
 LANES = (16, 2 * fold_mul.TILE_LANES + 7)
@@ -70,21 +81,45 @@ class TileFq(hf.HalfField):
         return hf._half(out).reshape(a.shape)
 
 
+class TileFq2(hf.HalfField2):
+    """Fq2 over TileFq as the G2 kernels multiply (``mul_modes.cuh``'s
+    ``fmul`` / ``fsq`` on Fq2): each Karatsuba product (three a multiply,
+    two a square) one call of the Fq multiply over all the lanes, as each
+    ``fq_mul_call`` is one ``mul_fold_mma`` over a warp's lanes."""
+
+    def mul(self, a, b):
+        f = self.fq
+        a, b = torch.broadcast_tensors(a, b)
+        a0, a1, b0, b1 = a[..., 0, :], a[..., 1, :], b[..., 0, :], b[..., 1, :]
+        t0, t1 = f.mul(a0, b0), f.mul(a1, b1)
+        t2 = f.mul(f.add(a0, a1), f.add(b0, b1))
+        return torch.stack([f.sub(t0, t1), f.sub(t2, f.add(t0, t1))], dim=-2)
+
+    def sq(self, a):
+        f = self.fq
+        a0, a1 = a[..., 0, :], a[..., 1, :]
+        t0, t1 = f.mul(f.add(a0, a1), f.sub(a0, a1)), f.mul(a0, a1)
+        return torch.stack([t0, f.add(t1, t1)], dim=-2)
+
+
 @contextlib.contextmanager
 def _tile_fq():
-    """hopper_field's plain G1 formulas over TileFq while inside."""
+    """hopper_field's plain G1 and G2 formulas over TileFq while inside:
+    HALF_FQ2 was built over HALF["fq"] at import, so it is replaced too."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(hf.HALF, "fq", TileFq(lb.FQ))
+        tile = TileFq(lb.FQ)
+        mp.setitem(hf.HALF, "fq", tile)
+        mp.setattr(hf, "HALF_FQ2", TileFq2(tile))
         yield
 
 
-def _jax_double(env, P_host, times: int):
+def _jax_double(env, P_host, times: int, g2: bool = False):
     """``_jac_double`` through the fold emitter, `times` times."""
-    f = _emitter(env, "fold", False)
-    cols = _jax_cols(P_host, 3, False, env)
+    f = _emitter(env, "fold", g2)
+    cols = _jax_cols(P_host, 3, g2, env)
     for _ in range(times):
         cols = env["pf"]._jac_double(f, cols)
-    return tuple(_from_jax(c, False) for c in cols)
+    return tuple(_from_jax(c, g2) for c in cols)
 
 
 def _equal(a, b) -> bool:
@@ -167,6 +202,146 @@ def test_scan_on_the_tile_matches_the_fold_pallas_row_scan(env16, lanes):
     assert exc.tolist() == jexc.astype(int).tolist()
 
 
+def _double_g2_warps(p):
+    """One G2 doubling as jac_double_warps (csrc/curve.cuh) schedules it for
+    a launch of at most 32 lanes: its 16 Fq products in 4 rounds of 4, warp
+    w taking product w of each round for all the lanes, over the current
+    hopper_field.HALF["fq"]."""
+    f = hf.HALF["fq"]
+
+    def c(v):
+        return v[..., 0, :], v[..., 1, :]
+
+    def fq2(c0, c1):
+        return torch.stack([c0, c1], dim=-2)
+
+    def rnd(*pairs):  # one round: 4 products, one multiply each
+        assert len(pairs) == 4
+        return [f.mul(a, b) for a, b in pairs]
+
+    add, sub = f.add, f.sub
+    (x0, x1), (y0, y1), (z0, z1) = c(p[0]), c(p[1]), c(p[2])
+    t = rnd((add(x0, x1), sub(x0, x1)), (x0, x1), (add(y0, y1), sub(y0, y1)), (y0, y1))
+    a, b = (t[0], add(t[1], t[1])), (t[2], add(t[3], t[3]))
+    u = (add(x0, b[0]), add(x1, b[1]))
+    t = rnd((add(*b), sub(*b)), b, (add(*u), sub(*u)), u)
+    cc = (t[0], add(t[1], t[1]))
+    d = [sub(s, add(ai, ci)) for s, ai, ci in zip((t[2], add(t[3], t[3])), a, cc)]
+    d = [add(v, v) for v in d]
+    e = [add(add(ai, ai), ai) for ai in a]
+    v = (add(y0, y0), add(y1, y1))
+    t = rnd((add(*e), sub(*e)), tuple(e), (v[0], z0), (v[1], z1))
+    ff, zt = (t[0], add(t[1], t[1])), (t[2], t[3])
+    x3 = [sub(fi, add(di, di)) for fi, di in zip(ff, d)]
+    g = [sub(di, xi) for di, xi in zip(d, x3)]
+    t = rnd((add(*v), add(z0, z1)), (e[0], g[0]), (e[1], g[1]), (add(*e), add(*g)))
+    c8 = [add(ci, ci) for ci in cc]
+    c8 = [add(ci, ci) for ci in c8]
+    c8 = [add(ci, ci) for ci in c8]
+    m = (sub(t[1], t[2]), sub(t[3], add(t[1], t[2])))
+    return (fq2(*x3), fq2(*[sub(mi, ci) for mi, ci in zip(m, c8)]),
+            fq2(sub(zt[0], zt[1]), sub(t[0], add(zt[0], zt[1]))))
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_g2_double_on_the_tile_matches_the_fold_pallas_double(env16, lanes):
+    """k_double<Fq2, MulFoldMma>'s data flow: two G2 doublings over an Fq2
+    whose every Karatsuba product is a tile multiply, and (for launches of
+    at most 32 lanes, here at any width) jac_double_warps' schedule of the
+    16 products in 4 rounds, canonical infinity (lane 0) included: the
+    plain doubling's limbs and the JAX fold formula's (``_jac_double``
+    through ``Fq2Emit(FqEmitFold)``)."""
+    p, *_ = special_lanes(True, lanes, random.Random(90 + lanes))
+    P = _port(p, 3)
+    want = hf.double_plain(True, P, 2)
+    with _tile_fq():
+        assert isinstance(hf._field(True), TileFq2)
+        got = hf.double_plain(True, P, 2)
+        warps = tuple(map(hf._half, P))
+        for _ in range(2):
+            warps = _double_g2_warps(warps)
+    assert _equal(got, want) and _equal(tuple(map(hf._pack, warps)), want)
+    assert not got[2][0].any()
+    assert _equal(got, _jax_double(env16, p, 2, g2=True))
+
+
+def _add_shift_converged(coords, shift: int):
+    """One suffix round over a (rows, bw, L) grid as the converged
+    k_add_shift<Fq, Called<MulFoldMma>> runs it, over the current
+    hopper_field.HALF["fq"]: the rows * bw lanes flattened and padded to
+    whole warps of 32 with lane n - 1 (lane_in); each lane's partner in[i +
+    shift] where i % bw + shift < bw, else canonical infinity; a warp none
+    of whose lanes has a partner keeps p (infinity where p is infinite);
+    the others run jac_add_select: the generic add, the doubling on the
+    warps with a same lane (equal finite operands), then the selects in
+    _jac_add's order.  -> (coords, warps that took the doubling)."""
+    rows, bw = coords[0].shape[:2]
+    n, W = rows * bw, fold_mul.TILE_LANES
+    nw = -(-n // W)
+    f = hf._field(False)
+    idx = torch.arange(nw * W).clamp(max=n - 1)
+    partner = idx % bw + shift < bw
+    k = torch.where(partner, idx + shift, idx)
+    inf = hf._infinity(False, (nw * W,), "cpu")
+    flat = tuple(c.reshape(n, -1) for c in coords)
+    p = tuple(hf._half(c[idx]) for c in flat)
+    q = tuple(hf._half(torch.where(partner[:, None], c[k], i)) for c, i in zip(flat, inf))
+    p_inf, q_inf = f.is_zero(p[2]), f.is_zero(q[2])
+    out = tuple(f.select(p_inf, i, c) for i, c in zip(map(hf._half, inf), p))  # the skipped warps' result
+    live = torch.nonzero(partner.reshape(nw, W).any(dim=1).repeat_interleave(W)).flatten()
+    dbl_warps = 0
+    if live.numel():
+        pl, ql = tuple(c[live] for c in p), tuple(c[live] for c in q)
+        add, h, rr = hf._jac_add_generic(f, pl, ql)
+        h_zero, r_zero = f.is_zero(h), f.is_zero(rr)
+        pl_inf, ql_inf = p_inf[live], q_inf[live]
+        same = h_zero & r_zero & ~pl_inf & ~ql_inf
+        warp_same = same.reshape(-1, W).any(dim=1)
+        dbl_warps = int(warp_same.sum())
+        if dbl_warps:
+            d = torch.nonzero(warp_same.repeat_interleave(W)).flatten()
+            dbl = hf.jac_double(f, tuple(c[d] for c in pl))
+            add = tuple(a.index_put((d,), f.select(same[d], x, a[d])) for a, x in zip(add, dbl))
+        one = f.one_like(pl[0])
+        opposite = h_zero & ~r_zero & ~pl_inf & ~ql_inf
+        add = tuple(f.select(opposite, i, a) for i, a in zip((one, one, f.zero_like(one)), add))
+        add = tuple(f.select(pl_inf, b, a) for b, a in zip(ql, add))
+        add = tuple(f.select(ql_inf & ~pl_inf, b, a) for b, a in zip(pl, add))
+        out = tuple(o.index_put((live,), a) for o, a in zip(out, add))
+    return tuple(hf._pack(c[:n]).reshape(coords[0].shape) for c in out), dbl_warps
+
+
+# (bw, shift): a ragged 3 x 16 grid (48 lanes, the last warp half padding)
+# at every shift 1 .. bw / 2, and a 1 x 64 row at shift 32, whose second
+# warp has no partner
+SHIFT_CASES = [(16, s) for s in range(1, 9)] + [(64, 32)]
+
+
+@pytest.mark.parametrize("bw,shift", SHIFT_CASES)
+def test_suffix_round_on_the_tile_matches_the_fold_pallas_add(env16, bw, shift):
+    """The converged suffix round with the tile's multiply on
+    testing.shift_grid (row 0: equal operands at shift 1, the same limbs at
+    shift 2, opposite points at shift 4, canonical infinity, infinity with
+    random x and y, an infinite lane bw - 1): add_shift_plain's limbs and
+    the JAX fold formula's ``_jac_add(complete=True)`` on the rolled
+    partners; the doubling taken by warp 0 alone where row 0 has equal
+    operands (shifts 1 and 2), by none elsewhere."""
+    rows = 48 // bw if bw == 16 else 1
+    pts = shift_grid(False, rows, bw, random.Random(140 + bw + shift))
+    coords = tuple(c.reshape(rows, bw, -1) for c in _port(pts, 3))
+    want = hf.add_shift_plain(False, coords, shift)
+    with _tile_fq():
+        got, dbl_warps = _add_shift_converged(coords, shift)
+    assert _equal(got, want)
+    assert dbl_warps == (1 if shift in (1, 2) else 0)
+    inf = ((1, 1, 0),)
+    partners = [pts[i + shift] if i % bw + shift < bw else inf[0] for i in range(rows * bw)]
+    f = _emitter(env16, "fold", False)
+    jout = env16["pf"]._jac_add(f, _jax_cols(pts, 3, False, env16), _jax_cols(partners, 3, False, env16),
+                                complete=True)
+    assert _equal(tuple(c.reshape(rows * bw, -1) for c in got), tuple(_from_jax(c, False) for c in jout))
+
+
 # the fold unit's tensor-core instances as the profiler (demangled) and
 # ptxas / cuobjdump (mangled) name them, called and inlined, and a G2 fold
 # instance beside them
@@ -175,21 +350,29 @@ _NAMES = {
         "g1_madd_scan_fold",
     "(anonymous namespace)::k_double<Fp<FqParams>, Called<MulFoldMma> >(unsigned int const*, ...)": "g1_double_fold",
     "(anonymous namespace)::k_double<Fp<FqParams>, MulFoldMma>(unsigned int const*, ...)": "g1_double_fold",
-    "(anonymous namespace)::k_double<Fq2, MulFold>(unsigned int const*, ...)": "g2_double_fold",
+    "(anonymous namespace)::k_add_shift<Fp<FqParams>, Called<MulFoldMma> >(unsigned int const*, ...)":
+        "g1_add_shift_fold",
+    "(anonymous namespace)::k_double<Fq2, MulFoldMma>(unsigned int const*, ...)": "g2_double_fold",
+    "(anonymous namespace)::k_add_shift<Fq2, MulFold>(unsigned int const*, ...)": "g2_add_shift_fold",
     "(anonymous namespace)::k_madd_scan<Fq2, MulFold>(unsigned int const*, ...)": "g2_madd_scan_fold",
 }
 _SCAN = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_madd_scanI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_PKiixPjSC_SC_Pi"
 _DBL = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN8k_doubleI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_S9_PjSA_SA_xi"
 _DBL_INLINE = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN8k_doubleI2FpI8FqParamsE10MulFoldMmaEEvPKjS7_S7_PjS8_S8_xi"
-_G2_DBL = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN8k_doubleI3Fq27MulFoldEEvPKjS4_S4_PjS5_S5_xi"
+_SHIFT = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_add_shiftI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_S9_"
+          "PjSA_SA_xii")
+_G2_DBL = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN8k_doubleI3Fq210MulFoldMmaEEvPKjS4_S4_PjS5_S5_xi"
+_G2_SHIFT = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_add_shiftI3Fq27MulFoldEEvPKjS4_S4_PjS5_S5_xii"
+_FQ_MUL_MMA = "_Z11fq_mul_callI10MulFoldMmaE2FpI8FqParamsES3_S3_"
 _MUL_MMA = "_Z10mul_calledI10MulFoldMma8FqParamsE2FpIT0_ES4_S4_"
 
 
 def test_mma_instances_keep_their_names():
     """The profiler's and ptxas's names of the tensor-core instances map to
-    g1_madd_scan_fold / g1_double_fold (the mode's name holds MulFold), a
-    G2 fold instance keeps its own name, and the called multiply is no
-    kernel of the kernels line."""
+    g1_madd_scan_fold / g1_double_fold / g1_add_shift_fold /
+    g2_double_fold (the mode's name holds MulFold), a G2 fold instance on
+    the dp4a fold keeps its own name, and the called multiplies (G1's
+    mul_called, G2's fq_mul_call) are no kernels of the kernels line."""
     _root_on_path()
     import chip_smoke
 
@@ -197,10 +380,17 @@ def test_mma_instances_keep_their_names():
         assert chip_smoke.kernel_key(name) == want, name
     assert _build.short_name(_SCAN) == "k_madd_scan<FqParams,Called<MulFoldMma>>"
     assert _build.short_name(_DBL_INLINE) == "k_double<FqParams,MulFoldMma>"
-    assert [chip_smoke.instance_name(_build.short_name(n)) for n in (_SCAN, _DBL, _DBL_INLINE, _G2_DBL)] == [
-        "g1_madd_scan_fold", "g1_double_fold", "g1_double_fold", "g2_double_fold"]
+    assert _build.short_name(_SHIFT) == "k_add_shift<FqParams,Called<MulFoldMma>>"
+    assert _build.short_name(_G2_DBL) == "k_double<Fq2,MulFoldMma>"
+    names = (_SCAN, _DBL, _DBL_INLINE, _SHIFT, _G2_DBL, _G2_SHIFT)
+    assert [chip_smoke.instance_name(_build.short_name(n)) for n in names] == [
+        "g1_madd_scan_fold", "g1_double_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold",
+        "g2_add_shift_fold"]
     assert _build.short_name(_MUL_MMA) == "mul_called<MulFoldMma,FqParams>"
+    assert _build.short_name(_FQ_MUL_MMA) == "fq_mul_call<MulFoldMma,FqParams>"
     assert chip_smoke.instance_name(_build.short_name(_MUL_MMA)) is None
+    assert chip_smoke.instance_name(_build.short_name(_FQ_MUL_MMA)) is None
+    assert hf.MMA_KERNELS == ("g1_madd_scan_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold")
     assert set(hf.MMA_KERNELS) <= set(chip_smoke.FOLD_KERNELS) and set(hf.MMA_KERNELS) <= set(hf.KERNELS)
     assert {"vs_curve_fold_mma_upload", "vs_curve_fold_mma_info"} <= set(_build.UNITS["curve_fold.cu"])
 
@@ -226,28 +416,47 @@ _SASS = f"""
         /*0220*/                   EXIT ;
         /*0230*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
         /*0240*/                   RET.REL.NODEC R20 0x0 ;
+		Function : {_SHIFT}
+        /*0300*/              @!P0 BRA 0x320 ;
+        /*0310*/                   CALL.REL.NOINC 0x340 ;
+        /*0320*/                   EXIT ;
+        /*0340*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
+        /*0350*/                   IMMA.16832.U8.S8 R12, R48.ROW, R44.COL, R12 ;
+        /*0360*/                   IMMA.16832.U8.S8 R16, R40.ROW, R52.COL, R16 ;
+        /*0370*/                   RET.REL.NODEC R20 0x0 ;
 		Function : {_G2_DBL}
-        /*0300*/                   CALL.REL.NOINC 0x320 ;
-        /*0310*/                   EXIT ;
-        /*0320*/                   FFMA R1, R2, R3, R4 ;
-        /*0330*/                   IDP.4A.U8.S8 R4, R8, c[0x3][0x0], R4 ;
-        /*0340*/                   RET.REL.NODEC R20 0x0 ;
+        /*0400*/                   CALL.REL.NOINC 0x420 ;
+        /*0410*/                   EXIT ;
+        /*0420*/                   FFMA R1, R2, R3, R4 ;
+        /*0430*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
+        /*0440*/                   RET.REL.NODEC R20 0x0 ;
+		Function : {_G2_SHIFT}
+        /*0500*/                   CALL.REL.NOINC 0x520 ;
+        /*0510*/                   EXIT ;
+        /*0520*/                   FFMA R1, R2, R3, R4 ;
+        /*0530*/                   IDP.4A.U8.S8 R4, R8, c[0x3][0x0], R4 ;
+        /*0540*/                   RET.REL.NODEC R20 0x0 ;
 """
 
 
 def test_sass_counts_hold_the_called_multiply():
     """[sass] counts a kernel's instructions with those of the multiply it
     calls out of line, which cuobjdump lists inside the kernel's code: the
-    tensor-core instances show IMMA and no IDP, the G2 fold doubling the
-    dp4a of mul_fold, each under its kernels-line name."""
+    tensor-core instances (the G2 doubling among them) show IMMA and no
+    IDP, the G2 fold suffix round the dp4a of mul_fold, each under its
+    kernels-line name."""
     _root_on_path()
     import chip_smoke
 
     assert chip_smoke.sass_counts(_SASS) == {
         "g1_madd_scan_fold": {"IMMA": 2, "IDP": 0, "FFMA": 1, "all": 9},
         "g1_double_fold": {"IMMA": 1, "IDP": 0, "FFMA": 0, "all": 5},
-        "g2_double_fold": {"IMMA": 0, "IDP": 1, "FFMA": 1, "all": 5},
+        "g1_add_shift_fold": {"IMMA": 3, "IDP": 0, "FFMA": 0, "all": 7},
+        "g2_double_fold": {"IMMA": 1, "IDP": 0, "FFMA": 1, "all": 5},
+        "g2_add_shift_fold": {"IMMA": 0, "IDP": 1, "FFMA": 1, "all": 5},
     }
+    assert all(counts["IMMA"] and not counts["IDP"] for k, counts in chip_smoke.sass_counts(_SASS).items()
+               if k in hf.MMA_KERNELS)
 
 
 def test_fold_launcher_uploads_the_b_operand_once_a_card(monkeypatch):

@@ -30,9 +30,10 @@
 // the same value; the doubling in the complete add and the whole madd of an
 // inactive lane are computed only where they are taken, which keeps the
 // doubling's temporaries out of the generic path's register live range.
-// jac_madd_select is the madd in the Pallas form, every multiply on every
-// lane and the result selected, for a mode whose multiply a warp runs
-// together (the tensor-core fold: mma.sync is .sync.aligned).
+// jac_madd_select and jac_add_select are the madd and the complete add in
+// the Pallas form, every multiply on every lane and the result selected,
+// for a mode whose multiply a warp runs together (the tensor-core fold:
+// mma.sync is .sync.aligned).
 #pragma once
 
 #include "mul_modes.cuh"
@@ -58,6 +59,65 @@ __device__ __forceinline__ Jac<E> jac_double(const Jac<E>& p) {
   const E y3 = sub(fmul<M>(e, sub(d, x3)), c8);
   const E z3 = fmul<M>(add(p.y, p.y), p.z);
   return {x3, y3, z3};
+}
+
+// One round of jac_double_warps: warp w multiplies x * y for its 32 lanes
+// (its operands are product w of the round), and every thread gets the
+// round's 4 products of its lane, passed through each warp's tile.
+template <class M>
+__device__ __forceinline__ void warp_round(const Fq& x, const Fq& y, Fq (&t)[4]) {
+  const Fq r = fq_mul_call<M>(x, y);
+  const int lane = threadIdx.x & 31;
+  reinterpret_cast<Fq*>(M::warp_tile(threadIdx.x >> 5))[lane] = r;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < 4; ++w) t[w] = reinterpret_cast<const Fq*>(M::warp_tile(w))[lane];
+  __syncthreads();  // the tiles are free for the next round's multiplies
+}
+
+__device__ __forceinline__ Fq pick(int w, const Fq& a, const Fq& b, const Fq& c, const Fq& d) {
+  return sel(w == 0, a, sel(w == 1, b, sel(w == 2, c, d)));
+}
+
+// jac_double in G2 on the 4 warps of a block that all hold the same 32
+// lanes, for a converged mode whose warps pass values through their tiles
+// (MulFoldMma::warp_tile): the doubling's 16 Fq products (5 Fq2 squares of
+// 2, 2 Fq2 multiplies of 3, the Karatsuba forms of fsq / fmul) in 4 rounds
+// of 4, warp w taking product w of each round:
+//   1. a = x^2, b = y^2                   a.t0  a.t1  b.t0  b.t1
+//   2. c = b^2, s = (x + b)^2             c.t0  c.t1  s.t0  s.t1
+//   3. ff = e^2 (e = 3a), z3 = 2y * z     ff.t0 ff.t1 z3.t0 z3.t1
+//   4.                    y3 = e(d - x3)  z3.t2 m.t0  m.t1  m.t2
+// A chain of 4 multiplies a doubling, against jac_double's 16.  Same limbs.
+template <class M>
+__device__ Jac<Fq2> jac_double_warps(const Jac<Fq2>& p) {
+  const int w = threadIdx.x >> 5;
+  const Fq2 &x = p.x, &y = p.y, &z = p.z;
+  Fq t[4];
+  warp_round<M>(pick(w, add(x.c0, x.c1), x.c0, add(y.c0, y.c1), y.c0),
+                pick(w, sub(x.c0, x.c1), x.c1, sub(y.c0, y.c1), y.c1), t);
+  const Fq2 a = {t[0], add(t[1], t[1])};
+  const Fq2 b = {t[2], add(t[3], t[3])};
+  const Fq2 u = add(x, b);
+  warp_round<M>(pick(w, add(b.c0, b.c1), b.c0, add(u.c0, u.c1), u.c0),
+                pick(w, sub(b.c0, b.c1), b.c1, sub(u.c0, u.c1), u.c1), t);
+  const Fq2 c = {t[0], add(t[1], t[1])};
+  Fq2 d = sub(Fq2{t[2], add(t[3], t[3])}, add(a, c));
+  d = add(d, d);
+  const Fq2 e = add(add(a, a), a);
+  const Fq2 v = add(y, y);
+  warp_round<M>(pick(w, add(e.c0, e.c1), e.c0, v.c0, v.c1), pick(w, sub(e.c0, e.c1), e.c1, z.c0, z.c1), t);
+  const Fq2 ff = {t[0], add(t[1], t[1])};
+  const Fq z0 = t[2], z1 = t[3];
+  const Fq2 x3 = sub(ff, add(d, d));
+  const Fq2 g = sub(d, x3);
+  warp_round<M>(pick(w, add(v.c0, v.c1), e.c0, e.c1, add(e.c0, e.c1)),
+                pick(w, add(z.c0, z.c1), g.c0, g.c1, add(g.c0, g.c1)), t);
+  Fq2 c8 = add(c, c);
+  c8 = add(c8, c8);
+  c8 = add(c8, c8);
+  const Fq2 m = {sub(t[1], t[2]), sub(t[3], add(t[1], t[2]))};
+  return {x3, sub(m, c8), {sub(z0, z1), sub(t[0], add(z0, z1))}};
 }
 
 template <class E>
@@ -99,6 +159,50 @@ __device__ Jac<E> jac_add(const Jac<E>& p, const Jac<E>& q) {
   if (p_inf) out = q;
   if (q_inf && !p_inf) out = p;
   return out;
+}
+
+// jac_add without a per-lane branch: the generic 16 multiplies on every
+// lane, then the selects in the order of the Pallas _jac_add
+// (vote_saver_tpu/ops/pallas_field.py:406-441) and of the plain
+// hopper_field.jac_add: same -> double(p), opposite -> infinity, p infinite
+// -> q, q infinite and p finite -> p.  Same limbs as jac_add.  Every thread
+// of the warp calls it together (a converged mode's kernel): the doubling's
+// 7 multiplies run only where some lane of the warp is a same lane, a
+// warp-uniform test, so every thread reaches every multiply.
+template <class E, class M>
+__device__ Jac<E> jac_add_select(const Jac<E>& p, const Jac<E>& q) {
+  const E z1z1 = fsq<M>(p.z);
+  const E z2z2 = fsq<M>(q.z);
+  const E u1 = fmul<M>(p.x, z2z2);
+  const E u2 = fmul<M>(q.x, z1z1);
+  const E s1 = fmul<M>(fmul<M>(p.y, q.z), z2z2);
+  const E s2 = fmul<M>(fmul<M>(q.y, p.z), z1z1);
+  const E h = sub(u2, u1);
+  E rr = sub(s2, s1);
+  rr = add(rr, rr);
+  const E i = fsq<M>(add(h, h));
+  const E j = fmul<M>(h, i);
+  const E v = fmul<M>(u1, i);
+  Jac<E> out;
+  out.x = sub(sub(fsq<M>(rr), j), add(v, v));
+  const E s1j = fmul<M>(s1, j);
+  out.y = sub(fmul<M>(rr, sub(v, out.x)), add(s1j, s1j));
+  out.z = fmul<M>(sub(fsq<M>(add(p.z, q.z)), add(z1z1, z2z2)), h);
+  const bool p_inf = is_zero(p.z);
+  const bool q_inf = is_zero(q.z);
+  const bool h_zero = is_zero(h);
+  const bool r_zero = is_zero(rr);
+  const bool same = h_zero && r_zero && !p_inf && !q_inf;
+  if (__any_sync(0xffffffffu, same)) {
+    const Jac<E> d = jac_double<E, M>(p);
+    out = {sel(same, d.x, out.x), sel(same, d.y, out.y), sel(same, d.z, out.z)};
+  }
+  const bool opposite = h_zero && !r_zero && !p_inf && !q_inf;
+  const E one = one_of<E>();
+  out = {sel(opposite, one, out.x), sel(opposite, one, out.y), sel(opposite, zero_of<E>(), out.z)};
+  out = {sel(p_inf, q.x, out.x), sel(p_inf, q.y, out.y), sel(p_inf, q.z, out.z)};
+  const bool keep = q_inf && !p_inf;
+  return {sel(keep, p.x, out.x), sel(keep, p.y, out.y), sel(keep, p.z, out.z)};
 }
 
 // Distinct-operand Jacobian add (_jac_add with complete=False): the generic

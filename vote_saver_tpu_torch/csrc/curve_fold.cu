@@ -9,13 +9,15 @@
 // columns, the reduction as one product with the constant matrix, two
 // 16-bit word steps and a conditional subtract.  Two forms of that product:
 //
-//   * the G1 bucket scan (k_madd_scan) and the G1 doubling (k_double):
-//     Called<MulFoldMma> (fold_mma.cuh), the product a warp's 32 lanes at
-//     once as 126 mma.sync on the int8 tensor cores, the B operand in this
-//     unit's device memory (kFoldMmaFq), copied into each block's shared
-//     memory by the kernel's prologue.  What bounds a multiply there: the
-//     2,304 fp32 FMAs of the digit columns, one issue slot each.  Both
-//     kernels run in their converged form (curve_kernels.cuh).
+//   * the G1 bucket scan (k_madd_scan), the G1 suffix round (k_add_shift)
+//     and the G1 doubling (k_double): Called<MulFoldMma> (fold_mma.cuh),
+//     and the G2 doubling (k_double<Fq2>): MulFoldMma, its Fq2 multiply
+//     calling it out of line (fq_mul_call); the product a warp's 32 lanes
+//     at once as 126 mma.sync on the int8 tensor cores, the B operand in
+//     this unit's device memory (kFoldMmaFq), copied into each block's
+//     shared memory by the kernel's prologue.  What bounds a multiply
+//     there: the 2,304 fp32 FMAs of the digit columns, one issue slot each.
+//     The four kernels run in their converged form (curve_kernels.cuh).
 //   * every other kernel: MulFold (mul_modes.cuh), the product as 72 x 52
 //     dp4a a lane against the matrix in this unit's __constant__ memory;
 //     bound by the 2,304 FMAs and those 3,744 dp4a with their constant
@@ -37,16 +39,20 @@
 #define VS_MODE MulFold
 #define VS_SUFFIX _fold
 #define VS_MODE_G1_MMA Called<MulFoldMma>
+#define VS_MODE_G2_MMA MulFoldMma
 #include "curve_unit.cuh"
 
 namespace {
 
 constexpr int kMmaSmem = ModeG1Mma::smem_bytes(kThreads);
+static_assert(ModeG2Mma::smem_bytes(kThreads) == kMmaSmem, "one shared-memory size for every tensor-core instance");
 
 // the tensor-core instances, in the order of hopper_field.MMA_KERNELS
 const void* const kMmaKernels[] = {
     reinterpret_cast<const void*>(k_madd_scan<Fq, ModeG1Mma>),
     reinterpret_cast<const void*>(k_double<Fq, ModeG1Mma>),
+    reinterpret_cast<const void*>(k_add_shift<Fq, ModeG1Mma>),
+    reinterpret_cast<const void*>(k_double<Fq2, ModeG2Mma>),
 };
 
 }  // namespace

@@ -33,21 +33,24 @@
 // Called<M> (one out-of-line copy of the mode's multiply; the loop
 // instances of K3d and K5/K6 take MulLoop inlined), a G2 kernel M, whose
 // Fq2 multiply calls its Fq multiply out of line (fq_mul_call).  The fold
-// unit's G1 bucket scan and G1 doubling take Called<MulFoldMma>, the fold
-// product on the int8 tensor cores (fold_mma.cuh).
+// unit's G1 bucket scan, G1 suffix round and G1 doubling take
+// Called<MulFoldMma>, its G2 doubling MulFoldMma: the fold product on the
+// int8 tensor cores (fold_mma.cuh).
 //
 // The converged form.  A mode whose multiply a warp runs together
 // (M::kConverged: mma.sync and ldmatrix are .sync.aligned) needs every
-// thread of a warp at each multiply.  k_madd_scan and k_double take this
-// form for such a mode (if constexpr; the other modes' code is the one
-// form they had): every thread of the block runs M::prologue() first; then
-// a warp whose lanes are all past n exits, and a thread past n inside a
-// live warp computes on lane n - 1's data (lane_in) and skips its stores;
-// the scan's madd is jac_madd_select (curve.cuh: every multiply on every
-// lane, then selects) instead of jac_madd's early returns.  The one branch
-// left before a multiply, scan_point's idle code, ends before the multiply,
-// and mul_fold_mma synchronises the warp (__syncwarp) between its pieces
-// and its product.  The launchers pass M::smem_bytes(kThreads) as the
+// thread of a warp at each multiply.  k_madd_scan, k_add_shift and
+// k_double take this form for such a mode (if constexpr; the other modes'
+// code is the one form they had): every thread of the block runs
+// M::prologue() first; then a warp whose lanes are all past n exits, and a
+// thread past n inside a live warp computes on lane n - 1's data (lane_in)
+// and skips its stores; the scan's madd is jac_madd_select and the suffix
+// round's add jac_add_select (curve.cuh: every multiply on every lane,
+// then selects) instead of jac_madd's early returns and jac_add's
+// branches.  The branches left before a multiply (scan_point's idle code;
+// the warp-uniform skips of k_add_shift and jac_add_select) end before the
+// multiply, and mul_fold_mma synchronises the warp (__syncwarp) between its
+// pieces and its product.  The launchers pass M::smem_bytes(kThreads) as the
 // launch's dynamic shared memory (0 for the other modes); a kernel may take
 // more than 48 KB of it only once the card's limit for it is lifted, which
 // the fold unit's B operand upload does (curve_fold.cu).
@@ -68,6 +71,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "curve.cuh"
 
@@ -274,29 +278,69 @@ __global__ void __launch_bounds__(kThreads)
 // 147 KB in G2) between rounds behind a block-wide barrier, and at this
 // kernel's 234 registers (G1 loop; G2 255 and 1,520 B of spill stores,
 // ptxas) a block of 512 threads would need 119,808 of the SM's 65,536.
+//
+// In a converged mode (the fold unit's G1 instance: 6,912 warps a round at
+// 432 x 512, so bound by the multiplies' issue, not by latency) no lane
+// branches on its partner: a lane with none takes canonical infinity as q,
+// and jac_add_select(p, infinity) gives p, or (1, 1, 0) where p is
+// infinite, as the other form's else arm does.  A warp none of whose lanes
+// has a partner (b >= bw - shift for all 32: shift / 32 of a row's bw / 32
+// warps at shift >= 32 with bw a multiple of 32) skips the add as a whole,
+// a warp-uniform test; the add computes the doubling only where a lane of
+// the warp has equal operands, which empty bucket ranges make adjacent
+// partial sums have (msm_sched._suffix_and_total).
 template <class E, class M>
 __global__ void __launch_bounds__(kThreads)
     k_add_shift(const uint32_t* px, const uint32_t* py, const uint32_t* pz, uint32_t* ox,
                 uint32_t* oy, uint32_t* oz, long long n, int bw, int shift) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Jac<E> p;
-  load(p.x, px, i);
-  load(p.y, py, i);
-  load(p.z, pz, i);
-  Jac<E> r;
-  if ((long long)(i % bw) + shift < bw) {
-    Jac<E> q;
-    load(q.x, px, i + shift);
-    load(q.y, py, i + shift);
-    load(q.z, pz, i + shift);
-    r = jac_add<E, M>(p, q);
+  if constexpr (M::kConverged) {
+    M::prologue();
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (past_end<M>(t, n)) return;
+    const long long i = lane_in<M>(t, n);
+    const bool partner = (long long)(i % bw) + shift < bw;
+    const long long k = partner ? i + shift : i;
+    Jac<E> p, q;
+    load(p.x, px, i);
+    load(p.y, py, i);
+    load(p.z, pz, i);
+    load(q.x, px, k);
+    load(q.y, py, k);
+    load(q.z, pz, k);
+    const Jac<E> inf = jac_infinity<E>();
+    q = {sel(partner, q.x, inf.x), sel(partner, q.y, inf.y), sel(partner, q.z, inf.z)};
+    Jac<E> r;
+    if (__any_sync(0xffffffffu, partner)) {
+      r = jac_add_select<E, M>(p, q);
+    } else {
+      const bool p_inf = is_zero(p.z);
+      r = {sel(p_inf, inf.x, p.x), sel(p_inf, inf.y, p.y), sel(p_inf, inf.z, p.z)};
+    }
+    if (t >= n) return;
+    store(ox, i, r.x);
+    store(oy, i, r.y);
+    store(oz, i, r.z);
   } else {
-    r = is_zero(p.z) ? jac_infinity<E>() : p;
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    Jac<E> p;
+    load(p.x, px, i);
+    load(p.y, py, i);
+    load(p.z, pz, i);
+    Jac<E> r;
+    if ((long long)(i % bw) + shift < bw) {
+      Jac<E> q;
+      load(q.x, px, i + shift);
+      load(q.y, py, i + shift);
+      load(q.z, pz, i + shift);
+      r = jac_add<E, M>(p, q);
+    } else {
+      r = is_zero(p.z) ? jac_infinity<E>() : p;
+    }
+    store(ox, i, r.x);
+    store(oy, i, r.y);
+    store(oz, i, r.z);
   }
-  store(ox, i, r.x);
-  store(oy, i, r.y);
-  store(oz, i, r.z);
 }
 
 // `times` >= 1 doublings of each lane, in registers between one load and one
@@ -308,15 +352,37 @@ __global__ void __launch_bounds__(kThreads)
 // multiplies 4 on 32-480 lanes: 1 to 4 blocks on 132 SMs, each doubling 7
 // dependent Fq multiplies (G2: 7 Fq2 products).  One launch per doubling
 // paid a launch and a global round trip for each; `times` pays them once
-// per chain.  In a converged mode (the fold unit's G1 instance: one to four
-// warps, each a chain of 7 dependent multiplies a doubling) each multiply's
-// fold product is a warp's tile on the tensor cores, the lanes past n of a
-// ragged warp padding rows of it.
+// per chain.  In a converged mode (the fold unit's G1 and G2 instances:
+// one to four warps, each a chain of 7 dependent multiplies a doubling in
+// G1, 16 Fq multiplies in G2) each multiply's fold product is a warp's tile
+// on the tensor cores, the lanes past n of a ragged warp padding rows of
+// it.  A G2 launch of at most 32 lanes (the vote path's: Horner's 16, the
+// ballot tail's 32) is one block whose three warps past the lanes would
+// idle: there all four warps hold the same lanes and share each doubling's
+// 16 products, 4 a round (jac_double_warps, curve.cuh), so the chain is 4
+// multiplies a doubling, not 16.
 template <class E, class M>
 __global__ void __launch_bounds__(kThreads)
     k_double(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
              uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n, int times) {
   M::prologue();
+  if constexpr (M::kConverged && std::is_same<E, Fq2>::value) {
+    if (n <= 32) {  // one block, whose 4 warps share each doubling's products
+      const int lane = threadIdx.x & 31;
+      const long long i = lane < n ? lane : n - 1;
+      Jac<E> p;
+      load(p.x, px, i);
+      load(p.y, py, i);
+      load(p.z, pz, i);
+#pragma unroll 1
+      for (int k = 0; k < times; ++k) p = jac_double_warps<M>(p);
+      if (threadIdx.x >= n) return;
+      store(ox, i, p.x);
+      store(oy, i, p.y);
+      store(oz, i, p.z);
+      return;
+    }
+  }
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (past_end<M>(t, n)) return;
   const long long i = lane_in<M>(t, n);
@@ -431,9 +497,8 @@ int launch_double(int g2, const void* px, const void* py, const void* pz, void* 
                   void* oz, long long n, int times, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (g2) {
-    k_double<Fq2, M2><<<blocks_for(n), kThreads, 0, s>>>((u32p)px, (u32p)py, (u32p)pz,
-                                                         (uint32_t*)ox, (uint32_t*)oy,
-                                                         (uint32_t*)oz, n, times);
+    k_double<Fq2, M2><<<blocks_for(n), kThreads, M2::smem_bytes(kThreads), s>>>(
+        (u32p)px, (u32p)py, (u32p)pz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, times);
   } else {
     k_double<Fq, M1><<<blocks_for(n), kThreads, M1::smem_bytes(kThreads), s>>>(
         (u32p)px, (u32p)py, (u32p)pz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, times);
@@ -468,7 +533,7 @@ int launch_add_shift(int g2, const void* px, const void* py, const void* pz, voi
     k_add_shift<Fq2, M2><<<blocks_for(n), kThreads, 0, s>>>(
         (u32p)px, (u32p)py, (u32p)pz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, bw, shift);
   } else {
-    k_add_shift<Fq, M1><<<blocks_for(n), kThreads, 0, s>>>(
+    k_add_shift<Fq, M1><<<blocks_for(n), kThreads, M1::smem_bytes(kThreads), s>>>(
         (u32p)px, (u32p)py, (u32p)pz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, bw, shift);
   }
   return (int)cudaGetLastError();

@@ -2,8 +2,8 @@
 // multiplies its 32 lanes together.
 //
 // Replaces, for the probes K7 and K10 (micro.cu) and, as the multiplier
-// mode MulFoldMma below, for the fold unit's G1 bucket scan and G1 doubling
-// (curve_fold.cu), the fold product of
+// mode MulFoldMma below, for the fold unit's G1 bucket scan, G1 suffix
+// round and G1 and G2 doublings (curve_fold.cu), the fold product of
 // vote_saver_tpu/ops/fold_mul.py:fold_columns inside FqEmitFold
 // (vote_saver_tpu/ops/pallas_field.py:187-224): there the pieces of every
 // lane's product columns go through ONE bf16 dot_general against the
@@ -262,7 +262,8 @@ __device__ __forceinline__ Fp<P> mul_fold_mma(const Fp<P>& a, const Fp<P>& b, co
 // before any thread exits.  kConverged: every thread of a warp calls mul
 // together (a kernel's converged form, curve_kernels.cuh).  Through
 // Called<MulFoldMma> the multiply is one out-of-line copy a kernel, as every
-// G1 multiply of the curve kernels is.
+// G1 multiply of the curve kernels is; a G2 kernel over MulFoldMma calls it
+// out of line through its Fq2 multiply (fq_mul_call).
 struct MulFoldMma {
   static constexpr bool kConverged = true;
   static constexpr int smem_bytes(int threads) { return FoldMma<FqParams>::smem_bytes(threads); }
@@ -270,6 +271,12 @@ struct MulFoldMma {
   __device__ static __forceinline__ uint8_t* smem() {
     extern __shared__ __align__(16) uint8_t vs_fold_mma_smem[];
     return vs_fold_mma_smem;
+  }
+
+  // warp w's tile, which is free between multiplies: a kernel may pass
+  // values between its warps through it (jac_double_warps, curve.cuh)
+  __device__ static __forceinline__ uint8_t* warp_tile(int w) {
+    return smem() + FoldMma<FqParams>::B_BYTES + w * FoldMma<FqParams>::WARP_BYTES;
   }
 
   __device__ static __forceinline__ void prologue() {
@@ -280,7 +287,6 @@ struct MulFoldMma {
   template <class P>
   __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
     static_assert(std::is_same<P, FqParams>::value, "the tensor-core fold's B operand exists for Fq only");
-    uint8_t* s = smem();
-    return mul_fold_mma<P>(a, b, s, s + FoldMma<P>::B_BYTES + (threadIdx.x >> 5) * FoldMma<P>::WARP_BYTES);
+    return mul_fold_mma<P>(a, b, smem(), warp_tile(threadIdx.x >> 5));
   }
 };

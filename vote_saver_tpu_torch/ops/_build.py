@@ -65,8 +65,8 @@ UNITS = {
 # curve_fold.cu): every loop launcher of these units but K1's, with the
 # mode's suffix, the fold unit's own fold-matrix uploads (the dp4a fold's
 # __constant__ matrices; the tensor-core fold's B operand, which also lets
-# its two instances take their shared memory) and what the runtime reports
-# of those two instances
+# its instances take their shared memory) and what the runtime reports of
+# those instances
 CURVE_LAUNCHERS = {name: args for unit in ("kernels.cu", "add_team.cu", "add_distinct.cu")
                    for name, args in UNITS[unit].items() if name != "vs_mont_mul"}
 UNITS["curve_v1.cu"] = {f"{name}_v1": args for name, args in CURVE_LAUNCHERS.items()}

@@ -30,9 +30,10 @@ CUDA tensor a wrapper launches that mode's instance (loop: ``kernels.cu``,
 ``curve_fold.cu``, K1 ``mont_mul_modes.cu``), counted under its name, the
 loop name with ``_v1`` / ``_fold`` (``instance``), and raises where that
 instance is missing or fails; it never runs another mode's instance.  In
-fold the G1 bucket scan and the G1 doubling (``MMA_KERNELS``) run the fold
-product on the int8 tensor cores, a warp's lanes one tile.  On a CPU
-tensor a wrapper runs the plain version, one function in every mode.
+fold the G1 bucket scan, the G1 suffix round and the G1 and G2 doublings
+(``MMA_KERNELS``) run the fold product on the int8 tensor cores, a warp's
+lanes one tile.  On a CPU tensor a wrapper runs the plain version, one
+function in every mode.
 
 Coordinates are int32 tensors ``(..., L)`` (G1, Fq/Fr) or ``(..., 2, L)``
 (G2) of 32-bit Montgomery limbs.  On a CUDA tensor a wrapper launches its
@@ -637,9 +638,10 @@ def _launcher(fn: str, mode: str, device):
 
 
 # the instances whose Fq multiply runs its fold product on the int8 tensor
-# cores (csrc/curve_fold.cu: Called<MulFoldMma>, a warp's lanes as one tile
-# of mma.sync), in the order of vs_curve_fold_mma_info's kernel index
-MMA_KERNELS = ("g1_madd_scan_fold", "g1_double_fold")
+# cores (csrc/curve_fold.cu: Called<MulFoldMma> in G1, MulFoldMma in G2, a
+# warp's lanes as one tile of mma.sync), in the order of
+# vs_curve_fold_mma_info's kernel index
+MMA_KERNELS = ("g1_madd_scan_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold")
 
 
 def kernel_info(entry, index: int, name: str, device="cuda") -> dict:
