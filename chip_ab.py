@@ -18,17 +18,19 @@ code:
     zh_coset_inv, the matmul NTT's twiddle), the operands passed as the
     vote path passes them: the device time of every kernel one call
     launches (a materialised broadcast's copy included) and of K1 alone;
-  * the fold mode's G1 bucket scan, G1 suffix round and G1 and G2
-    doublings, each called with an explicit ``mode="fold"``: the scan at
-    ``MSM_SHAPES``' path shape (the h schedule's 80 rows x 248,832 lanes),
-    the suffix round on its 432 x 512 grid at shifts 1 and 256
-    (``FOLD_SHIFTS``), the G1 doubling at ``FOLD_DOUBLE`` (Horner's 16
-    lanes x 10, the ballot tail's 4 on 32 and 480 lanes), the G2 doubling
-    at ``FOLD_G2_DOUBLE`` (Horner's 16 x 10, the ballot tail's 32 x 4):
+  * the fold mode's bucket scans, suffix rounds and doublings in G1 and
+    G2, each called with an explicit ``mode="fold"``: the scans at
+    ``MSM_SHAPES``' path shapes (the h schedule's 80 rows x 248,832 lanes
+    in G1, its first 32 rows in G2), the suffix rounds on their 432 x 512
+    grids at shifts 1 and 256 (``FOLD_SHIFTS``), the G1 doubling at
+    ``FOLD_DOUBLE`` (Horner's 16 lanes x 10, the ballot tail's 4 on 32 and
+    480 lanes), the G2 doubling at ``FOLD_G2_DOUBLE`` (Horner's 16 x 10,
+    the ballot tail's 32 x 4):
     device ms a launch from torch.profiler, ms a call from CUDA events, the
-    share of the fold bound (``chip_smoke.mode_work`` and ``bound``, the
-    multiply-adds at the Programming Guide's rate), each output equal to
-    the loop instance's;
+    share of the function's bound (``chip_smoke.bound``: its multiply-adds
+    at the Programming Guide's rate, the loop instance's bound) and of the
+    fold algorithm's (``chip_smoke.mode_work``'s "fold"), each output equal
+    to the loop instance's;
   * chip_smoke.py's ``[slice]`` (``run_slice``: the depth-6 B = 16 vote
     phase, its stage seconds, the host-witness and radix-2 batches and the
     profiled batch's device time per kernel), its device-arm batches 0-2
@@ -40,6 +42,9 @@ code:
     rounds counted (``suffix_doublings``: the warps that take the
     doubling of the complete add, and those that skip the add).
 
+Every tree is profiled and bounded by this checkout's ``chip_smoke.py``
+(``profile_window``, ``device_ms``, ``profile_batch``, ``bound``), loaded
+beside the tree's own, so that the trees differ only in what they run.
 Each run prints one JSON line (``[ab] {...}``) and writes it under
 ``--out`` (``.chip_scratch/ab/``); the last line sets the runs side by
 side by tree.  The card's name and power limit lead each run's line.
@@ -64,13 +69,23 @@ FOLD_SHIFTS = (1, 256)
 WARP = 32  # a warp's lanes: the suffix round's kernel runs 32 consecutive lanes of its grid together
 
 
-def _per_call(fn, reps: int):
+def _own():
+    """This checkout's chip_smoke.py, loaded under a name of its own."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_ab_smoke", pathlib.Path(__file__).resolve().with_name(
+        "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _per_call(own, fn, reps: int):
     """(device ms a call over every kernel fn launches, None where the
-    profiler recorded no kernel; {kernel: device ms a call}; event-timed ms
-    a call) over `reps` calls after a warm-up."""
+    profiling window (profile_window) lost records or recorded no kernel;
+    {kernel: device ms a call}; event-timed ms a call) over `reps` calls
+    after a warm-up."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
@@ -81,15 +96,11 @@ def _per_call(fn, reps: int):
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    _r, events = own.profile_window(fn, reps)
     by: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.split("(")[0].split("::")[-1][:60]
-            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    for name, us in events or ():
+        name = name.split("(")[0].split("::")[-1][:60]
+        by[name] = by.get(name, 0.0) + us / 1e3 / reps
     return (sum(by.values()) if by else None), by, ms
 
 
@@ -97,12 +108,12 @@ def _ms(v) -> str:
     return "not measured" if v is None else f"{v:.5f} ms"
 
 
-def fold_kernels(cs, dev, reps: int = 5) -> dict:
-    """g1_madd_scan, g1_add_shift, g1_double and g2_double with mode="fold"
-    at the vote path's shapes (module docstring), each against the loop
-    instance's output: {shape: device ms a launch (chip_smoke.device_ms:
-    the mean over the launches the profiler recorded), ms a call (CUDA
-    events), bound ms, share of the bound}."""
+def fold_kernels(cs, own, dev, reps: int = 5) -> dict:
+    """The bucket scan, the suffix round and the doubling of G1 and G2 with
+    mode="fold" at the vote path's shapes (module docstring), each against
+    the loop instance's output: {shape: device ms a launch
+    (chip_smoke.device_ms), ms a call (CUDA events), the function's bound
+    ms and share of it, the fold algorithm's bound ms and share of it}."""
     import random
 
     import torch
@@ -114,17 +125,23 @@ def fold_kernels(cs, dev, reps: int = 5) -> dict:
     rnd = random.Random(cs.SEED + 12)
     # the multiply-adds at the Programming Guide's rate (K9 raises it only where it measures more)
     rates = micro.card_int_rates({k: {"giter_s": 0.0} for k in micro.MUL_WIDE_KINDS})
-    table, codes, grid = cs._msm_inputs(False, rnd, dev)
-    live = codes != 0
-    cases = [("g1_madd_scan", f"{codes.shape[0]}x{codes.shape[1]}", "k_madd_scan",
-              lambda m: hf.g1_madd_scan(table, codes, checked=True, mode=m), (*table, codes),
-              cs._curve_mads("madd", False, int(live.sum()) - int(live.any(dim=0).sum())))]
-    rows, bw = grid[0].shape[:2]
-    fin = (grid[2] != 0).any(dim=-1)
-    for shift in FOLD_SHIFTS:
-        pairs = int((fin[:, : bw - shift] & fin[:, shift:]).sum())
-        cases.append(("g1_add_shift", f"{rows}x{bw} shift {shift}", "k_add_shift",
-                      lambda m, s=shift: hf.g1_add_shift(grid, s, mode=m), grid, cs._curve_mads("add", False, pairs)))
+    cases = []
+    for g2 in (False, True):
+        pre = "g2" if g2 else "g1"
+        table, codes, grid = cs._msm_inputs(g2, random.Random(cs.SEED + 13) if g2 else rnd, dev)
+        codes = codes[: cs.MSM_SHAPES[f"{pre}_madd_scan"][0][0]].contiguous()
+        live = codes != 0
+        scan, shift_add = (hf.g2_madd_scan, hf.g2_add_shift) if g2 else (hf.g1_madd_scan, hf.g1_add_shift)
+        cases.append((f"{pre}_madd_scan", f"{codes.shape[0]}x{codes.shape[1]}", "k_madd_scan",
+                      lambda m, t=table, c=codes, scan=scan: scan(t, c, checked=True, mode=m), (*table, codes),
+                      cs._curve_mads("madd", g2, int(live.sum()) - int(live.any(dim=0).sum()))))
+        rows, bw = grid[0].shape[:2]
+        fin = (grid[2] != 0).reshape(rows, bw, -1).any(dim=-1)
+        for shift in FOLD_SHIFTS:
+            pairs = int((fin[:, : bw - shift] & fin[:, shift:]).sum())
+            cases.append((f"{pre}_add_shift", f"{rows}x{bw} shift {shift}", "k_add_shift",
+                          lambda m, s=shift, gr=grid, f=shift_add: f(gr, s, mode=m), grid,
+                          cs._curve_mads("add", g2, pairs)))
     for g2, shapes in ((False, FOLD_DOUBLE), (True, FOLD_G2_DOUBLE)):
         p, *_ = special_lanes(g2, max(n for n, _t in shapes), rnd)
         pts = cs._to_dev(zip(*p), dev)
@@ -142,15 +159,18 @@ def fold_kernels(cs, dev, reps: int = 5) -> dict:
             raise SystemExit(f"{kname}_fold at {shape} differs from the loop instance")
         n = reps if family == "k_madd_scan" else 20
         ms = micro.time_ms(lambda run=run: run("fold"), n)
-        dev_ms = cs.device_ms(lambda run=run: run("fold"), n, family)
-        work = cs.mode_work(dict(bytes=cs._nbytes(*ins, *flat(got)), mads=mads), "fold")
-        bound_ms, bound_by = cs.bound(work, rates)
+        dev_ms = own.device_ms(lambda run=run: run("fold"), n, family)
+        work = own.mode_work(dict(bytes=own._nbytes(*ins, *flat(got)), mads=mads), "fold")
+        bound_ms, bound_by = own.bound(work, rates)
+        fold_ms, _by = own.bound(work["fold"], rates)
         share = None if dev_ms is None else bound_ms / dev_ms
+        fold_share = None if dev_ms is None else fold_ms / dev_ms
         out[f"{kname}_fold {shape}"] = dict(device_ms=dev_ms, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-                                            share=share)
+                                            share=share, fold_bound_ms=fold_ms, fold_share=fold_share)
         print(f"[ab] {kname}_fold {shape}: device {_ms(dev_ms)} a launch, {ms:.4f} ms a call, bound "
-              f"{bound_ms:.5f} ms ({bound_by}), " + ("share not measured" if share is None else
-                                                     f"{100 * share:.2f}% of it"), flush=True)
+              f"{bound_ms:.5f} ms ({bound_by}), fold algorithm's bound {fold_ms:.5f} ms, " + (
+                  "shares not measured" if share is None else
+                  f"{100 * share:.2f}% / {100 * fold_share:.2f}% of them"), flush=True)
     return out
 
 
@@ -189,7 +209,7 @@ def loop_batches(cs, e: dict, vote: dict, cycles: int = 3) -> list:
     return secs
 
 
-def fold_batch(cs, e: dict, vote: dict) -> dict:
+def fold_batch(cs, own, e: dict, vote: dict) -> dict:
     """[modes]' fold batch with the tree's own code: under VSTPU_MUL=fold
     (restored after), [slice]'s device-arm batches 0-2 again from
     FrRandom(SEED + 1) with their votes, each byte-identical to [slice]'s:
@@ -212,7 +232,7 @@ def fold_batch(cs, e: dict, vote: dict) -> dict:
         rng = FrRandom(cs.SEED + 1)
         for k, (votes, loop_ballots) in enumerate(vote["device_batches"][:3]):
             if k == 2:
-                got, prof = cs.profile_batch(lambda v=votes: phases.vote_with_context(ctx, idx, v, sks, rng), set())
+                got, prof = own.profile_batch(lambda v=votes: phases.vote_with_context(ctx, idx, v, sks, rng), set())
                 out["profile"] = {key: prof.get(key) for key in ("wall_s", "busy_s", "plain_s", "port")}
             else:
                 timer = groth16.StageTimer("cuda") if k == 1 else None
@@ -315,17 +335,18 @@ def one(tree: pathlib.Path, widths) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     dev = torch.device("cuda")
+    own = _own()
     res = dict(tree=str(tree), gpu=micro.gpu_line(), g2_add={}, mont_mul_fr={})
     rnd = random.Random(cs.SEED + 10)
     for lanes in widths:
         p, q, *_ = special_lanes(True, max(lanes, 64), rnd)
         P, Qd = (tuple(lb.ints_to_tensor([pt[i] for pt in pts[:lanes]], lb.FQ, dev) for i in range(3))
                  for pts in (p, q))
-        dev_ms, by, ms = _per_call(lambda P=P, Qd=Qd: hf.g2_add(P, Qd), 50 if lanes <= 1024 else 20)
+        dev_ms, by, ms = _per_call(own, lambda P=P, Qd=Qd: hf.g2_add(P, Qd), 50 if lanes <= 1024 else 20)
         res["g2_add"][lanes] = dict(device_ms=dev_ms, kernels=by, ms=ms)
         print(f"[ab] g2_add {lanes} lanes: device {_ms(dev_ms)} a launch {by}, {ms:.4f} ms a call", flush=True)
 
-    res["fold_kernels"] = fold_kernels(cs, dev)
+    res["fold_kernels"] = fold_kernels(cs, own, dev)
 
     e = cs.election(cs.DEPTH)
     pk_crs, vk_crs, pk_eid, _sk_eid, _vk_eid = e["keys"]
@@ -349,7 +370,7 @@ def one(tree: pathlib.Path, widths) -> dict:
     cases += [("r1cs", x, y), ("h", x, ntt.get_ntt(n, "matmul").table("zh_coset_inv", dev)),
               ("twiddle", limbs(B, plan.n2, plan.n1), plan.table("t12", dev))]
     for desc, a, b in cases:
-        dev_ms, by, ms = _per_call(lambda a=a, b=b: hf.mont_mul("fr", a, b), 50)
+        dev_ms, by, ms = _per_call(own, lambda a=a, b=b: hf.mont_mul("fr", a, b), 50)
         res["mont_mul_fr"][desc] = dict(device_ms=dev_ms, kernels=by, ms=ms)
         print(f"[ab] mont_mul_fr {desc}: device {_ms(dev_ms)} a call {by}, {ms:.4f} ms a call", flush=True)
 
@@ -359,7 +380,7 @@ def one(tree: pathlib.Path, widths) -> dict:
     prof = vote.get("profile") or {}
     res["slice"]["profile"] = {k: prof.get(k) for k in ("wall_s", "busy_s", "plain_s", "port", "top_plain")}
     res["loop_batches_s"] = loop_batches(cs, e, vote)
-    res["fold_batch"] = fold_batch(cs, e, vote)
+    res["fold_batch"] = fold_batch(cs, own, e, vote)
     res["suffix_doublings"] = suffix_doublings(cs, e, vote)
     return res
 

@@ -32,13 +32,14 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      version on every lane; each chain probe's registers, local bytes,
      dynamic shared memory and resident warps a SM as the CUDA runtime
      reports them.  K7 and K10 fold run their fold product on the int8
-     tensor cores, and so do the fold instances of the G1 bucket scan, the
-     G1 suffix round and the G1 and G2 doublings (``g1_madd_scan_fold``,
-     ``g1_double_fold``, ``g1_add_shift_fold``, ``g2_double_fold``; their
-     registers, local bytes, shared memory and warps a SM logged from the
-     CUDA runtime in ``[kernels]`` and ``[modes]``): right after the build,
-     ``cuobjdump -sass`` of the probe library and of the curve library must
-     show IMMA and no IDP (dp4a) in all six (``[sass]``);
+     tensor cores, and so do the fold instances of the bucket scan, the
+     suffix round and the doubling in G1 and G2 (``g1_madd_scan_fold``,
+     ``g1_double_fold``, ``g1_add_shift_fold``, ``g2_double_fold``,
+     ``g2_madd_scan_fold``, ``g2_add_shift_fold``; their registers, local
+     bytes, shared memory and warps a SM logged from the CUDA runtime in
+     ``[kernels]`` and ``[modes]``): right after the build, ``cuobjdump
+     -sass`` of the probe library and of the curve library must show IMMA
+     and no IDP (dp4a) in all eight (``[sass]``);
   5. admin key generation for the depth-6 election on the card (Groth16
      setup through FixedBaseTable and K3d): its five blobs byte-identical to
      the host-native arm's, both arms timed;
@@ -165,12 +166,12 @@ K1_MODE_KERNELS = ("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont
 # of every curve kernel and of K1's Fermat chain (hopper_field.CURVE_KERNELS)
 CURVE_MODES = ("v1", "fold")
 # the kernels whose fold product runs on the int8 tensor cores (csrc/fold_mma.cuh):
-# the probes K7 and K10 fold, and the fold unit's G1 bucket scan, G1 suffix
-# round and G1 and G2 doublings (hopper_field.MMA_KERNELS)
-FOLD_KERNELS = ("mul_chain_k7_fold", "mul_chain_k10_fold", "g1_madd_scan_fold", "g1_double_fold",
-                "g1_add_shift_fold", "g2_double_fold")
+# these probes, K7 and K10 fold, and the fold unit's instances hopper_field.MMA_KERNELS
+FOLD_PROBES = ("mul_chain_k7_fold", "mul_chain_k10_fold")
 # the built libraries [sass] reads for them
 FOLD_LIBS = ("libvstorch_micro_", "libvstorch_curve_fold_")
+# the spin kernels (and their cycles each, about 0.25 ms) that open each profiling window (profile_window)
+PROFILE_PAD, PAD_CYCLES = 32, 500_000
 # H100 SXM published peaks: HBM bytes/s, fp32 FLOP/s, int8 OP/s
 HBM_BPS, F32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 # 32x32->64 multiply-adds of one Fq / Fr Montgomery multiply: 2L^2 + L
@@ -288,10 +289,11 @@ def _curve_mads(kind: str, g2: bool, lanes: int) -> int:
 
 
 def mode_work(work: dict, mode: str, field: str = "fq") -> dict:
-    """The work a kernel's bound counts in `mode`, from its loop work (bytes
-    and multiply-adds): loop and v1 run the same 2L^2 + L multiply-adds a
-    multiply; fold runs, for each of the mads / MADS[field] multiplies, K1
-    fold's work (its row in check_kernels): the fp32 digit columns, the
+    """The work a kernel's bound counts in `mode`: the function's, its loop
+    work (bytes and 2L^2 + L multiply-adds a multiply), in every mode.  In
+    fold it also holds, under "fold", the fold algorithm's own work, whose
+    bound is logged beside: for each of the mads / MADS[field] multiplies,
+    K1 fold's (its row in check_kernels), the fp32 digit columns, the
     fold's int8 products and its word steps."""
     from vote_saver_tpu_torch.ops import fold_mul
     from vote_saver_tpu_torch.ops import limbs as lb
@@ -300,25 +302,78 @@ def mode_work(work: dict, mode: str, field: str = "fq") -> dict:
         return dict(work)
     p = fold_mul.plan(lb.spec_for(field))
     muls = work["mads"] // MADS[field]
-    return dict(bytes=work["bytes"], f32_flops=muls * 2 * p["nd"] ** 2, int8_ops=muls * 2 * p["mat"].size,
-                mads=muls * 2 * (p["L"] + 1))
+    return dict(work, fold=dict(bytes=work["bytes"], f32_flops=muls * 2 * p["nd"] ** 2,
+                                int8_ops=muls * 2 * p["mat"].size, mads=muls * 2 * (p["L"] + 1)))
 
 
-def device_ms(fn, reps: int, family: str):
-    """Mean device milliseconds per launch of the kernels whose name holds
-    `family` over `reps` calls of fn, from torch.profiler's CUDA activity;
-    None where the profiler recorded none."""
+def fold_bound(work: dict, rates: dict) -> str:
+    """The fold algorithm's bound where `work` holds it (mode_work), as
+    logged beside a fold instance's bound, else ''."""
+    if "fold" not in work:
+        return ""
+    ms, by = bound(work["fold"], rates)
+    return f"; the fold algorithm's bound {ms:.5f} ms ({by})"
+
+
+def profile_window(fn, reps: int = 1, warm: bool = False):
+    """The one way this script and chip_ab.py profile: `reps` calls of fn
+    (after one unprofiled call where `warm`) under torch.profiler's CUDA
+    activity -> (fn's last result, [(name,
+    device us)] of the device kernels the calls launched), the list None
+    where the window lost records.  torch.profiler (Kineto over CUPTI) may
+    drop the records of a session's first kernels: in a long run of this
+    script (never in a fresh process) it dropped 3 to 5 a session (every
+    launch of a suffix round's rows at 432 x 512, which profiled 3 calls of
+    a wrapper that launches its kernel alone), and from the NTT phase on
+    often more than 8 spin kernels of 1,000 cycles.  So the window opens
+    with PROFILE_PAD spin kernels (torch.cuda._sleep, about 8 ms in all),
+    finished before the calls start, and keeps the kernels that start after
+    the last pad recorded.  Where no pad was
+    recorded the drop may have reached the calls, and where the port's
+    kernels recorded (kernel_key) differ in number from the launches
+    hopper_field counted during the calls, records were lost: both give
+    None, and a log line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+
+    if warm:
+        fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA and family in e.name]
+    result = None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+        before = sum(hf.launches.values())
+        for _ in range(reps):
+            result = fn()
+        torch.cuda.synchronize()
+        launched = sum(hf.launches.values()) - before
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    pads = [e for e in kernels if "spin_kernel" in e.name]
+    if not pads:
+        log(f"[profile] window of {reps} calls: no pad kernel recorded, so its records may be lost; not measured")
+        return result, None
+    start = max(e.time_range.end for e in pads)
+    out = [(e.name, e.time_range.elapsed_us()) for e in kernels
+           if e.time_range.start >= start and "spin_kernel" not in e.name]
+    ours = sum(kernel_key(name) is not None for name, _us in out)
+    if ours != launched:
+        log(f"[profile] window of {reps} calls: {ours} of the port's kernels recorded, {launched} launched; "
+            f"not measured")
+        return result, None
+    return result, out
+
+
+def device_ms(fn, reps: int, family: str):
+    """Mean device milliseconds per launch of the kernels whose name holds
+    `family` over `reps` calls of fn (profile_window); None where the
+    window lost records or holds none of them."""
+    _r, events = profile_window(fn, reps, warm=True)
+    us = [t for name, t in events or () if family in name]
     return sum(us) / len(us) / 1e3 if us else None
 
 
@@ -398,7 +453,6 @@ def check_kernels(rnd) -> dict:
     import torch
 
     from vote_saver_tpu_torch.micro import time_ms
-    from vote_saver_tpu_torch.ops import fold_mul
     from vote_saver_tpu_torch.ops import hopper_field as hf
     from vote_saver_tpu_torch.ops import limbs as lb
     from vote_saver_tpu_torch.testing import ADDX_EXC, MADD_EXC, special_lanes
@@ -425,13 +479,7 @@ def check_kernels(rnd) -> dict:
             loop = got if loop is None else loop
             if not torch.equal(got, loop):
                 fail(f"{kname} disagrees with the loop mode")
-            work = dict(bytes=_nbytes(a, b, got))
-            if mode == "fold":
-                p = fold_mul.plan(spec)
-                work.update(f32_flops=K1_LANES * 2 * p["nd"] ** 2, int8_ops=K1_LANES * 2 * p["mat"].size,
-                            mads=K1_LANES * 2 * (p["L"] + 1))
-            else:
-                work["mads"] = K1_LANES * MADS[name]
+            work = mode_work(dict(bytes=_nbytes(a, b, got), mads=K1_LANES * MADS[name]), mode, name)
             results[kname] = dict(
                 equal=torch.equal(got, exp), max_abs_err=_diff((got,), (exp,)),
                 ms=time_ms(lambda: hf.mont_mul(name, a, b, mode), 50),
@@ -843,20 +891,6 @@ def check_setup(e: dict, mode: str = "loop") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _profile_events(fn):
-    """[(name, device us)] of the device kernels of one call of fn."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-
 def check_ntt(gpu: str) -> tuple[dict, set]:
     """Each kind of the matmul NTT at NTT_B x NTT_N against the radix-2
     path on the same inputs (random elements, the first row led by values
@@ -928,7 +962,7 @@ def check_ntt(gpu: str) -> tuple[dict, set]:
     for step, (a, b, per) in cases.items():
         a = torch.nn.functional.pad(a, (0, b.shape[0] - a.shape[1]))
         fn = lambda a=a, b=b: torch._int_mm(a, b)  # noqa: E731
-        events = [(n, us) for n, us in _profile_events(fn) if not n.startswith(("Memset", "Memcpy"))]
+        events = [(n, us) for n, us in profile_window(fn, warm=True)[1] or () if not n.startswith(("Memset", "Memcpy"))]
         names |= {n for n, _us in events}
         M, K, N = a.shape[0], b.shape[0], b.shape[1]
         ops, nbytes = 2 * M * K * N, M * K + K * N + 4 * M * N
@@ -953,8 +987,8 @@ def check_ntt(gpu: str) -> tuple[dict, set]:
     log(f"[ntt] _int_mm ms a batch ({NTT_PER_BATCH} transforms, event-timed calls): {per_batch:.3f} ms against a "
         f"bound of {bound_ac:.3f} ms (steps A and C) / {bound_all:.3f} ms (with the folds); profiler kernel names "
         f"{sorted(names)}")
-    fold_ev = _profile_events(lambda: ntt_mxu._fold_mod_r(cols))
-    tr_ev = _profile_events(lambda: mm.intt(x))
+    fold_ev = profile_window(lambda: ntt_mxu._fold_mod_r(cols), warm=True)[1] or []
+    tr_ev = profile_window(lambda: mm.intt(x), warm=True)[1] or []
     tr_lib = sum(us for n, us in tr_ev if n in names) / 1e3
     tr_k1 = sum(us for n, us in tr_ev if kernel_key(n)) / 1e3
     tr_all = sum(us for _n, us in tr_ev) / 1e3
@@ -1076,10 +1110,11 @@ def sass_counts(text: str) -> dict:
 def check_fold_sass(kl) -> dict:
     """The fold products on the tensor cores: ``cuobjdump -sass`` of the
     built probe and curve libraries (FOLD_LIBS) must show IMMA instructions
-    and no IDP (dp4a) in each of FOLD_KERNELS."""
+    and no IDP (dp4a) in each of FOLD_PROBES and hopper_field.MMA_KERNELS."""
     import subprocess
 
     from vote_saver_tpu_torch.ops import _build
+    from vote_saver_tpu_torch.ops import hopper_field as hf
 
     tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     counts = {}
@@ -1087,45 +1122,39 @@ def check_fold_sass(kl) -> dict:
         lib = next(p for p in kl.paths if p.name.startswith(prefix))
         counts.update(sass_counts(subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                                                  check=True, timeout=300).stdout))
-    for k in FOLD_KERNELS:
+    kernels = FOLD_PROBES + hf.MMA_KERNELS
+    for k in kernels:
         c = counts.get(k)
         log(f"[sass] {k}: {c}")
         if not c or not c["IMMA"] or c["IDP"]:
             fail(f"{k} is not on the tensor cores (cuobjdump -sass: {c})")
-    return {k: counts[k] for k in FOLD_KERNELS}
+    return {k: counts[k] for k in kernels}
 
 
 def profile_batch(batch, library: set):
-    """One device-arm batch under torch.profiler (CUDA activity only) ->
+    """One device-arm batch in a profiling window (profile_window) ->
     (the batch's result, its profile): launches and device seconds per
     kernel of the port, those of the library calls whose device kernels
     are named in `library` (the NTT's int8 products), the plain PyTorch
     kernels' device seconds (the five largest by name), and the device's
     busy share of the batch's wall time under the profiler; the profile is
-    empty where the profiler recorded no device kernel."""
+    empty where the window lost records or recorded no device kernel."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        result = batch()
-        torch.cuda.synchronize()
+    result, events = profile_window(batch)
     wall = time.perf_counter() - t0
     ours: dict = {}
     lib = [0, 0.0]
     other: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        key = kernel_key(e.name)
-        if e.name in library:
+    for name, us in events or ():
+        key = kernel_key(name)
+        if name in library:
             lib[0] += 1
             lib[1] += us
         elif key is None:
-            other[e.name] = other.get(e.name, 0.0) + us
+            other[name] = other.get(name, 0.0) + us
         else:
             n, t = ours.get(key, (0, 0.0))
             ours[key] = (n + 1, t + us)
@@ -1937,24 +1966,18 @@ def probe_entries(probes: dict) -> dict:
     chain probe (and of its parity launch at the JAX probes' 14,336 lanes),
     and over every lane of K9's launch with per-lane inputs."""
     from vote_saver_tpu_torch import micro
-    from vote_saver_tpu_torch.ops import fold_mul
     from vote_saver_tpu_torch.ops import limbs as lb
 
     res = probes["res"]
     chain = {**{f"k7_{m}": r for m, r in res["field_mul"].items()},
              **{f"k8_{v}": r for v, r in res["cios_loop"].items()},
              **{f"k10_{m}": r for m, r in res["mul_chain"].items()}}
-    fold = fold_mul.plan(lb.FQ)
     out = {}
     for probe, r in chain.items():
         _idx, mode, chains, unroll = micro.CHAIN_PROBES[probe]
         muls = r["lanes"] * chains * unroll
-        work = dict(bytes=r["lanes"] * 4 * lb.FQ.num_limbs * (3 + (chains > 1)))
-        if mode == "fold":
-            work.update(f32_flops=muls * 2 * fold["nd"] ** 2, int8_ops=muls * 2 * fold["mat"].size,
-                        mads=muls * 2 * (fold["L"] + 1))
-        else:
-            work["mads"] = muls * MADS["fq"]
+        work = mode_work(dict(bytes=r["lanes"] * 4 * lb.FQ.num_limbs * (3 + (chains > 1)), mads=muls * MADS["fq"]),
+                         mode)
         out[f"mul_chain_{probe}"] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], work=work,
                                          smem_bytes=r["smem_bytes"], warps_per_sm=r["warps_per_sm"])
     for kind, r in res["op_throughput"].items():
@@ -2067,10 +2090,13 @@ def main() -> None:
             entries[-1].update(smem_bytes=r["smem_bytes"], warps_per_sm=r["warps_per_sm"])
         if k in sass:
             entries[-1]["sass"] = sass[k]
+        if "fold" in r["work"]:
+            entries[-1]["fold_bound_ms"] = bound(r["work"]["fold"], probes["res"]["rates"])[0]
         # a kernel faster than its bound would mean a rate above is not the card's peak
         note = "; FASTER THAN ITS BOUND" if r["ms"] < bound_ms else ""
         log(f"[bound] {k}: {r['ms']:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}, "
-            f"{100 * bound_ms / r['ms']:.1f}% of its time){note}; launches on its path {paths[k][k]}"
+            f"{100 * bound_ms / r['ms']:.1f}% of its time){note}{fold_bound(r['work'], probes['res']['rates'])}; "
+            f"launches on its path {paths[k][k]}"
             + (f", on the Merkle build {merkle_launches[k]}" if k in MERKLE_KERNELS else "") + f"; {gpu}")
         # the chain kernels at the vote path's shapes: every row with its own bound
         if "chains" in r:
@@ -2081,7 +2107,7 @@ def main() -> None:
                     "lanes", "times", "max_abs_err", "ms", "device_ms", "plain_ms")}, bound_ms=b_ms, bound_by=b_by))
                 log(f"[bound] {k} at {row['lanes']} lanes x {row['times']}: {row['ms']:.4f} ms a call, device "
                     f"{_ms(row['device_ms'])} a launch, plain {row['plain_ms']:.3f} ms, against a bound of "
-                    f"{b_ms:.5f} ms ({b_by}); {gpu}")
+                    f"{b_ms:.5f} ms ({b_by}){fold_bound(row['work'], probes['res']['rates'])}; {gpu}")
         # the MSM kernels at the vote path's shapes, each row with its own bound
         if "shapes" in r:
             entries[-1]["shapes"] = []
@@ -2090,7 +2116,8 @@ def main() -> None:
                 entries[-1]["shapes"].append(dict({k2: row[k2] for k2 in (
                     "shape", "lanes", "max_abs_err", "ms", "device_ms", "plain_ms")}, bound_ms=b_ms, bound_by=b_by))
                 log(f"[bound] {k} at {row['shape']}: {row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} "
-                    f"a launch, plain {row['plain_ms']:.1f} ms, against a bound of {b_ms:.5f} ms ({b_by}); {gpu}")
+                    f"a launch, plain {row['plain_ms']:.1f} ms, against a bound of {b_ms:.5f} ms ({b_by})"
+                    f"{fold_bound(row['work'], probes['res']['rates'])}; {gpu}")
     log(f"[done] {time.perf_counter() - t_all:.1f} s (kernel build {kl.build_seconds:.1f} s; by phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + ")")
     log(gpu)

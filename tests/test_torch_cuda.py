@@ -22,13 +22,14 @@ host-native arm's CRS; the int8 matmul NTT must equal the radix-2 path on
 the card for each of its four kinds.  The curve kernels and the inversion
 chain in the v1 and fold multiplier modes must equal the same plain
 versions, each launch counted under its mode's instance; a fold launch
-must find its unit's matrix in place; the fold G1 bucket scan, G1 suffix
-round and G1 and G2 doublings, whose fold product runs on the tensor
-cores, must equal their plain versions at 1 to 2^14 lanes, the scan at
-the vote path's h schedule, the suffix round on the vote path's 432 x 512
-grid at shifts 1 to 256 and on a ragged grid of bw = 16 at every shift,
-the G2 doubling at the vote path's widths and counts, and a launch of
-each must find its B operand in place; and a depth-2 vote under
+must find its unit's matrix in place; the fold bucket scans, suffix
+rounds and doublings of G1 and G2, whose fold product runs on the tensor
+cores, must equal their plain versions at 1 to 2^14 lanes, the scans at
+the vote path's h schedule (G1 80 rows, G2 32) and G2's at ragged widths,
+the suffix rounds on the vote path's 432 x 512 grid at shifts 1 to 256
+and on a ragged grid of bw = 16 at every shift, the G2 doubling at the
+vote path's widths and counts, and a launch of each must find its B
+operand in place; and a depth-2 vote under
 ``VSTPU_MUL=v1`` or ``=fold`` must launch only that mode's instances and
 give the golden ballots.
 """
@@ -618,57 +619,68 @@ MMA_LANES = (1, 16, 31, 33, 5925, 1 << 14)
 
 @pytest.mark.parametrize("lanes", MMA_LANES)
 def test_fold_mma_instances_match_plain(dev, lanes):
-    """The fold unit's G1 bucket scan, G1 suffix round and G1 and G2
-    doublings, whose fold product runs on the tensor cores (a warp's lanes
-    one tile; the lanes past n of a ragged warp compute on lane n - 1 and
-    store nothing): each one launch of its fold instance, equal to the
-    plain version, the doublings with `times` 1 and 10, the suffix round
-    over one row of `lanes` buckets (shift_grid's special lanes) at shifts
-    1, 2, 32 and lanes // 2, the scan on scan_lanes' special lanes (lanes
-    0-6, the doubling corner among them) and 16 rows."""
+    """The fold unit's bucket scans, suffix rounds and doublings of G1 and
+    G2, whose fold product runs on the tensor cores (a warp's lanes one
+    tile; the lanes past n of a ragged warp compute on lane n - 1 and store
+    nothing): each one launch of its fold instance, equal to the plain
+    version, the doublings with `times` 1 and 10, the suffix rounds over one
+    row of `lanes` buckets (shift_grid's special lanes) at shifts 1, 2, 32
+    and lanes // 2, the scans on scan_lanes' special lanes (lanes 0-6, the
+    doubling corner among them) and 16 rows."""
     for g2 in (False, True):
+        pre = "g2" if g2 else "g1"
         p, *_ = special_lanes(g2, max(lanes, 8), random.Random(30 + lanes + g2))
         P = tuple(c[:lanes].contiguous() for c in _put(p, 3, dev))
-        kname, dbl = ("g2_double", hf.g2_double) if g2 else ("g1_double", hf.g1_double)
+        dbl = hf.g2_double if g2 else hf.g1_double
         for times in (1, 10):
-            got = _once(kname, "fold", lambda: dbl(P, times, mode="fold"))
+            got = _once(f"{pre}_double", "fold", lambda: dbl(P, times, mode="fold"))
             assert all(torch.equal(x, y) for x, y in zip(got, hf.double_plain(g2, P, times))), (g2, times)
-    grid = tuple(c[:lanes].reshape(1, lanes, -1)
-                 for c in _put(shift_grid(False, 1, max(lanes, 16), random.Random(35 + lanes)), 3, dev))
-    for shift in sorted({1, 2, 32, max(lanes // 2, 1)}):
-        got = _once("g1_add_shift", "fold", lambda: hf.g1_add_shift(grid, shift, mode="fold"))
-        assert all(torch.equal(x, y) for x, y in zip(got, hf.add_shift_plain(False, grid, shift))), shift
-    pts, codes = scan_lanes(False, 64, max(lanes, 64), 16, random.Random(31 + lanes))
-    pxy = ms.g1_affine_to_device(pts, dev)
-    c = torch.from_numpy(codes[:, :lanes].copy()).to(dev)
-    acc, exc = _once("g1_madd_scan", "fold", lambda: hf.g1_madd_scan(pxy, c, mode="fold"))
-    pacc, pexc = hf.madd_scan_plain(False, pxy, c)
-    assert all(torch.equal(x, y) for x, y in zip(acc, pacc)) and torch.equal(exc, pexc)
-    assert exc[: len(SCAN_EXC)].tolist() == SCAN_EXC[:lanes]
+        grid = tuple(c[:lanes].reshape((1, lanes) + tuple(c.shape[1:]))
+                     for c in _put(shift_grid(g2, 1, max(lanes, 16), random.Random(35 + lanes + 2 * g2)), 3, dev))
+        shift_add = hf.g2_add_shift if g2 else hf.g1_add_shift
+        for shift in sorted({1, 2, 32, max(lanes // 2, 1)}):
+            got = _once(f"{pre}_add_shift", "fold", lambda: shift_add(grid, shift, mode="fold"))
+            assert all(torch.equal(x, y) for x, y in zip(got, hf.add_shift_plain(g2, grid, shift))), (g2, shift)
+        pts, codes = scan_lanes(g2, 64, max(lanes, 64), 16, random.Random(31 + lanes + 2 * g2))
+        pxy = (ms.g2_affine_to_device if g2 else ms.g1_affine_to_device)(pts, dev)
+        c = torch.from_numpy(codes[:, :lanes].copy()).to(dev)
+        scan = hf.g2_madd_scan if g2 else hf.g1_madd_scan
+        acc, exc = _once(f"{pre}_madd_scan", "fold", lambda: scan(pxy, c, mode="fold"))
+        pacc, pexc = hf.madd_scan_plain(g2, pxy, c)
+        assert all(torch.equal(x, y) for x, y in zip(acc, pacc)) and torch.equal(exc, pexc), g2
+        assert exc[: len(SCAN_EXC)].tolist() == SCAN_EXC[:lanes]
 
 
-def test_fold_mma_scan_matches_plain_at_the_path_shape(dev):
-    """The fold scan at the vote path's h schedule (80 rows x 248,832 lanes)
-    over a table of 2^15 - 1 random field elements, equal to its plain
-    version and to the loop instance."""
+@pytest.mark.parametrize("g2,lanes", [(False, None), (True, None), (True, 16), (True, 71)],
+                         ids=["g1", "g2", "g2-16", "g2-71"])
+def test_fold_mma_scan_matches_plain_at_the_path_shape(dev, g2, lanes):
+    """The fold scan at the vote path's h schedule (G1: 80 rows x 248,832
+    lanes; G2: its first 32 rows, and their first 16 and 71 lanes, half a
+    warp and a ragged third warp) over a table of 2^15 - 1 random field
+    elements, equal to its plain version and to the loop instance."""
     from vote_saver_tpu_torch.testing import h_schedule
 
-    gen = torch.Generator(device=dev).manual_seed(32)
+    gen = torch.Generator(device=dev).manual_seed(32 + g2)
     n = (1 << 15) - 1
-    table = tuple(micro.random_limbs("fq", n, dev, gen) for _ in range(2))
+    tail = (2, lb.FQ.num_limbs) if g2 else (lb.FQ.num_limbs,)
+    table = tuple(micro.random_limbs("fq", n * len(tail), dev, gen).reshape((n,) + tail) for _ in range(2))
     codes = torch.from_numpy(h_schedule(32).codes).to(dev)
     assert tuple(codes.shape) == (80, 248832)
-    acc, exc = _once("g1_madd_scan", "fold", lambda: hf.g1_madd_scan(table, codes, mode="fold"))
-    for want in (hf.madd_scan_plain(False, table, codes), hf.g1_madd_scan(table, codes, mode="loop")):
+    codes = codes[:32, :lanes].contiguous() if g2 else codes
+    pre, scan = ("g2", hf.g2_madd_scan) if g2 else ("g1", hf.g1_madd_scan)
+    acc, exc = _once(f"{pre}_madd_scan", "fold", lambda: scan(table, codes, mode="fold"))
+    for want in (hf.madd_scan_plain(g2, table, codes), scan(table, codes, mode="loop")):
         assert all(torch.equal(x, y) for x, y in zip(acc, want[0])) and torch.equal(exc, want[1])
 
 
 def test_fold_mma_launch_uploads_its_b_operand_first(dev):
     """The tensor-core fold's B operand is in the curve unit's device memory
     before its first launch on a card: with zeros put there and the record
-    of the upload dropped, the next launch of any of the four instances
+    of the upload dropped, the next launch of any of the six instances
     uploads it again and gives the plain limbs; the runtime reports each
-    instance with its 55,936 B of dynamic shared memory a block."""
+    instance with its dynamic shared memory a block: 55,936 B (the B
+    operand and four warp tiles), 92,800 B in the G2 scan, whose block
+    also parks its 128 accumulators there."""
     lib = hf._lib()
     p, *_ = special_lanes(False, 256, random.Random(33))
     P = _put(p, 3, dev)
@@ -678,59 +690,73 @@ def test_fold_mma_launch_uploads_its_b_operand_first(dev):
     p2, *_ = special_lanes(True, 32, random.Random(36))
     P2 = _put(p2, 3, dev)
     grid = tuple(c.reshape(4, 64, -1) for c in _put(shift_grid(False, 4, 64, random.Random(37)), 3, dev))
+    pts2, codes2 = scan_lanes(True, 64, 96, 8, random.Random(41))
+    pxy2 = ms.g2_affine_to_device(pts2, dev)
+    c2 = torch.from_numpy(codes2).to(dev)
+    grid2 = tuple(c.reshape(2, 64, 2, -1) for c in _put(shift_grid(True, 2, 64, random.Random(42)), 3, dev))
     want = (hf.double_plain(False, P, 2), hf.madd_scan_plain(False, pxy, c)[0], hf.add_shift_plain(False, grid, 1),
-            hf.double_plain(True, P2, 2))
+            hf.double_plain(True, P2, 2), hf.madd_scan_plain(True, pxy2, c2)[0], hf.add_shift_plain(True, grid2, 1))
 
     def right():
         got = (hf.g1_double(P, 2, mode="fold"), hf.g1_madd_scan(pxy, c, mode="fold")[0],
-               hf.g1_add_shift(grid, 1, mode="fold"), hf.g2_double(P2, 2, mode="fold"))
+               hf.g1_add_shift(grid, 1, mode="fold"), hf.g2_double(P2, 2, mode="fold"),
+               hf.g2_madd_scan(pxy2, c2, mode="fold")[0], hf.g2_add_shift(grid2, 1, mode="fold"))
         return tuple(all(torch.equal(x, y) for x, y in zip(g, w)) for g, w in zip(got, want))
 
     key = (lib.vs_curve_fold_mma_upload.__name__, 0, P[0].device.index)
-    assert right() == (True,) * 4 and key in hf._fold_uploaded
+    assert right() == (True,) * 6 and key in hf._fold_uploaded
     zeros = np.zeros(fold_mul.mma_operand(lb.FQ).size, np.int8)
     with torch.cuda.device(dev):
         assert lib.vs_curve_fold_mma_upload(0, zeros.ctypes.data, zeros.size) == 0
-    assert right() == (False,) * 4  # the B operand is what the tensor-core fold reads
+    assert right() == (False,) * 6  # the B operand is what the tensor-core fold reads
     hf._fold_uploaded.discard(key)
-    assert right() == (True,) * 4 and key in hf._fold_uploaded
+    assert right() == (True,) * 6 and key in hf._fold_uploaded
     for name in hf.MMA_KERNELS:
         info = hf.mma_info(name, dev)
-        assert info["smem_bytes"] == 55936 and info["warps_per_sm"] >= 4 and info["registers"] <= 255, info
+        smem = 92800 if name == "g2_madd_scan_fold" else 55936
+        assert info["smem_bytes"] == smem and info["warps_per_sm"] >= 4 and info["registers"] <= 255, info
 
 
-def _suffix_grid(rows: int, bw: int, seed: int, dev):
-    """A (rows, bw) grid of random field elements as G1 coordinates, with
-    shift_grid's special lanes (equal operands, the same limbs, opposite
-    points, both infinities) in the first 16 of row 0, as chip_smoke's
-    suffix grid."""
+def _suffix_grid(rows: int, bw: int, seed: int, dev, g2: bool = False):
+    """A (rows, bw) grid of random field elements as G1 (G2) coordinates,
+    with shift_grid's special lanes (equal operands, the same limbs,
+    opposite points, both infinities) in the first 16 of row 0, as
+    chip_smoke's suffix grid."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    grid = [micro.random_limbs("fq", rows * bw, dev, gen).reshape(rows, bw, -1) for _ in range(3)]
-    for k, c in enumerate(_put(shift_grid(False, 1, 16, random.Random(seed)), 3, dev)):
+    tail = (2, lb.FQ.num_limbs) if g2 else (lb.FQ.num_limbs,)
+    grid = [micro.random_limbs("fq", rows * bw * len(tail), dev, gen).reshape((rows, bw) + tail) for _ in range(3)]
+    for k, c in enumerate(_put(shift_grid(g2, 1, 16, random.Random(seed)), 3, dev)):
         grid[k][0, :16] = c
     return tuple(grid)
 
 
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
 @pytest.mark.parametrize("shift", (1, 2, 16, 32, 256))
-def test_fold_mma_add_shift_matches_plain_at_the_path_shape(dev, shift):
+def test_fold_mma_add_shift_matches_plain_at_the_path_shape(dev, shift, g2):
     """The fold suffix round, whose fold product runs on the tensor cores,
     on the combination phase's 432 x 512 grid, one launch, equal to its
     plain version and to the loop instance; from shift 32 on, shift / 32
     of each row's 16 warps have no partner and skip the add."""
-    grid = _suffix_grid(432, 512, 38, dev)
-    got = _once("g1_add_shift", "fold", lambda: hf.g1_add_shift(grid, shift, mode="fold"))
-    for want in (hf.add_shift_plain(False, grid, shift), hf.g1_add_shift(grid, shift, mode="loop")):
+    grid = _suffix_grid(432, 512, 38 + g2, dev, g2)
+    pre, shift_add = ("g2", hf.g2_add_shift) if g2 else ("g1", hf.g1_add_shift)
+    got = _once(f"{pre}_add_shift", "fold", lambda: shift_add(grid, shift, mode="fold"))
+    for want in (hf.add_shift_plain(g2, grid, shift), shift_add(grid, shift, mode="loop")):
         assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
 @pytest.mark.parametrize("rows", (1, 3, 7))
-def test_fold_mma_add_shift_matches_plain_on_a_ragged_grid(dev, rows):
+def test_fold_mma_add_shift_matches_plain_on_a_ragged_grid(dev, rows, g2):
     """The fold suffix round on grids of bw = 16 (a warp spans two rows;
-    with an odd row count the last warp is ragged) at every shift 1-15."""
-    grid = tuple(c.reshape(rows, 16, -1) for c in _put(shift_grid(False, rows, 16, random.Random(39 + rows)), 3, dev))
+    with an odd row count the last warp is ragged) at every shift 1-15,
+    equal to its plain version and to the loop instance."""
+    pts = shift_grid(g2, rows, 16, random.Random(39 + rows + 8 * g2))
+    grid = tuple(c.reshape((rows, 16) + tuple(c.shape[1:])) for c in _put(pts, 3, dev))
+    pre, shift_add = ("g2", hf.g2_add_shift) if g2 else ("g1", hf.g1_add_shift)
     for shift in range(1, 16):
-        got = _once("g1_add_shift", "fold", lambda: hf.g1_add_shift(grid, shift, mode="fold"))
-        assert all(torch.equal(x, y) for x, y in zip(got, hf.add_shift_plain(False, grid, shift))), shift
+        got = _once(f"{pre}_add_shift", "fold", lambda: shift_add(grid, shift, mode="fold"))
+        for want in (hf.add_shift_plain(g2, grid, shift), shift_add(grid, shift, mode="loop")):
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), shift
 
 
 @pytest.mark.parametrize("lanes,times", [(16, 10), (32, 4), (2 * 32 + 7, 1), (2 * 32 + 7, 10)])

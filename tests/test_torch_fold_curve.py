@@ -38,6 +38,7 @@ Exact equality throughout.
 import contextlib
 import pathlib
 import random
+import re
 import sys
 
 import jax.numpy as jnp
@@ -162,22 +163,30 @@ def test_double_on_the_tile_matches_the_fold_pallas_double(env16, lanes):
     assert _equal(got, _jax_double(env16, p, 2))
 
 
-@pytest.mark.parametrize("lanes", LANES)
-def test_scan_on_the_tile_matches_the_fold_pallas_row_scan(env16, lanes):
-    """The bucket scan with the tile's multiply, as madd_scan_plain runs it
-    (the live lanes of each row) and as the converged kernel runs it (every
-    lane of every row through the select-form madd): the plain scan's limbs
-    and flags, and the JAX row scan with the fold formula's, on idle codes,
-    (0, 0) points, signs and the doubling corner."""
-    steps = 6
-    pts, codes = scan_lanes(False, 24, lanes, steps, random.Random(80 + lanes))
-    pxy = ms.g1_affine_to_device(pts, "cpu")
+# (g2, lanes) of the scan: G1 at both widths (ids as before G2 joined), G2
+# at both widths; G2 scans 4 rows, the fewest scan_lanes' special lanes need
+SCAN_CASES = [pytest.param(False, n, id=str(n)) for n in LANES] + [
+    pytest.param(True, n, id=f"g2-{n}") for n in LANES]
+
+
+@pytest.mark.parametrize("g2,lanes", SCAN_CASES)
+def test_scan_on_the_tile_matches_the_fold_pallas_row_scan(env16, g2, lanes):
+    """The bucket scan with the tile's multiply (G2: an Fq2 over it, TileFq2),
+    as madd_scan_plain runs it (the live lanes of each row) and as the
+    converged kernel runs it (every lane of every row through the
+    select-form madd): the plain scan's limbs and flags, and the JAX row
+    scan with the fold formula's, on idle codes, (0, 0) points, signs and
+    the doubling corner."""
+    steps = 4 if g2 else 6
+    pts, codes = scan_lanes(g2, 24, lanes, steps, random.Random(80 + lanes + 7 * g2))
+    pxy = (ms.g2_affine_to_device if g2 else ms.g1_affine_to_device)(pts, "cpu")
     c = torch.from_numpy(codes)
-    want, wexc = hf.madd_scan_plain(False, pxy, c)
+    want, wexc = hf.madd_scan_plain(g2, pxy, c)
     with _tile_fq():
-        got, exc = hf.madd_scan_plain(False, pxy, c)
-        f = hf._field(False)
-        acc = tuple(map(hf._half, hf._infinity(False, (lanes,), "cpu")))
+        got, exc = hf.madd_scan_plain(g2, pxy, c)
+        f = hf._field(g2)
+        assert isinstance(f, TileFq2 if g2 else TileFq)
+        acc = tuple(map(hf._half, hf._infinity(g2, (lanes,), "cpu")))
         kexc = torch.zeros(lanes, dtype=torch.bool)
         for row in c:
             pidx = ((row & ((1 << 30) - 1)) - 1).clamp(min=0)
@@ -187,18 +196,18 @@ def test_scan_on_the_tile_matches_the_fold_pallas_row_scan(env16, lanes):
     assert _equal(got, want) and torch.equal(exc, wexc)
     assert _equal(tuple(map(hf._pack, acc)), want) and torch.equal(kexc.to(torch.int32), wexc)
     assert exc[: len(SCAN_EXC)].tolist() == SCAN_EXC
-    one, zero = 1, 0
+    one, zero = ((1, 0), (0, 0)) if g2 else (1, 0)
     table = [(zero, zero) if pt is None else pt for pt in pts]
-    fj = _emitter(env16, "fold", False)
-    jacc = _jax_cols([(one, one, zero)] * lanes, 3, False, env16)
+    fj = _emitter(env16, "fold", g2)
+    jacc = _jax_cols([(one, one, zero)] * lanes, 3, g2, env16)
     jexc = np.zeros(lanes, bool)
     for row in codes:
         pidx = np.maximum((row & ((1 << 30) - 1)) - 1, 0)
-        q = _jax_cols([table[k] for k in pidx], 2, False, env16)
+        q = _jax_cols([table[k] for k in pidx], 2, g2, env16)
         jacc, e = env16["pf"]._jac_madd(fj, jacc, q, jnp.asarray(((row >> 30) & 1).astype(bool)),
                                         jnp.asarray(row != 0))
         jexc |= np.asarray(e).astype(bool)
-    assert _equal(got, tuple(_from_jax(t, False) for t in jacc))
+    assert _equal(got, tuple(_from_jax(t, g2) for t in jacc))
     assert exc.tolist() == jexc.astype(int).tolist()
 
 
@@ -265,27 +274,30 @@ def test_g2_double_on_the_tile_matches_the_fold_pallas_double(env16, lanes):
     assert _equal(got, _jax_double(env16, p, 2, g2=True))
 
 
-def _add_shift_converged(coords, shift: int):
-    """One suffix round over a (rows, bw, L) grid as the converged
-    k_add_shift<Fq, Called<MulFoldMma>> runs it, over the current
-    hopper_field.HALF["fq"]: the rows * bw lanes flattened and padded to
-    whole warps of 32 with lane n - 1 (lane_in); each lane's partner in[i +
-    shift] where i % bw + shift < bw, else canonical infinity; a warp none
-    of whose lanes has a partner keeps p (infinity where p is infinite);
-    the others run jac_add_select: the generic add, the doubling on the
-    warps with a same lane (equal finite operands), then the selects in
-    _jac_add's order.  -> (coords, warps that took the doubling)."""
+def _add_shift_converged(coords, shift: int, g2: bool = False):
+    """One suffix round over a (rows, bw, L) grid (G2: (rows, bw, 2, L)) as
+    the converged k_add_shift<Fq, Called<MulFoldMma>> (G2: k_add_shift<Fq2,
+    MulFoldMma>) runs it, over the current hopper_field.HALF["fq"] (G2:
+    HALF_FQ2): the rows * bw lanes flattened and padded to whole warps of 32
+    with lane n - 1 (lane_in); each lane's partner in[i + shift] where i %
+    bw + shift < bw, else canonical infinity; a warp none of whose lanes has
+    a partner keeps p (infinity where p is infinite); the others run
+    jac_add_select: the generic add, the doubling on the warps with a same
+    lane (equal finite operands), then the selects in _jac_add's order.  ->
+    (coords, warps that took the doubling)."""
     rows, bw = coords[0].shape[:2]
+    tail = tuple(coords[0].shape[2:])
     n, W = rows * bw, fold_mul.TILE_LANES
     nw = -(-n // W)
-    f = hf._field(False)
+    f = hf._field(g2)
     idx = torch.arange(nw * W).clamp(max=n - 1)
     partner = idx % bw + shift < bw
     k = torch.where(partner, idx + shift, idx)
-    inf = hf._infinity(False, (nw * W,), "cpu")
-    flat = tuple(c.reshape(n, -1) for c in coords)
+    inf = hf._infinity(g2, (nw * W,), "cpu")
+    flat = tuple(c.reshape((n,) + tail) for c in coords)
     p = tuple(hf._half(c[idx]) for c in flat)
-    q = tuple(hf._half(torch.where(partner[:, None], c[k], i)) for c, i in zip(flat, inf))
+    has = partner.reshape((-1,) + (1,) * len(tail))
+    q = tuple(hf._half(torch.where(has, c[k], i)) for c, i in zip(flat, inf))
     p_inf, q_inf = f.is_zero(p[2]), f.is_zero(q[2])
     out = tuple(f.select(p_inf, i, c) for i, c in zip(map(hf._half, inf), p))  # the skipped warps' result
     live = torch.nonzero(partner.reshape(nw, W).any(dim=1).repeat_interleave(W)).flatten()
@@ -311,40 +323,46 @@ def _add_shift_converged(coords, shift: int):
     return tuple(hf._pack(c[:n]).reshape(coords[0].shape) for c in out), dbl_warps
 
 
-# (bw, shift): a ragged 3 x 16 grid (48 lanes, the last warp half padding)
-# at every shift 1 .. bw / 2, and a 1 x 64 row at shift 32, whose second
-# warp has no partner
-SHIFT_CASES = [(16, s) for s in range(1, 9)] + [(64, 32)]
+# (g2, bw, shift): in G1 a ragged 3 x 16 grid (48 lanes, the last warp half
+# padding) at every shift 1 .. bw / 2, and a 1 x 64 row at shift 32, whose
+# second warp has no partner (ids as before G2 joined); in G2 the same grids
+# at shifts 1, 2 (the doubling), 4 (opposite points) and 32
+SHIFT_CASES = [pytest.param(False, 16, s, id=f"16-{s}") for s in range(1, 9)] + [
+    pytest.param(False, 64, 32, id="64-32")] + [
+    pytest.param(True, bw, s, id=f"g2-{bw}-{s}") for bw, s in ((16, 1), (16, 2), (16, 4), (64, 32))]
 
 
-@pytest.mark.parametrize("bw,shift", SHIFT_CASES)
-def test_suffix_round_on_the_tile_matches_the_fold_pallas_add(env16, bw, shift):
-    """The converged suffix round with the tile's multiply on
-    testing.shift_grid (row 0: equal operands at shift 1, the same limbs at
-    shift 2, opposite points at shift 4, canonical infinity, infinity with
-    random x and y, an infinite lane bw - 1): add_shift_plain's limbs and
-    the JAX fold formula's ``_jac_add(complete=True)`` on the rolled
-    partners; the doubling taken by warp 0 alone where row 0 has equal
-    operands (shifts 1 and 2), by none elsewhere."""
+@pytest.mark.parametrize("g2,bw,shift", SHIFT_CASES)
+def test_suffix_round_on_the_tile_matches_the_fold_pallas_add(env16, g2, bw, shift):
+    """The converged suffix round with the tile's multiply (G2: over
+    TileFq2) on testing.shift_grid (row 0: equal operands at shift 1, the
+    same limbs at shift 2, opposite points at shift 4, canonical infinity,
+    infinity with random x and y, an infinite lane bw - 1):
+    add_shift_plain's limbs and the JAX fold formula's
+    ``_jac_add(complete=True)`` on the rolled partners; the doubling taken
+    by warp 0 alone where row 0 has equal operands (shifts 1 and 2), by
+    none elsewhere."""
     rows = 48 // bw if bw == 16 else 1
-    pts = shift_grid(False, rows, bw, random.Random(140 + bw + shift))
-    coords = tuple(c.reshape(rows, bw, -1) for c in _port(pts, 3))
-    want = hf.add_shift_plain(False, coords, shift)
+    pts = shift_grid(g2, rows, bw, random.Random(140 + bw + shift + 3 * g2))
+    coords = tuple(c.reshape((rows, bw) + tuple(c.shape[1:])) for c in _port(pts, 3))
+    want = hf.add_shift_plain(g2, coords, shift)
     with _tile_fq():
-        got, dbl_warps = _add_shift_converged(coords, shift)
+        assert isinstance(hf._field(g2), TileFq2 if g2 else TileFq)
+        got, dbl_warps = _add_shift_converged(coords, shift, g2)
     assert _equal(got, want)
     assert dbl_warps == (1 if shift in (1, 2) else 0)
-    inf = ((1, 1, 0),)
-    partners = [pts[i + shift] if i % bw + shift < bw else inf[0] for i in range(rows * bw)]
-    f = _emitter(env16, "fold", False)
-    jout = env16["pf"]._jac_add(f, _jax_cols(pts, 3, False, env16), _jax_cols(partners, 3, False, env16),
+    one, zero = ((1, 0), (0, 0)) if g2 else (1, 0)
+    partners = [pts[i + shift] if i % bw + shift < bw else (one, one, zero) for i in range(rows * bw)]
+    f = _emitter(env16, "fold", g2)
+    jout = env16["pf"]._jac_add(f, _jax_cols(pts, 3, g2, env16), _jax_cols(partners, 3, g2, env16),
                                 complete=True)
-    assert _equal(tuple(c.reshape(rows * bw, -1) for c in got), tuple(_from_jax(c, False) for c in jout))
+    assert _equal(tuple(c.reshape((rows * bw,) + tuple(c.shape[2:])) for c in got),
+                  tuple(_from_jax(c, g2) for c in jout))
 
 
 # the fold unit's tensor-core instances as the profiler (demangled) and
-# ptxas / cuobjdump (mangled) name them, called and inlined, and a G2 fold
-# instance beside them
+# ptxas / cuobjdump (mangled) name them, called and inlined, and a fold
+# instance on the dp4a fold beside them
 _NAMES = {
     "(anonymous namespace)::k_madd_scan<Fp<FqParams>, Called<MulFoldMma> >(unsigned int const*, ...)":
         "g1_madd_scan_fold",
@@ -353,8 +371,9 @@ _NAMES = {
     "(anonymous namespace)::k_add_shift<Fp<FqParams>, Called<MulFoldMma> >(unsigned int const*, ...)":
         "g1_add_shift_fold",
     "(anonymous namespace)::k_double<Fq2, MulFoldMma>(unsigned int const*, ...)": "g2_double_fold",
-    "(anonymous namespace)::k_add_shift<Fq2, MulFold>(unsigned int const*, ...)": "g2_add_shift_fold",
-    "(anonymous namespace)::k_madd_scan<Fq2, MulFold>(unsigned int const*, ...)": "g2_madd_scan_fold",
+    "(anonymous namespace)::k_add_shift<Fq2, MulFoldMma>(unsigned int const*, ...)": "g2_add_shift_fold",
+    "(anonymous namespace)::k_madd_scan<Fq2, MulFoldMma>(unsigned int const*, ...)": "g2_madd_scan_fold",
+    "(anonymous namespace)::k_add<Fp<FqParams>, Called<MulFold> >(unsigned int const*, ...)": "g1_add_fold",
 }
 _SCAN = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_madd_scanI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_PKiixPjSC_SC_Pi"
 _DBL = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN8k_doubleI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_S9_PjSA_SA_xi"
@@ -362,7 +381,10 @@ _DBL_INLINE = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN8k_doubleI2FpI8FqP
 _SHIFT = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_add_shiftI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_S9_"
           "PjSA_SA_xii")
 _G2_DBL = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN8k_doubleI3Fq210MulFoldMmaEEvPKjS4_S4_PjS5_S5_xi"
-_G2_SHIFT = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_add_shiftI3Fq27MulFoldEEvPKjS4_S4_PjS5_S5_xii"
+_G2_SHIFT = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_add_shiftI3Fq210MulFoldMmaEEvPKjS4_S4_PjS5_S5_xii"
+_G2_SCAN = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_madd_scanI3Fq210MulFoldMmaEEvPKjS4_PKiixPjS7_S7_Pi"
+_G1_ADD = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN5k_addI2FpI8FqParamsE6CalledI7MulFoldEEEvPKjS9_S9_S9_S9_S9_"
+           "PjSA_SA_x")
 _FQ_MUL_MMA = "_Z11fq_mul_callI10MulFoldMmaE2FpI8FqParamsES3_S3_"
 _MUL_MMA = "_Z10mul_calledI10MulFoldMma8FqParamsE2FpIT0_ES4_S4_"
 
@@ -370,9 +392,10 @@ _MUL_MMA = "_Z10mul_calledI10MulFoldMma8FqParamsE2FpIT0_ES4_S4_"
 def test_mma_instances_keep_their_names():
     """The profiler's and ptxas's names of the tensor-core instances map to
     g1_madd_scan_fold / g1_double_fold / g1_add_shift_fold /
-    g2_double_fold (the mode's name holds MulFold), a G2 fold instance on
-    the dp4a fold keeps its own name, and the called multiplies (G1's
-    mul_called, G2's fq_mul_call) are no kernels of the kernels line."""
+    g2_double_fold / g2_madd_scan_fold / g2_add_shift_fold (the mode's name
+    holds MulFold), a fold instance on the dp4a fold (the G1 complete add)
+    keeps its own name, and the called multiplies (G1's mul_called, G2's
+    fq_mul_call) are no kernels of the kernels line."""
     _root_on_path()
     import chip_smoke
 
@@ -382,16 +405,22 @@ def test_mma_instances_keep_their_names():
     assert _build.short_name(_DBL_INLINE) == "k_double<FqParams,MulFoldMma>"
     assert _build.short_name(_SHIFT) == "k_add_shift<FqParams,Called<MulFoldMma>>"
     assert _build.short_name(_G2_DBL) == "k_double<Fq2,MulFoldMma>"
-    names = (_SCAN, _DBL, _DBL_INLINE, _SHIFT, _G2_DBL, _G2_SHIFT)
+    assert _build.short_name(_G2_SCAN) == "k_madd_scan<Fq2,MulFoldMma>"
+    assert _build.short_name(_G2_SHIFT) == "k_add_shift<Fq2,MulFoldMma>"
+    assert _build.short_name(_G1_ADD) == "k_add<FqParams,Called<MulFold>>"
+    names = (_SCAN, _DBL, _DBL_INLINE, _SHIFT, _G2_DBL, _G2_SCAN, _G2_SHIFT, _G1_ADD)
     assert [chip_smoke.instance_name(_build.short_name(n)) for n in names] == [
         "g1_madd_scan_fold", "g1_double_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold",
-        "g2_add_shift_fold"]
+        "g2_madd_scan_fold", "g2_add_shift_fold", "g1_add_fold"]
     assert _build.short_name(_MUL_MMA) == "mul_called<MulFoldMma,FqParams>"
     assert _build.short_name(_FQ_MUL_MMA) == "fq_mul_call<MulFoldMma,FqParams>"
     assert chip_smoke.instance_name(_build.short_name(_MUL_MMA)) is None
     assert chip_smoke.instance_name(_build.short_name(_FQ_MUL_MMA)) is None
-    assert hf.MMA_KERNELS == ("g1_madd_scan_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold")
-    assert set(hf.MMA_KERNELS) <= set(chip_smoke.FOLD_KERNELS) and set(hf.MMA_KERNELS) <= set(hf.KERNELS)
+    # MMA_KERNELS names curve_fold.cu's kMmaKernels table in its order (mma_info indexes the table by it)
+    table = re.findall(r"\(k_(madd_scan|double|add_shift)<(Fq2?), ModeG[12]Mma>\)",
+                       (_build.CSRC / "curve_fold.cu").read_text())
+    assert hf.MMA_KERNELS == tuple(f"{'g2' if f == 'Fq2' else 'g1'}_{k}_fold" for k, f in table)
+    assert len(hf.MMA_KERNELS) == 6 and set(hf.MMA_KERNELS) <= set(hf.KERNELS)
     assert {"vs_curve_fold_mma_upload", "vs_curve_fold_mma_info"} <= set(_build.UNITS["curve_fold.cu"])
 
 
@@ -430,21 +459,34 @@ _SASS = f"""
         /*0420*/                   FFMA R1, R2, R3, R4 ;
         /*0430*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
         /*0440*/                   RET.REL.NODEC R20 0x0 ;
+		Function : {_G2_SCAN}
+        /*0500*/                   CALL.REL.NOINC 0x530 ;
+        /*0510*/              @!P0 BRA 0x500 ;
+        /*0520*/                   EXIT ;
+        /*0530*/                   FFMA R1, R2, R3, R4 ;
+        /*0540*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
+        /*0550*/                   IMMA.16832.U8.S8 R12, R48.ROW, R44.COL, R12 ;
+        /*0560*/                   RET.REL.NODEC R20 0x0 ;
 		Function : {_G2_SHIFT}
-        /*0500*/                   CALL.REL.NOINC 0x520 ;
-        /*0510*/                   EXIT ;
-        /*0520*/                   FFMA R1, R2, R3, R4 ;
-        /*0530*/                   IDP.4A.U8.S8 R4, R8, c[0x3][0x0], R4 ;
-        /*0540*/                   RET.REL.NODEC R20 0x0 ;
+        /*0600*/                   CALL.REL.NOINC 0x620 ;
+        /*0610*/                   EXIT ;
+        /*0620*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
+        /*0630*/                   RET.REL.NODEC R20 0x0 ;
+		Function : {_G1_ADD}
+        /*0700*/                   CALL.REL.NOINC 0x720 ;
+        /*0710*/                   EXIT ;
+        /*0720*/                   FFMA R1, R2, R3, R4 ;
+        /*0730*/                   IDP.4A.U8.S8 R4, R8, c[0x3][0x0], R4 ;
+        /*0740*/                   RET.REL.NODEC R20 0x0 ;
 """
 
 
 def test_sass_counts_hold_the_called_multiply():
     """[sass] counts a kernel's instructions with those of the multiply it
     calls out of line, which cuobjdump lists inside the kernel's code: the
-    tensor-core instances (the G2 doubling among them) show IMMA and no
-    IDP, the G2 fold suffix round the dp4a of mul_fold, each under its
-    kernels-line name."""
+    tensor-core instances (the G2 doubling, scan and suffix round among
+    them) show IMMA and no IDP, the G1 fold complete add the dp4a of
+    mul_fold, each under its kernels-line name."""
     _root_on_path()
     import chip_smoke
 
@@ -453,10 +495,13 @@ def test_sass_counts_hold_the_called_multiply():
         "g1_double_fold": {"IMMA": 1, "IDP": 0, "FFMA": 0, "all": 5},
         "g1_add_shift_fold": {"IMMA": 3, "IDP": 0, "FFMA": 0, "all": 7},
         "g2_double_fold": {"IMMA": 1, "IDP": 0, "FFMA": 1, "all": 5},
-        "g2_add_shift_fold": {"IMMA": 0, "IDP": 1, "FFMA": 1, "all": 5},
+        "g2_madd_scan_fold": {"IMMA": 2, "IDP": 0, "FFMA": 1, "all": 7},
+        "g2_add_shift_fold": {"IMMA": 1, "IDP": 0, "FFMA": 0, "all": 4},
+        "g1_add_fold": {"IMMA": 0, "IDP": 1, "FFMA": 1, "all": 5},
     }
     assert all(counts["IMMA"] and not counts["IDP"] for k, counts in chip_smoke.sass_counts(_SASS).items()
                if k in hf.MMA_KERNELS)
+    assert set(hf.MMA_KERNELS) <= set(chip_smoke.sass_counts(_SASS))
 
 
 def test_fold_launcher_uploads_the_b_operand_once_a_card(monkeypatch):

@@ -43,6 +43,72 @@ struct Jac {
   E x, y, z;
 };
 
+// A thread's Jacobian point kept in the block's shared memory instead of
+// registers, word-major: word w at base[w * stride], base = the area's
+// start + threadIdx.x and stride = the block's threads, so the 32 threads
+// of a warp touch 32 consecutive words (no bank conflict).  jac_madd_select
+// reads its coordinates where a formula step uses them (jx, jy, jz) and
+// writes the result once (put); with the multiply called out of line the
+// point is then not live across the calls, where it would be saved on the
+// thread's stack (curve_kernels.cuh: the converged G2 scan's accumulator).
+template <class E>
+struct ParkedJac {
+  uint32_t* base;
+  int stride;
+};
+
+template <class P>
+__device__ __forceinline__ void park_load(Fp<P>& x, const uint32_t* base, int stride, int w) {
+#pragma unroll
+  for (int j = 0; j < P::L; ++j) x.v[j] = base[(w + j) * stride];
+}
+
+__device__ __forceinline__ void park_load(Fq2& x, const uint32_t* base, int stride, int w) {
+  park_load(x.c0, base, stride, w);
+  park_load(x.c1, base, stride, w + FqParams::L);
+}
+
+template <class P>
+__device__ __forceinline__ void park_store(uint32_t* base, int stride, int w, const Fp<P>& x) {
+#pragma unroll
+  for (int j = 0; j < P::L; ++j) base[(w + j) * stride] = x.v[j];
+}
+
+__device__ __forceinline__ void park_store(uint32_t* base, int stride, int w, const Fq2& x) {
+  park_store(base, stride, w, x.c0);
+  park_store(base, stride, w + FqParams::L, x.c1);
+}
+
+// The coordinates of an accumulator, in registers or parked.
+template <class E>
+__device__ __forceinline__ const E& jx(const Jac<E>& a) { return a.x; }
+template <class E>
+__device__ __forceinline__ const E& jy(const Jac<E>& a) { return a.y; }
+template <class E>
+__device__ __forceinline__ const E& jz(const Jac<E>& a) { return a.z; }
+template <class E>
+__device__ __forceinline__ void put(Jac<E>& a, const Jac<E>& v) { a = v; }
+
+template <class E>
+__device__ __forceinline__ E park_coord(const ParkedJac<E>& a, int c) {
+  E v;
+  park_load(v, a.base, a.stride, c * (int)(sizeof(E) / 4));
+  return v;
+}
+template <class E>
+__device__ __forceinline__ E jx(const ParkedJac<E>& a) { return park_coord(a, 0); }
+template <class E>
+__device__ __forceinline__ E jy(const ParkedJac<E>& a) { return park_coord(a, 1); }
+template <class E>
+__device__ __forceinline__ E jz(const ParkedJac<E>& a) { return park_coord(a, 2); }
+template <class E>
+__device__ __forceinline__ void put(ParkedJac<E>& a, const Jac<E>& v) {
+  constexpr int w = (int)(sizeof(E) / 4);
+  park_store(a.base, a.stride, 0, v.x);
+  park_store(a.base, a.stride, w, v.y);
+  park_store(a.base, a.stride, 2 * w, v.z);
+}
+
 template <class E, class M>
 __device__ __forceinline__ Jac<E> jac_double(const Jac<E>& p) {
   const E a = fsq<M>(p.x);
@@ -308,33 +374,33 @@ __device__ uint32_t jac_madd(Jac<E>& acc, const E& x2, E y2, bool sign, bool act
 // hopper_field.jac_madd: the lift where acc is infinite, infinity where
 // h = 0, r != 0 and acc is finite, acc kept where the lane is inactive; the
 // flag where h = 0, r = 0, acc finite and the lane active.  Same limbs and
-// flag as jac_madd.
-template <class E, class M>
-__device__ uint32_t jac_madd_select(Jac<E>& acc, const E& x2, E y2, bool sign, bool active) {
+// flag as jac_madd.  acc is a Jac<E> or a ParkedJac<E>.
+template <class E, class M, class A>
+__device__ uint32_t jac_madd_select(A& acc, const E& x2, E y2, bool sign, bool active) {
   active = active && !(is_zero(x2) && is_zero(y2));
   y2 = sel(sign, sub(zero_of<E>(), y2), y2);
-  const E z1z1 = fsq<M>(acc.z);
+  const E z1z1 = fsq<M>(jz(acc));
   const E u2 = fmul<M>(x2, z1z1);
-  const E s2 = fmul<M>(fmul<M>(y2, acc.z), z1z1);
-  const E h = sub(u2, acc.x);
+  const E s2 = fmul<M>(fmul<M>(y2, jz(acc)), z1z1);
+  const E h = sub(u2, jx(acc));
   const E hh = fsq<M>(h);
   E i = add(hh, hh);
   i = add(i, i);
   const E j = fmul<M>(h, i);
-  E r = sub(s2, acc.y);
+  E r = sub(s2, jy(acc));
   r = add(r, r);
-  const E v = fmul<M>(acc.x, i);
+  const E v = fmul<M>(jx(acc), i);
   const E x3 = sub(sub(fsq<M>(r), j), add(v, v));
-  const E y1j = fmul<M>(acc.y, j);
+  const E y1j = fmul<M>(jy(acc), j);
   const E y3 = sub(fmul<M>(r, sub(v, x3)), add(y1j, y1j));
-  const E z3 = sub(sub(fsq<M>(add(acc.z, h)), z1z1), hh);
-  const bool p_inf = is_zero(acc.z);
+  const E z3 = sub(sub(fsq<M>(add(jz(acc), h)), z1z1), hh);
+  const bool p_inf = is_zero(jz(acc));
   const bool h_zero = is_zero(h);
   const bool r_zero = is_zero(r);
   const E one = one_of<E>();
   Jac<E> out = {sel(p_inf, x2, x3), sel(p_inf, y2, y3), sel(p_inf, one, z3)};
   const bool opposite = h_zero && !r_zero && !p_inf;
   out = {sel(opposite, one, out.x), sel(opposite, one, out.y), sel(opposite, zero_of<E>(), out.z)};
-  acc = {sel(active, out.x, acc.x), sel(active, out.y, acc.y), sel(active, out.z, acc.z)};
+  put(acc, {sel(active, out.x, jx(acc)), sel(active, out.y, jy(acc)), sel(active, out.z, jz(acc))});
   return (h_zero && r_zero && !p_inf && active) ? 1u : 0u;
 }

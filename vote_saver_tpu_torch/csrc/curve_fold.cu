@@ -9,16 +9,18 @@
 // columns, the reduction as one product with the constant matrix, two
 // 16-bit word steps and a conditional subtract.  Two forms of that product:
 //
-//   * the G1 bucket scan (k_madd_scan), the G1 suffix round (k_add_shift)
-//     and the G1 doubling (k_double): Called<MulFoldMma> (fold_mma.cuh),
-//     and the G2 doubling (k_double<Fq2>): MulFoldMma, its Fq2 multiply
-//     calling it out of line (fq_mul_call); the product a warp's 32 lanes
-//     at once as 126 mma.sync on the int8 tensor cores, the B operand in
-//     this unit's device memory (kFoldMmaFq), copied into each block's
-//     shared memory by the kernel's prologue.  What bounds a multiply
-//     there: the 2,304 fp32 FMAs of the digit columns, one issue slot each.
-//     The four kernels run in their converged form (curve_kernels.cuh).
-//   * every other kernel: MulFold (mul_modes.cuh), the product as 72 x 52
+//   * the bucket scan (k_madd_scan), the suffix round (k_add_shift) and
+//     the doubling (k_double) of both groups: Called<MulFoldMma>
+//     (fold_mma.cuh) in G1, MulFoldMma in G2, whose Fq2 multiply calls it
+//     out of line (fq_mul_call); the product a warp's 32 lanes at once as
+//     126 mma.sync on the int8 tensor cores, the B operand in this unit's
+//     device memory (kFoldMmaFq), copied into each block's shared memory by
+//     the kernel's prologue.  What bounds a multiply there: the 2,304 fp32
+//     FMAs of the digit columns, one issue slot each.  The six kernels run
+//     in their converged form (curve_kernels.cuh).
+//   * every other kernel (the complete adds, the single-row madd, the
+//     distinct and flagged adds, the inversion chain): MulFold
+//     (mul_modes.cuh), the product as 72 x 52
 //     dp4a a lane against the matrix in this unit's __constant__ memory;
 //     bound by the 2,304 FMAs and those 3,744 dp4a with their constant
 //     reads, one lane at a time.
@@ -27,9 +29,9 @@
 // Fr inversion, in __constant__; kFoldMmaFq): vs_curve_fold_upload and
 // vs_curve_fold_mma_upload fill them, once per field, library and card,
 // before the unit's first launch there (hopper_field.upload_fold_matrix;
-// the wrappers call it).  The B operand's upload also lifts the two
-// tensor-core instances' limit of dynamic shared memory on the card, once,
-// so their launches need no attribute call.  Launchers: curve_unit.cuh,
+// the wrappers call it).  The B operand's upload also lifts the tensor-core
+// instances' limit of dynamic shared memory on the card, once, so their
+// launches need no attribute call.  Launchers: curve_unit.cuh,
 // each named as its loop launcher with `_fold`.  The multiply is called,
 // not inlined: inlined, the scan took 70.75 ms a call against 45.4-45.5
 // and the doubling at 16 lanes x 10 2.2x as long (PERF.md).
@@ -44,15 +46,21 @@
 
 namespace {
 
-constexpr int kMmaSmem = ModeG1Mma::smem_bytes(kThreads);
-static_assert(ModeG2Mma::smem_bytes(kThreads) == kMmaSmem, "one shared-memory size for every tensor-core instance");
+// the tensor-core instances, in the order of hopper_field.MMA_KERNELS, each
+// with its dynamic shared memory a block (the G2 scan's also holds its
+// parked accumulators, curve_kernels.cuh)
+struct MmaKernel {
+  const void* fn;
+  int smem;
+};
 
-// the tensor-core instances, in the order of hopper_field.MMA_KERNELS
-const void* const kMmaKernels[] = {
-    reinterpret_cast<const void*>(k_madd_scan<Fq, ModeG1Mma>),
-    reinterpret_cast<const void*>(k_double<Fq, ModeG1Mma>),
-    reinterpret_cast<const void*>(k_add_shift<Fq, ModeG1Mma>),
-    reinterpret_cast<const void*>(k_double<Fq2, ModeG2Mma>),
+const MmaKernel kMmaKernels[] = {
+    {reinterpret_cast<const void*>(k_madd_scan<Fq, ModeG1Mma>), kScanSmem<Fq, ModeG1Mma>},
+    {reinterpret_cast<const void*>(k_double<Fq, ModeG1Mma>), ModeG1Mma::smem_bytes(kThreads)},
+    {reinterpret_cast<const void*>(k_add_shift<Fq, ModeG1Mma>), ModeG1Mma::smem_bytes(kThreads)},
+    {reinterpret_cast<const void*>(k_double<Fq2, ModeG2Mma>), ModeG2Mma::smem_bytes(kThreads)},
+    {reinterpret_cast<const void*>(k_madd_scan<Fq2, ModeG2Mma>), kScanSmem<Fq2, ModeG2Mma>},
+    {reinterpret_cast<const void*>(k_add_shift<Fq2, ModeG2Mma>), ModeG2Mma::smem_bytes(kThreads)},
 };
 
 }  // namespace
@@ -70,8 +78,8 @@ int vs_curve_fold_upload(int field, const void* words, long long nwords) {
 // device.
 int vs_curve_fold_mma_upload(int field, const void* bytes, long long nbytes) {
   int err = fold_mma_upload(field, bytes, nbytes);
-  for (const void* k : kMmaKernels) {
-    if (err == 0) err = allow_smem(k, kMmaSmem);
+  for (const MmaKernel& k : kMmaKernels) {
+    if (err == 0) err = allow_smem(k.fn, k.smem);
   }
   return err;
 }
@@ -82,7 +90,7 @@ int vs_curve_fold_mma_info(int kernel, int* out) {
   if (kernel < 0 || kernel >= (int)(sizeof(kMmaKernels) / sizeof(kMmaKernels[0]))) {
     return (int)cudaErrorInvalidValue;
   }
-  return kernel_info(kMmaKernels[kernel], kThreads, kMmaSmem, out);
+  return kernel_info(kMmaKernels[kernel].fn, kThreads, kMmaKernels[kernel].smem, out);
 }
 
 }  // extern "C"

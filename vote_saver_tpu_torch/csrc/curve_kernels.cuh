@@ -33,9 +33,9 @@
 // Called<M> (one out-of-line copy of the mode's multiply; the loop
 // instances of K3d and K5/K6 take MulLoop inlined), a G2 kernel M, whose
 // Fq2 multiply calls its Fq multiply out of line (fq_mul_call).  The fold
-// unit's G1 bucket scan, G1 suffix round and G1 doubling take
-// Called<MulFoldMma>, its G2 doubling MulFoldMma: the fold product on the
-// int8 tensor cores (fold_mma.cuh).
+// unit's bucket scan, suffix round and doubling take Called<MulFoldMma> in
+// G1 and MulFoldMma in G2: the fold product on the int8 tensor cores
+// (fold_mma.cuh).
 //
 // The converged form.  A mode whose multiply a warp runs together
 // (M::kConverged: mma.sync and ldmatrix are .sync.aligned) needs every
@@ -51,9 +51,10 @@
 // the warp-uniform skips of k_add_shift and jac_add_select) end before the
 // multiply, and mul_fold_mma synchronises the warp (__syncwarp) between its
 // pieces and its product.  The launchers pass M::smem_bytes(kThreads) as the
-// launch's dynamic shared memory (0 for the other modes); a kernel may take
-// more than 48 KB of it only once the card's limit for it is lifted, which
-// the fold unit's B operand upload does (curve_fold.cu).
+// launch's dynamic shared memory (0 for the other modes), the scan kScanSmem
+// (below); a kernel may take more than 48 KB of it only once the card's
+// limit for it is lifted, which the fold unit's B operand upload does
+// (curve_fold.cu).
 //
 // Each is one thread per lane over (B, L) / (B, 2, L) int32 tensors read as
 // uint32_t*, with every limb in registers.  The Pallas kernels tile the
@@ -196,6 +197,36 @@ __device__ __forceinline__ void scan_point(int32_t code, const uint32_t* __restr
   load_ro(y, py, k);
 }
 
+// The converged G2 scan parks its accumulator in the block's shared memory
+// (ParkedJac, curve.cuh), after the mode's.  With every Fq2 product a call
+// of fq_mul_call, the accumulator held in registers across the calls went
+// to the thread's stack (1,312 B of local memory a thread at 168
+// registers, 12 warps a SM); parked, the scan ran 25% faster at the vote
+// path's schedule though its 92,800 B a block leave 8 warps a SM.  The
+// suffix round's partner parked the same way ran 1-2% slower (it had 8
+// warps a SM already), so the round keeps its operands in registers
+// (PERF.md).  The sizes are constexpr variables, which device code may
+// read.
+template <class M>
+constexpr int kModeSmem = M::smem_bytes(kThreads);
+template <class E, class M>
+constexpr bool kScanParks = M::kConverged && std::is_same<E, Fq2>::value;
+template <class E, class M>
+constexpr int kScanSmem = kModeSmem<M> + (kScanParks<E, M> ? kThreads * (int)sizeof(Jac<E>) : 0);
+
+// A scan lane's accumulator, canonical infinity: parked, or in registers.
+template <class E, class M>
+__device__ __forceinline__ auto scan_acc() {
+  if constexpr (kScanParks<E, M>) {
+    uint32_t* area = reinterpret_cast<uint32_t*>(M::smem() + kModeSmem<M>);
+    ParkedJac<E> acc{area + threadIdx.x, kThreads};
+    put(acc, jac_infinity<E>());
+    return acc;
+  } else {
+    return jac_infinity<E>();
+  }
+}
+
 // K2's bucket scan: the whole (steps, lanes) schedule in one launch.  Each
 // thread owns one bucket lane: it starts from canonical infinity (1, 1, 0),
 // keeps the Jacobian accumulator and the OR of its doubling-corner flags in
@@ -216,13 +247,15 @@ __device__ __forceinline__ void scan_point(int32_t code, const uint32_t* __restr
 // point in registers (G1 198 registers against 194 without; 1-4% faster on
 // the card at the vote path's schedules, PERF.md).
 //
-// In a converged mode (the fold unit's G1 instance) each madd is
-// jac_madd_select, the rows run on every thread of a live warp, and row
-// s's point is read after row s - 1's madd: without the prefetch the
-// converged scan ran 0.5-0.7% faster at the vote path's schedule, with a
-// third of the spill stores (PERF.md).  There the lane's multiplies
-// are the fp32 digit columns and the tail of mul_fold_mma, the fold
-// product a warp's tile on the tensor cores.
+// In a converged mode (the fold unit's G1 and G2 instances, 7,776 warps at
+// the vote path's 248,832 lanes) each madd is jac_madd_select, the rows
+// run on every thread of a live warp, and row s's point is read after row
+// s - 1's madd: without the prefetch the converged G1 scan ran 0.5-0.7%
+// faster at the vote path's schedule, with a third of the spill stores
+// (PERF.md).  There the lane's multiplies are the fp32 digit columns and
+// the tail of mul_fold_mma, the fold product a warp's tile on the tensor
+// cores (G2: 29 such multiplies a madd, each a call of fq_mul_call, and
+// the accumulator parked in shared memory, above).
 template <class E, class M>
 __global__ void __launch_bounds__(kThreads)
     k_madd_scan(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
@@ -232,7 +265,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (past_end<M>(t, lanes)) return;
   const long long i = lane_in<M>(t, lanes);
-  Jac<E> acc = jac_infinity<E>();
+  auto acc = scan_acc<E, M>();
   uint32_t e = 0u;
   int32_t code = steps > 0 ? __ldg(codes + i) : 0;
   E x2, y2;
@@ -258,9 +291,9 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (M::kConverged) {
     if (t >= lanes) return;
   }
-  store(ox, i, acc.x);
-  store(oy, i, acc.y);
-  store(oz, i, acc.z);
+  store(ox, i, jx(acc));
+  store(oy, i, jy(acc));
+  store(oz, i, jz(acc));
   exc[i] = (int32_t)e;
 }
 
@@ -279,8 +312,9 @@ __global__ void __launch_bounds__(kThreads)
 // kernel's 234 registers (G1 loop; G2 255 and 1,520 B of spill stores,
 // ptxas) a block of 512 threads would need 119,808 of the SM's 65,536.
 //
-// In a converged mode (the fold unit's G1 instance: 6,912 warps a round at
-// 432 x 512, so bound by the multiplies' issue, not by latency) no lane
+// In a converged mode (the fold unit's G1 and G2 instances: 6,912 warps a
+// round at 432 x 512, so bound by the multiplies' issue, not by latency;
+// G2's add is 43 Fq multiplies, its doubling 16 more) no lane
 // branches on its partner: a lane with none takes canonical infinity as q,
 // and jac_add_select(p, infinity) gives p, or (1, 1, 0) where p is
 // infinite, as the other form's else arm does.  A warp none of whose lanes
@@ -513,11 +547,11 @@ int launch_madd_scan(int g2, const void* px, const void* py, const void* codes, 
                      long long lanes, void* ox, void* oy, void* oz, void* exc, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (g2) {
-    k_madd_scan<Fq2, M2><<<blocks_for(lanes), kThreads, 0, s>>>(
+    k_madd_scan<Fq2, M2><<<blocks_for(lanes), kThreads, kScanSmem<Fq2, M2>, s>>>(
         (u32p)px, (u32p)py, (const int32_t*)codes, steps, lanes, (uint32_t*)ox, (uint32_t*)oy,
         (uint32_t*)oz, (int32_t*)exc);
   } else {
-    k_madd_scan<Fq, M1><<<blocks_for(lanes), kThreads, M1::smem_bytes(kThreads), s>>>(
+    k_madd_scan<Fq, M1><<<blocks_for(lanes), kThreads, kScanSmem<Fq, M1>, s>>>(
         (u32p)px, (u32p)py, (const int32_t*)codes, steps, lanes, (uint32_t*)ox, (uint32_t*)oy,
         (uint32_t*)oz, (int32_t*)exc);
   }
@@ -530,7 +564,7 @@ int launch_add_shift(int g2, const void* px, const void* py, const void* pz, voi
                      void* oz, long long n, int bw, int shift, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (g2) {
-    k_add_shift<Fq2, M2><<<blocks_for(n), kThreads, 0, s>>>(
+    k_add_shift<Fq2, M2><<<blocks_for(n), kThreads, M2::smem_bytes(kThreads), s>>>(
         (u32p)px, (u32p)py, (u32p)pz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, bw, shift);
   } else {
     k_add_shift<Fq, M1><<<blocks_for(n), kThreads, M1::smem_bytes(kThreads), s>>>(

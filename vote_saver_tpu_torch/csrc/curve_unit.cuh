@@ -12,8 +12,9 @@
 //                   and the G1 doubling (default Called<VS_MODE>; the fold
 //                   unit's: Called<MulFoldMma>, the fold product on the
 //                   tensor cores)
-//   VS_MODE_G2_MMA  the mode of the G2 doubling (default VS_MODE; the fold
-//                   unit's: MulFoldMma)
+//   VS_MODE_G2_MMA  the mode of the G2 bucket scan, the G2 suffix round and
+//                   the G2 doubling (default VS_MODE; the fold unit's:
+//                   MulFoldMma)
 //
 // and gets vs_mont_inv<suffix>, vs_madd<suffix>, vs_g1_add<suffix>,
 // vs_g2_add_team<suffix>, vs_double<suffix>, vs_madd_scan<suffix>,
@@ -22,9 +23,9 @@
 // add_team.cu, add_distinct.cu).  Every G1 kernel takes Called<VS_MODE>
 // (one out-of-line copy of the mode's multiply a kernel) but the scan, the
 // suffix round and the doubling, which take VS_MODE_G1_MMA, every G2 kernel
-// VS_MODE (its Fq2 multiply calls the Fq one out of line) but the
-// doubling, which takes VS_MODE_G2_MMA, the inversion chain and the team add
-// VS_MODE itself.
+// VS_MODE (its Fq2 multiply calls the Fq one out of line) but the scan,
+// the suffix round and the doubling, which take VS_MODE_G2_MMA, the
+// inversion chain and the team add VS_MODE itself.
 //
 // The launchers run on the caller's stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError() (0 on success).
@@ -87,13 +88,13 @@ int VS_FN(vs_double)(int g2, const void* px, const void* py, const void* pz, voi
 
 int VS_FN(vs_madd_scan)(int g2, const void* px, const void* py, const void* codes, int steps,
                         long long lanes, void* ox, void* oy, void* oz, void* exc, void* stream) {
-  return launch_madd_scan<ModeG1Mma, ModeG2>(g2, px, py, codes, steps, lanes, ox, oy, oz, exc,
-                                                stream);
+  return launch_madd_scan<ModeG1Mma, ModeG2Mma>(g2, px, py, codes, steps, lanes, ox, oy, oz, exc,
+                                                   stream);
 }
 
 int VS_FN(vs_add_shift)(int g2, const void* px, const void* py, const void* pz, void* ox,
                         void* oy, void* oz, long long n, int bw, int shift, void* stream) {
-  return launch_add_shift<ModeG1Mma, ModeG2>(g2, px, py, pz, ox, oy, oz, n, bw, shift, stream);
+  return launch_add_shift<ModeG1Mma, ModeG2Mma>(g2, px, py, pz, ox, oy, oz, n, bw, shift, stream);
 }
 
 int VS_FN(vs_add_distinct)(int g2, const void* px, const void* py, const void* pz,

@@ -2,8 +2,8 @@
 // multiplies its 32 lanes together.
 //
 // Replaces, for the probes K7 and K10 (micro.cu) and, as the multiplier
-// mode MulFoldMma below, for the fold unit's G1 bucket scan, G1 suffix
-// round and G1 and G2 doublings (curve_fold.cu), the fold product of
+// mode MulFoldMma below, for the fold unit's bucket scans, suffix rounds
+// and doublings in G1 and G2 (curve_fold.cu), the fold product of
 // vote_saver_tpu/ops/fold_mul.py:fold_columns inside FqEmitFold
 // (vote_saver_tpu/ops/pallas_field.py:187-224): there the pieces of every
 // lane's product columns go through ONE bf16 dot_general against the

@@ -38,7 +38,7 @@
 // the lane keeps only the fp32 digit columns, which then bound it (2,304
 // FMAs a multiply at the issue rate), and MulFold's steps 1-3 and 5-6
 // around the product; fold_finish below is the tail both forms share.  The
-// fold unit's G1 bucket scan, G1 suffix round and G1 and G2 doublings
+// fold unit's bucket scans, suffix rounds and doublings in G1 and G2
 // (curve_fold.cu) take the same tensor-core fold as a mode of its own,
 // MulFoldMma (fold_mma.cuh).
 #pragma once

@@ -30,7 +30,7 @@ CUDA tensor a wrapper launches that mode's instance (loop: ``kernels.cu``,
 ``curve_fold.cu``, K1 ``mont_mul_modes.cu``), counted under its name, the
 loop name with ``_v1`` / ``_fold`` (``instance``), and raises where that
 instance is missing or fails; it never runs another mode's instance.  In
-fold the G1 bucket scan, the G1 suffix round and the G1 and G2 doublings
+fold the bucket scans, the suffix rounds and the doublings of G1 and G2
 (``MMA_KERNELS``) run the fold product on the int8 tensor cores, a warp's
 lanes one tile.  On a CPU tensor a wrapper runs the plain version, one
 function in every mode.
@@ -641,7 +641,8 @@ def _launcher(fn: str, mode: str, device):
 # cores (csrc/curve_fold.cu: Called<MulFoldMma> in G1, MulFoldMma in G2, a
 # warp's lanes as one tile of mma.sync), in the order of
 # vs_curve_fold_mma_info's kernel index
-MMA_KERNELS = ("g1_madd_scan_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold")
+MMA_KERNELS = ("g1_madd_scan_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold",
+               "g2_madd_scan_fold", "g2_add_shift_fold")
 
 
 def kernel_info(entry, index: int, name: str, device="cuda") -> dict:
