@@ -25,7 +25,10 @@ code:
     grids at shifts 1 and 256 (``FOLD_SHIFTS``), the G1 doubling at
     ``FOLD_DOUBLE`` (Horner's 16 lanes x 10, the ballot tail's 4 on 32 and
     480 lanes), the G2 doubling at ``FOLD_G2_DOUBLE`` (Horner's 16 x 10,
-    the ballot tail's 32 x 4):
+    the ballot tail's 32 x 4), the G1 complete add at ``FOLD_ADD`` (the
+    vote path's 16, 32 and 480 lanes and 2^14, on generic lanes: no
+    infinity, no doubling), the Fr inversion chain at ``FOLD_INV`` (the
+    device witness's 16 lanes, on random elements):
     device ms a launch from torch.profiler, ms a call from CUDA events, the
     share of the function's bound (``chip_smoke.bound``: its multiply-adds
     at the Programming Guide's rate, the loop instance's bound) and of the
@@ -64,6 +67,8 @@ WIDTHS = (16, 32, 1 << 14)
 # the fold doubling's (lanes, doublings) on the vote path: Horner's step, the ballot tail's
 FOLD_DOUBLE = ((16, 10), (32, 4), (480, 4))
 FOLD_G2_DOUBLE = ((16, 10), (32, 4))
+# the fold G1 complete add's lanes (the vote path's launches are 16-480 wide) and the Fr chain's
+FOLD_ADD, FOLD_INV = (16, 32, 480, 1 << 14), (16,)
 # the fold suffix round's shifts on the 432 x 512 grid: the first and the last round's
 FOLD_SHIFTS = (1, 256)
 WARP = 32  # a warp's lanes: the suffix round's kernel runs 32 consecutive lanes of its grid together
@@ -109,8 +114,9 @@ def _ms(v) -> str:
 
 
 def fold_kernels(cs, own, dev, reps: int = 5) -> dict:
-    """The bucket scan, the suffix round and the doubling of G1 and G2 with
-    mode="fold" at the vote path's shapes (module docstring), each against
+    """The bucket scan, the suffix round and the doubling of G1 and G2, the
+    G1 complete add and the Fr inversion chain with mode="fold" at the vote
+    path's shapes (module docstring), each against
     the loop instance's output: {shape: device ms a launch
     (chip_smoke.device_ms), ms a call (CUDA events), the function's bound
     ms and share of it, the fold algorithm's bound ms and share of it}."""
@@ -120,6 +126,7 @@ def fold_kernels(cs, own, dev, reps: int = 5) -> dict:
 
     from vote_saver_tpu_torch import micro
     from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import limbs as lb
     from vote_saver_tpu_torch.testing import special_lanes
 
     rnd = random.Random(cs.SEED + 12)
@@ -134,14 +141,14 @@ def fold_kernels(cs, own, dev, reps: int = 5) -> dict:
         scan, shift_add = (hf.g2_madd_scan, hf.g2_add_shift) if g2 else (hf.g1_madd_scan, hf.g1_add_shift)
         cases.append((f"{pre}_madd_scan", f"{codes.shape[0]}x{codes.shape[1]}", "k_madd_scan",
                       lambda m, t=table, c=codes, scan=scan: scan(t, c, checked=True, mode=m), (*table, codes),
-                      cs._curve_mads("madd", g2, int(live.sum()) - int(live.any(dim=0).sum()))))
+                      cs._curve_mads("madd", g2, int(live.sum()) - int(live.any(dim=0).sum())), "fq"))
         rows, bw = grid[0].shape[:2]
         fin = (grid[2] != 0).reshape(rows, bw, -1).any(dim=-1)
         for shift in FOLD_SHIFTS:
             pairs = int((fin[:, : bw - shift] & fin[:, shift:]).sum())
             cases.append((f"{pre}_add_shift", f"{rows}x{bw} shift {shift}", "k_add_shift",
                           lambda m, s=shift, gr=grid, f=shift_add: f(gr, s, mode=m), grid,
-                          cs._curve_mads("add", g2, pairs)))
+                          cs._curve_mads("add", g2, pairs), "fq"))
     for g2, shapes in ((False, FOLD_DOUBLE), (True, FOLD_G2_DOUBLE)):
         p, *_ = special_lanes(g2, max(n for n, _t in shapes), rnd)
         pts = cs._to_dev(zip(*p), dev)
@@ -150,9 +157,19 @@ def fold_kernels(cs, own, dev, reps: int = 5) -> dict:
             P = tuple(c[:lanes].contiguous() for c in pts)
             cases.append((f"{'g2' if g2 else 'g1'}_double", f"{lanes}x{times}", "k_double",
                           lambda m, P=P, t=times, dbl=dbl: dbl(P, t, mode=m), P,
-                          times * cs._curve_mads("double", g2, lanes)))
+                          times * cs._curve_mads("double", g2, lanes), "fq"))
+    p, q, *_ = special_lanes(False, max(FOLD_ADD) + 8, rnd)
+    pts, qts = (cs._to_dev(zip(*v[8:]), dev) for v in (p, q))
+    for lanes in FOLD_ADD:
+        P, Q = (tuple(c[:lanes].contiguous() for c in v) for v in (pts, qts))
+        cases.append(("g1_add", str(lanes), "k_add<", lambda m, P=P, Q=Q: hf.g1_add(P, Q, mode=m), (*P, *Q),
+                      cs._curve_mads("add", False, lanes), "fq"))
+    for lanes in FOLD_INV:
+        a = lb.ints_to_tensor([rnd.randrange(lb.FR.modulus) for _ in range(lanes)], lb.FR, dev)
+        cases.append(("mont_inv_fr", str(lanes), "k_mont_inv<", lambda m, a=a: (hf.mont_inv("fr", a, m),), (a,),
+                      lanes * cs.INV_MULS["fr"] * cs.MADS["fr"], "fr"))
     out = {}
-    for kname, shape, family, run, ins, mads in cases:
+    for kname, shape, family, run, ins, mads, field in cases:
         got, want = run("fold"), run("loop")
         flat = lambda r: (*r[0], r[1]) if kname.endswith("scan") else r  # noqa: E731
         if not all(torch.equal(x, y) for x, y in zip(flat(got), flat(want))):
@@ -160,7 +177,7 @@ def fold_kernels(cs, own, dev, reps: int = 5) -> dict:
         n = reps if family == "k_madd_scan" else 20
         ms = micro.time_ms(lambda run=run: run("fold"), n)
         dev_ms = own.device_ms(lambda run=run: run("fold"), n, family)
-        work = own.mode_work(dict(bytes=own._nbytes(*ins, *flat(got)), mads=mads), "fold")
+        work = own.mode_work(dict(bytes=own._nbytes(*ins, *flat(got)), mads=mads), "fold", field)
         bound_ms, bound_by = own.bound(work, rates)
         fold_ms, _by = own.bound(work["fold"], rates)
         share = None if dev_ms is None else bound_ms / dev_ms

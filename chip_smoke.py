@@ -33,13 +33,15 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      dynamic shared memory and resident warps a SM as the CUDA runtime
      reports them.  K7 and K10 fold run their fold product on the int8
      tensor cores, and so do the fold instances of the bucket scan, the
-     suffix round and the doubling in G1 and G2 (``g1_madd_scan_fold``,
-     ``g1_double_fold``, ``g1_add_shift_fold``, ``g2_double_fold``,
-     ``g2_madd_scan_fold``, ``g2_add_shift_fold``; their registers, local
-     bytes, shared memory and warps a SM logged from the CUDA runtime in
+     suffix round and the doubling in G1 and G2, of the G1 complete add
+     and of the Fr inversion chain (``hopper_field.MMA_KERNELS``:
+     ``g1_madd_scan_fold``, ``g1_double_fold``, ``g1_add_shift_fold``,
+     ``g2_double_fold``, ``g2_madd_scan_fold``, ``g2_add_shift_fold``,
+     ``g1_add_fold``, ``mont_inv_fr_fold``; their registers, local bytes,
+     shared memory and warps a SM logged from the CUDA runtime in
      ``[kernels]`` and ``[modes]``): right after the build, ``cuobjdump
      -sass`` of the probe library and of the curve library must show IMMA
-     and no IDP (dp4a) in all eight (``[sass]``);
+     and no IDP (dp4a) in all ten (``[sass]``);
   5. admin key generation for the depth-6 election on the card (Groth16
      setup through FixedBaseTable and K3d): its five blobs byte-identical to
      the host-native arm's, both arms timed;
@@ -59,12 +61,12 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      products and peak device memory, then one timed batch of the
      host-witness arm and one of the device arm on the radix-2 NTT for
      comparison; then one more device-arm batch under torch.profiler:
-     device time and launches per kernel, the launches of ``g2_add`` and
-     ``mont_mul_fr`` by width, the int8 products' device time as library
-     calls, and the device's busy share;
-  7b. ``[path]``: the G2 complete add at the vote path's widths (16, 32,
-     the profiled batch's widest launch, and 2^14), in every multiplier
-     mode, and K1 in Fr at the batch's large calls with their real tables
+     device time and launches per kernel, the launches of ``g2_add``,
+     ``mont_mul_fr`` and ``g1_add`` by width, the int8 products' device
+     time as library calls, and the device's busy share;
+  7b. ``[path]``: the G2 and G1 complete adds at the vote path's widths
+     (16, 32, G1's 480, the profiled batch's widest launch, and 2^14), in
+     every multiplier mode, and K1 in Fr at the batch's large calls with their real tables
      (the COO products, the R1CS check, H, the matmul NTT's twiddle),
      against their plain versions, timed per call and per launch on the
      device;
@@ -172,6 +174,9 @@ FOLD_PROBES = ("mul_chain_k7_fold", "mul_chain_k10_fold")
 FOLD_LIBS = ("libvstorch_micro_", "libvstorch_curve_fold_")
 # the spin kernels (and their cycles each, about 0.25 ms) that open each profiling window (profile_window)
 PROFILE_PAD, PAD_CYCLES = 32, 500_000
+# what a profiling window's CUDA-event time may exceed its host time plus its kernels' device time by
+# (the larger of the two; profile_window)
+WINDOW_SLACK_MS, WINDOW_SLACK = 0.05, 0.05
 # H100 SXM published peaks: HBM bytes/s, fp32 FLOP/s, int8 OP/s
 HBM_BPS, F32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 # 32x32->64 multiply-adds of one Fq / Fr Montgomery multiply: 2L^2 + L
@@ -207,12 +212,12 @@ MSM_SHAPES = {
     "g2_add_shift": ((432, 512, 1), (432, 512, 256), (32, 512, 1)),
 }
 H_POINTS = (1 << 15) - 1  # the h query's points: the affine table the scan reads
-# [path]: the widths of the vote path's G2 complete adds (the b2 MSM's Horner
-# steps, the ballot tail's windowed multiply; the batch's largest orphan
-# merge joins them from [profile]) and 2^14 lanes
-G2_ADD_WIDTHS = (16, 32, CURVE_LANES)
+# [path]: the widths of the vote path's complete adds (the MSMs' Horner steps,
+# the ballot tail's windowed multiplies and affine sums; the batch's largest
+# orphan merge joins them from [profile]) and 2^14 lanes
+ADD_WIDTHS = {"g2_add": (16, 32, CURVE_LANES), "g1_add": (16, 32, 480, CURVE_LANES)}
 # the kernels whose launch widths [profile] gives a batch
-WIDTH_KERNELS = ("g2_add", "mont_mul_fr")
+WIDTH_KERNELS = ("g2_add", "mont_mul_fr", "g1_add")
 # the matmul NTT at the vote path's shape: B = 16 rows of the depth-6 2^15 domain;
 # a batch runs 3 inv + 3 fwd_coset + 1 inv_coset transforms
 NTT_N, NTT_B = 1 << 15, 16
@@ -332,7 +337,11 @@ def profile_window(fn, reps: int = 1, warm: bool = False):
     recorded the drop may have reached the calls, and where the port's
     kernels recorded (kernel_key) differ in number from the launches
     hopper_field counted during the calls, records were lost: both give
-    None, and a log line."""
+    None, and a log line.  So does a window whose CUDA events span more
+    than the host's time issuing the calls plus every kernel's recorded
+    device time (and WINDOW_SLACK): the card is either running a kernel
+    or waiting for the host, so its records are short or lost (a chain
+    kernel of 0.83 ms once read 0.57 ms a launch, every record present)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -348,8 +357,13 @@ def profile_window(fn, reps: int = 1, warm: bool = False):
             torch.cuda._sleep(PAD_CYCLES)
         torch.cuda.synchronize()
         before = sum(hf.launches.values())
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             result = fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev1.record()
         torch.cuda.synchronize()
         launched = sum(hf.launches.values()) - before
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -364,6 +378,11 @@ def profile_window(fn, reps: int = 1, warm: bool = False):
     if ours != launched:
         log(f"[profile] window of {reps} calls: {ours} of the port's kernels recorded, {launched} launched; "
             f"not measured")
+        return result, None
+    window_ms, busy_ms = ev0.elapsed_time(ev1), sum(us for _name, us in out) / 1e3
+    if window_ms > host_ms + busy_ms + max(WINDOW_SLACK_MS, WINDOW_SLACK * window_ms):
+        log(f"[profile] window of {reps} calls: {window_ms:.4f} ms by CUDA events against the host's {host_ms:.4f} ms "
+            f"and {busy_ms:.4f} ms of kernels recorded; not measured")
         return result, None
     return result, out
 
@@ -1315,11 +1334,14 @@ def run_slice(rnd, e: dict, library: set) -> dict:
 
 
 def check_path_kernels(vote: dict, dev="cuda") -> dict:
-    """K3 in G2 and K1 in Fr at the vote path's own shapes, each against
-    its plain version on the same inputs: the G2 complete add (a team of
-    threads a lane), in every multiplier mode, at G2_ADD_WIDTHS and the
-    widest launch of [profile]'s batch (its largest orphan merge) on
-    testing.team_add_lanes' special lanes, and K1 in Fr at the depth-6 B =
+    """K3 in G2 and G1 and K1 in Fr at the vote path's own shapes, each
+    against its plain version on the same inputs: the complete adds (G2: a
+    team of threads a lane; G1 fold: a block's four warps sharing a 32-lane
+    add), in every multiplier mode, at ADD_WIDTHS and the widest launch of
+    [profile]'s batch (its largest orphan merge), G2 on
+    testing.team_add_lanes' special lanes, G1 on testing.special_lanes'
+    (the doubling corner in the first 32 lanes only, as the path's adds
+    rarely meet it), and K1 in Fr at the depth-6 B =
     16 batch's large calls with their real tables: the three COO products
     (the coefficient table read in place), the R1CS check, H times the
     constant zh_coset_inv (from_mont's shape too) and the matmul NTT's
@@ -1334,36 +1356,43 @@ def check_path_kernels(vote: dict, dev="cuda") -> dict:
     from vote_saver_tpu_torch.ops import limbs as lb
     from vote_saver_tpu_torch.ops import ntt, ntt_mxu
     from vote_saver_tpu_torch.protocol import groth16
-    from vote_saver_tpu_torch.testing import team_add_lanes
+    from vote_saver_tpu_torch.testing import special_lanes, team_add_lanes
 
     dev = torch.device(dev)
     rnd = random.Random(SEED + 10)
     out = {"mont_mul_fr": []}
-    hist = (vote["profile"] or {}).get("widths", {}).get("g2_add", {})
-    widths = sorted(set(G2_ADD_WIDTHS) | ({max(hist)} if hist else set()))
-    for lanes in widths:
-        p, q = team_add_lanes(True, lanes, rnd)
-        P, Qd = (_to_dev(zip(*pts), dev) for pts in (p, q))
-        plain = lambda P=P, Qd=Qd: hf.add_plain(True, P, Qd)  # noqa: E731
-        exp = plain()
-        plain_ms = time_ms(plain, 3)
-        reps = 50 if lanes <= 1024 else 20
-        for mode in hf.MODES:
-            inst = hf.instance("g2_add", mode)
-            kern = lambda P=P, Qd=Qd, mode=mode: hf.g2_add(P, Qd, mode=mode)  # noqa: E731
-            got = kern()
-            torch.cuda.synchronize()
-            work = mode_work(dict(bytes=_nbytes(*P, *Qd, *got), mads=_curve_mads("add", True, _finite(P[2], Qd[2]))),
-                             mode)
-            row = dict(shape=[lanes], lanes=lanes, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
-                       max_abs_err=_diff(got, exp), ms=time_ms(kern, reps),
-                       device_ms=device_ms(kern, reps, "k_add_team"), plain_ms=plain_ms, work=work)
-            log(f"[{'kernels' if mode == 'loop' else 'modes'}] {inst}: {lanes} lanes equal={row['equal']} "
-                f"max_abs_err={row['max_abs_err']} kernel {row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} "
-                f"a launch, plain {row['plain_ms']:.3f} ms")
-            if not row["equal"]:
-                fail(f"{inst} at {lanes} lanes disagrees with its plain version")
-            out.setdefault(inst, []).append(row)
+    for kname, base in ADD_WIDTHS.items():
+        g2 = kname.startswith("g2")
+        hist = (vote["profile"] or {}).get("widths", {}).get(kname, {})
+        for lanes in sorted(set(base) | ({max(hist)} if hist else set())):
+            if g2:
+                p, q = team_add_lanes(True, lanes, rnd)
+            else:
+                p, q, *_ = special_lanes(False, max(lanes, 8), rnd)
+                p, q = p[:lanes], q[:lanes]
+            P, Qd = (_to_dev(zip(*pts), dev) for pts in (p, q))
+            plain = lambda g2=g2, P=P, Qd=Qd: hf.add_plain(g2, P, Qd)  # noqa: E731
+            exp = plain()
+            plain_ms = time_ms(plain, 3)
+            reps = 50 if lanes <= 1024 else 20
+            add = hf.g2_add if g2 else hf.g1_add
+            for mode in hf.MODES:
+                inst = hf.instance(kname, mode)
+                kern = lambda P=P, Qd=Qd, mode=mode, add=add: add(P, Qd, mode=mode)  # noqa: E731
+                got = kern()
+                torch.cuda.synchronize()
+                work = mode_work(dict(bytes=_nbytes(*P, *Qd, *got), mads=_curve_mads("add", g2, _finite(P[2], Qd[2]))),
+                                 mode)
+                row = dict(shape=[lanes], lanes=lanes, equal=all(torch.equal(x, y) for x, y in zip(got, exp)),
+                           max_abs_err=_diff(got, exp), ms=time_ms(kern, reps),
+                           device_ms=device_ms(kern, reps, "k_add_team" if g2 else "k_add<"), plain_ms=plain_ms,
+                           work=work)
+                log(f"[{'kernels' if mode == 'loop' else 'modes'}] {inst}: {lanes} lanes equal={row['equal']} "
+                    f"max_abs_err={row['max_abs_err']} kernel {row['ms']:.4f} ms a call, device "
+                    f"{_ms(row['device_ms'])} a launch, plain {row['plain_ms']:.3f} ms")
+                if not row["equal"]:
+                    fail(f"{inst} at {lanes} lanes disagrees with its plain version")
+                out.setdefault(inst, []).append(row)
     ctx = vote["ctx"]
     pk, B, n = ctx.pk, BATCH, ctx.pk.domain
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)

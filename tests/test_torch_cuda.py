@@ -28,8 +28,11 @@ cores, must equal their plain versions at 1 to 2^14 lanes, the scans at
 the vote path's h schedule (G1 80 rows, G2 32) and G2's at ragged widths,
 the suffix rounds on the vote path's 432 x 512 grid at shifts 1 to 256
 and on a ragged grid of bw = 16 at every shift, the G2 doubling at the
-vote path's widths and counts, and a launch of each must find its B
-operand in place; and a depth-2 vote under
+vote path's widths and counts, the G1 complete add (a block's four warps
+sharing one 32-lane add) at 1 to 2^14 lanes with blocks whose only
+doubling lane is one of 32, and the Fr inversion chain (its Fr fold on
+the tensor cores) at 1 to 2^16 lanes with 0, 1 and r - 1 among them, and
+a launch of each must find its B operand in place; and a depth-2 vote under
 ``VSTPU_MUL=v1`` or ``=fold`` must launch only that mode's instances and
 give the golden ballots.
 """
@@ -559,28 +562,28 @@ def test_mont_inv_modes_match_plain(dev, name, N, mode):
 
 
 def test_fold_launch_uploads_its_units_matrix_first(dev):
-    """The fold unit's __constant__ matrices are written before its first
-    launch on a card: with zeros put there and the record of the upload
-    dropped, the next fold launch uploads them again and is right."""
+    """The fold unit's __constant__ matrix of Fq, which its dp4a instances
+    read (the distinct add, the Fq inversion chain), is written before its
+    first launch on a card: with zeros put there and the record of the
+    upload dropped, the next fold launch uploads it again and is right."""
     lib = hf._lib()
     p, q, *_ = special_lanes(False, 256, random.Random(25))
     P, Qd = _put(p, 3, dev), _put(q, 3, dev)
-    key = lambda field: (lib.vs_curve_fold_upload.__name__, field, P[0].device.index)  # noqa: E731
-    want = hf.add_plain(False, P, Qd)
-    assert all(torch.equal(x, y) for x, y in zip(hf.g1_add(P, Qd, mode="fold"), want))
-    assert {key(0), key(1)} <= hf._fold_uploaded
-    for field, spec in ((0, lb.FQ), (1, lb.FR)):
-        zeros = np.zeros(fold_mul.packed_matrix(spec).size, np.int32)
-        with torch.cuda.device(dev):
-            assert lib.vs_curve_fold_upload(field, zeros.ctypes.data, zeros.size) == 0
+    key = (lib.vs_curve_fold_upload.__name__, 0, P[0].device.index)
+    want = hf.add_distinct_plain(False, P, Qd)
+    assert all(torch.equal(x, y) for x, y in zip(hf.g1_add_distinct(P, Qd, mode="fold"), want))
+    assert key in hf._fold_uploaded
+    zeros = np.zeros(fold_mul.packed_matrix(lb.FQ).size, np.int32)
+    with torch.cuda.device(dev):
+        assert lib.vs_curve_fold_upload(0, zeros.ctypes.data, zeros.size) == 0
     # the matrix is what the fold reads: zeros in place give other limbs
-    assert not all(torch.equal(x, y) for x, y in zip(hf.g1_add(P, Qd, mode="fold"), want))
-    hf._fold_uploaded.difference_update({key(0), key(1)})
-    assert all(torch.equal(x, y) for x, y in zip(hf.g1_add(P, Qd, mode="fold"), want))
+    assert not all(torch.equal(x, y) for x, y in zip(hf.g1_add_distinct(P, Qd, mode="fold"), want))
+    hf._fold_uploaded.discard(key)
+    assert all(torch.equal(x, y) for x, y in zip(hf.g1_add_distinct(P, Qd, mode="fold"), want))
     rnd = random.Random(26)
-    a = lb.ints_to_tensor([rnd.randrange(R) for _ in range(64)], lb.FR, dev)
-    assert torch.equal(hf.mont_inv("fr", a, "fold"), hf.mont_inv_plain("fr", a))
-    assert {key(0), key(1)} <= hf._fold_uploaded
+    a = lb.ints_to_tensor([rnd.randrange(Q) for _ in range(64)], lb.FQ, dev)
+    assert torch.equal(hf.mont_inv("fq", a, "fold"), hf.mont_inv_plain("fq", a))
+    assert key in hf._fold_uploaded
 
 
 @pytest.mark.parametrize("mode", CURVE_MODES)
@@ -620,13 +623,25 @@ MMA_LANES = (1, 16, 31, 33, 5925, 1 << 14)
 @pytest.mark.parametrize("lanes", MMA_LANES)
 def test_fold_mma_instances_match_plain(dev, lanes):
     """The fold unit's bucket scans, suffix rounds and doublings of G1 and
-    G2, whose fold product runs on the tensor cores (a warp's lanes one
+    G2, its G1 complete add and its Fr inversion chain, whose fold product
+    runs on the tensor cores (a warp's lanes one
     tile; the lanes past n of a ragged warp compute on lane n - 1 and store
     nothing): each one launch of its fold instance, equal to the plain
     version, the doublings with `times` 1 and 10, the suffix rounds over one
     row of `lanes` buckets (shift_grid's special lanes) at shifts 1, 2, 32
     and lanes // 2, the scans on scan_lanes' special lanes (lanes 0-6, the
-    doubling corner among them) and 16 rows."""
+    doubling corner among them) and 16 rows; the G1 complete add on the
+    special lanes, the Fr inversion chain on 0, 1, r - 1, R mod r and
+    random lanes."""
+    p, q, *_ = special_lanes(False, max(lanes, 8), random.Random(29 + lanes))
+    P, Qd = (tuple(c[:lanes].contiguous() for c in _put(pts, 3, dev)) for pts in (p, q))
+    got = _once("g1_add", "fold", lambda: hf.g1_add(P, Qd, mode="fold"))
+    assert all(torch.equal(x, y) for x, y in zip(got, hf.add_plain(False, P, Qd)))
+    rnd = random.Random(28 + lanes)
+    xs = ([0, 1, R - 1, lb.FR.mont_r % R] + [rnd.randrange(R) for _ in range(max(lanes, 4) - 4)])[:lanes]
+    a = lb.ints_to_tensor(xs, lb.FR, dev)
+    got = _once("mont_inv_fr", "fold", lambda: hf.mont_inv("fr", a, "fold"))
+    assert torch.equal(got, hf.mont_inv_plain("fr", a))
     for g2 in (False, True):
         pre = "g2" if g2 else "g1"
         p, *_ = special_lanes(g2, max(lanes, 8), random.Random(30 + lanes + g2))
@@ -673,17 +688,20 @@ def test_fold_mma_scan_matches_plain_at_the_path_shape(dev, g2, lanes):
         assert all(torch.equal(x, y) for x, y in zip(acc, want[0])) and torch.equal(exc, want[1])
 
 
-def test_fold_mma_launch_uploads_its_b_operand_first(dev):
-    """The tensor-core fold's B operand is in the curve unit's device memory
-    before its first launch on a card: with zeros put there and the record
-    of the upload dropped, the next launch of any of the six instances
-    uploads it again and gives the plain limbs; the runtime reports each
-    instance with its dynamic shared memory a block: 55,936 B (the B
-    operand and four warp tiles), 92,800 B in the G2 scan, whose block
-    also parks its 128 accumulators there."""
+def test_fold_mma_launch_uploads_its_b_operand_first(dev, monkeypatch):
+    """The tensor-core fold's B operands are in the curve unit's device
+    memory before its first launch on a card: with zeros put in Fq's and
+    the record of the upload dropped, the next launch of any of the seven
+    Fq instances uploads it again and gives the plain limbs; likewise Fr's
+    for the Fr inversion chain, which a launch finds uploaded once per
+    card, before it; the runtime reports each instance with its dynamic
+    shared memory a block: 55,936 B (Fq's B operand and four warp tiles),
+    92,800 B in the G2 scan, whose block also parks its 128 accumulators
+    there, 34,944 B in the Fr chain (Fr's B operand and four warp
+    tiles)."""
     lib = hf._lib()
-    p, *_ = special_lanes(False, 256, random.Random(33))
-    P = _put(p, 3, dev)
+    p, q, *_ = special_lanes(False, 256, random.Random(33))
+    P, Qd = _put(p, 3, dev), _put(q, 3, dev)
     pts, codes = scan_lanes(False, 64, 256, 8, random.Random(34))
     pxy = ms.g1_affine_to_device(pts, dev)
     c = torch.from_numpy(codes).to(dev)
@@ -694,27 +712,101 @@ def test_fold_mma_launch_uploads_its_b_operand_first(dev):
     pxy2 = ms.g2_affine_to_device(pts2, dev)
     c2 = torch.from_numpy(codes2).to(dev)
     grid2 = tuple(c.reshape(2, 64, 2, -1) for c in _put(shift_grid(True, 2, 64, random.Random(42)), 3, dev))
+    rnd = random.Random(43)
+    a = lb.ints_to_tensor([0, 1, R - 1] + [rnd.randrange(R) for _ in range(45)], lb.FR, dev)
     want = (hf.double_plain(False, P, 2), hf.madd_scan_plain(False, pxy, c)[0], hf.add_shift_plain(False, grid, 1),
-            hf.double_plain(True, P2, 2), hf.madd_scan_plain(True, pxy2, c2)[0], hf.add_shift_plain(True, grid2, 1))
+            hf.double_plain(True, P2, 2), hf.madd_scan_plain(True, pxy2, c2)[0], hf.add_shift_plain(True, grid2, 1),
+            hf.add_plain(False, P, Qd))
 
     def right():
         got = (hf.g1_double(P, 2, mode="fold"), hf.g1_madd_scan(pxy, c, mode="fold")[0],
                hf.g1_add_shift(grid, 1, mode="fold"), hf.g2_double(P2, 2, mode="fold"),
-               hf.g2_madd_scan(pxy2, c2, mode="fold")[0], hf.g2_add_shift(grid2, 1, mode="fold"))
+               hf.g2_madd_scan(pxy2, c2, mode="fold")[0], hf.g2_add_shift(grid2, 1, mode="fold"),
+               hf.g1_add(P, Qd, mode="fold"))
         return tuple(all(torch.equal(x, y) for x, y in zip(g, w)) for g, w in zip(got, want))
 
-    key = (lib.vs_curve_fold_mma_upload.__name__, 0, P[0].device.index)
-    assert right() == (True,) * 6 and key in hf._fold_uploaded
-    zeros = np.zeros(fold_mul.mma_operand(lb.FQ).size, np.int8)
-    with torch.cuda.device(dev):
-        assert lib.vs_curve_fold_mma_upload(0, zeros.ctypes.data, zeros.size) == 0
-    assert right() == (False,) * 6  # the B operand is what the tensor-core fold reads
-    hf._fold_uploaded.discard(key)
-    assert right() == (True,) * 6 and key in hf._fold_uploaded
+    def inv_right():
+        return torch.equal(hf.mont_inv("fr", a, "fold"), hf.mont_inv_plain("fr", a))
+
+    upload = lib.vs_curve_fold_mma_upload
+    key = (upload.__name__, 0, P[0].device.index)
+    fr_key = (upload.__name__, 1, P[0].device.index)
+    assert right() == (True,) * 7 and key in hf._fold_uploaded
+    for field, spec, k in ((0, lb.FQ, key), (1, lb.FR, fr_key)):
+        zeros = np.zeros(fold_mul.mma_operand(spec).size, np.int8)
+        with torch.cuda.device(dev):
+            assert upload(field, zeros.ctypes.data, zeros.size) == 0
+        if field == 0:
+            assert right() == (False,) * 7  # the B operand is what the tensor-core fold reads
+            assert inv_right()  # the Fr chain reads Fr's
+        else:
+            assert not inv_right() and right() == (True,) * 7
+        hf._fold_uploaded.discard(k)
+    # Fq's operand is in place again (the Fr pass's launches re-uploaded it); the Fr chain's next launch
+    # uploads Fr's, once, before it
+    calls = []
+
+    def recording(name, fn):
+        def call(*args):
+            calls.append((name, args[0]) if name == "upload" else (name,))
+            return fn(*args)
+
+        call.__name__ = fn.__name__
+        return call
+
+    lib_rec = type("Lib", (), {})()
+    for name in dir(lib):
+        if name.startswith("vs_"):
+            setattr(lib_rec, name, getattr(lib, name))
+    lib_rec.vs_curve_fold_mma_upload = recording("upload", upload)
+    lib_rec.vs_mont_inv_fold = recording("launch", lib.vs_mont_inv_fold)
+    monkeypatch.setattr(hf, "_lib", lambda: lib_rec)
+    assert inv_right() and inv_right()
+    assert calls == [("upload", 1), ("launch",), ("launch",)], calls
+    assert right() == (True,) * 7 and {key, fr_key} <= hf._fold_uploaded
+    smem = {"g2_madd_scan_fold": 92800, "mont_inv_fr_fold": 34944}
     for name in hf.MMA_KERNELS:
         info = hf.mma_info(name, dev)
-        smem = 92800 if name == "g2_madd_scan_fold" else 55936
-        assert info["smem_bytes"] == smem and info["warps_per_sm"] >= 4 and info["registers"] <= 255, info
+        assert info["smem_bytes"] == smem.get(name, 55936) and info["warps_per_sm"] >= 4, info
+        assert info["registers"] <= 255, info
+
+
+# the widths the fold G1 complete add is held to its plain version at: one
+# lane, Horner's 16, a warp's 32, one past each, a ragged 71, the ballot
+# tail's 480, 2^14
+G1_ADD_LANES = (1, 16, 17, 32, 33, 71, 480, 1 << 14)
+
+
+@pytest.mark.parametrize("lanes", G1_ADD_LANES)
+def test_fold_g1_add_matches_plain(dev, lanes):
+    """The fold G1 complete add, whose block's four warps share each 32
+    lanes' 16 Fq products on the tensor cores, one launch, equal to its
+    plain version and to the loop instance, on testing.special_lanes (the
+    doubling in block 0) with one more doubling lane alone in its block
+    (the last lane of every other block from 64 lanes on: its block runs
+    the doubling for that lane alone, the block-uniform test)."""
+    p, q, *_ = special_lanes(False, max(lanes, 8), random.Random(44 + lanes))
+    for k in range(32 + 31, lanes, 64):
+        q[k] = p[k]
+    P, Qd = (tuple(c[:lanes].contiguous() for c in _put(pts, 3, dev)) for pts in (p, q))
+    got = _once("g1_add", "fold", lambda: hf.g1_add(P, Qd, mode="fold"))
+    for want in (hf.add_plain(False, P, Qd), hf.g1_add(P, Qd, mode="loop")):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("lanes", (1, 16, 17, 33, 1 << 16))
+def test_fold_mont_inv_fr_matches_plain(dev, lanes):
+    """The fold Fr inversion chain, its Fr fold on the tensor cores, one
+    launch at the device witness's 16 lanes, ragged widths and 2^16 lanes,
+    on 0, 1, r - 1, R mod r and random lanes: equal to its plain version,
+    the loop instance and Python's pow."""
+    rnd = random.Random(45 + lanes)
+    xs = ([0, 1, R - 1, lb.FR.mont_r % R] + [rnd.randrange(R) for _ in range(max(lanes, 4) - 4)])[:lanes]
+    a = lb.ints_to_tensor(xs, lb.FR, dev)
+    got = _once("mont_inv_fr", "fold", lambda: hf.mont_inv("fr", a, "fold"))
+    for want in (hf.mont_inv_plain("fr", a), hf.mont_inv("fr", a, "loop")):
+        assert torch.equal(got, want)
+    assert list(lb.tensor_to_ints(got[:64], lb.FR)) == [pow(x, R - 2, R) for x in xs[:64]]
 
 
 def _suffix_grid(rows: int, bw: int, seed: int, dev, g2: bool = False):

@@ -1,9 +1,9 @@
-"""The fold mode's G1 bucket scan, G1 suffix round and G1 and G2 doublings
-with their fold product on the int8 tensor cores (``csrc/curve_fold.cu``:
-``Called<MulFoldMma>`` in G1, ``MulFoldMma`` in G2), on the CPU, against
-the JAX package.
+"""The fold mode's G1 and G2 bucket scans, suffix rounds and doublings and
+its G1 complete add with their fold product on the int8 tensor cores
+(``csrc/curve_fold.cu``: ``Called<MulFoldMma>`` in G1, ``MulFoldMma`` in
+G2), on the CPU, against the JAX package.
 
-On the card each Fq multiply of these four instances runs the tensor-core
+On the card each Fq multiply of these instances runs the tensor-core
 fold of ``csrc/fold_mma.cuh``: a warp's 32 lanes of byte pieces as one A
 tile against the fold matrix, the lanes past n of a ragged warp padding
 rows.  Its data flow in plain PyTorch is ``fold_mul.mul_fold_tile``.  Here
@@ -21,15 +21,22 @@ partners in, canonical infinity past the row's end, partner-less warps
 skipped, the select-form add with the doubling on the warps that need it)
 on ``testing.shift_grid`` (equal operands, the same limbs, opposite
 points, both infinities) at bw = 16 over a ragged 48 lanes, every shift
-1-8, and at bw = 64, shift 32 (a warp without partners).  They must equal
-the existing plain versions and, limb for limb, the JAX package's
+1-8, and at bw = 64, shift 32 (a warp without partners); the complete
+add in both forms its converged kernel had, jac_add_select (every multiply
+on every lane, then the selects) and the narrow form it runs
+(``_add_g1_warps``: a block's four warps sharing one 32-lane add's 16
+products in 5 rounds, the doubling's 7 in 3 only on a block with a
+doubling lane) on ``testing.special_lanes`` and one more doubling lane
+alone in its block, the JAX formula run op by op once at 71 lanes.  They
+must equal the existing plain versions and, limb for limb, the JAX package's
 ``_jac_madd`` / ``_jac_add(complete=True)`` / ``_jac_double`` through the
 fold emitter (``FqEmitFold``, the body of ``_g1_madd_call`` /
 ``_g1_add_call`` / ``_g1_dbl_call`` / ``_g2_dbl_call`` under
 ``VSTPU_MUL=fold``), run as ``tests/test_torch_curve_modes.py`` runs them
 (the JAX package unchanged), the scan row by row as
 ``msm_sched._msm_device`` runs it.  Also: chip_smoke.py's names and SASS
-counts of the four instances, whose multiply is a called device function.
+counts of the tensor-core instances, whose G1 multiply is a called device
+function, and of a dp4a fold instance beside them.
 Exact equality throughout.
 
     python -m pytest tests/test_torch_fold_curve.py -q -p no:cacheprovider
@@ -360,9 +367,112 @@ def test_suffix_round_on_the_tile_matches_the_fold_pallas_add(env16, g2, bw, shi
                   tuple(_from_jax(c, g2) for c in jout))
 
 
+def _fold_emitter_eager(env):
+    """The JAX package's fold emitter (``FqEmitFold``, its matrix bound as
+    ``_fold_inputs`` binds it) run op by op: one complete add costs about a
+    second so, against 37-47 s for the first compilation of
+    ``_emitter``'s jitted multiply."""
+    pf = env["pf"]
+    e = pf._make_emit(env["params"].fq_spec(), "fold")
+    extras, _specs, bind = pf._fold_inputs(e)
+    bind(extras[0])
+    return e
+
+
+def _add_g1_warps(p, q):
+    """One G1 complete add over n lanes of (n, L) coordinates as k_add's
+    narrow form runs it (jac_add_warps, csrc/curve.cuh), over the current
+    hopper_field.HALF["fq"]: the lanes in blocks of 32, the last padded
+    with lane n - 1; the 16 Fq products in 5 rounds by their dependences
+    (warp w of a block taking product w of a round, one tile multiply over
+    the block's lanes); the doubling's 7 in 3 rounds on the blocks where a
+    lane has equal finite operands (a block-uniform test); then
+    _jac_add's selects.  -> (coords, blocks that took the doubling)."""
+    f = hf.HALF["fq"]
+    n, W = p[0].shape[0], fold_mul.TILE_LANES
+    nb = -(-n // W)
+    idx = torch.arange(nb * W).clamp(max=n - 1)
+    (px, py, pz), (qx, qy, qz) = (tuple(hf._half(c[idx]) for c in pt) for pt in (p, q))
+
+    def rnd(*pairs):  # one round: at most 4 products, one multiply each
+        assert len(pairs) <= 4
+        return [f.mul(a, b) for a, b in pairs]
+
+    z1z1, z2z2, yz1, yz2 = rnd((pz, pz), (qz, qz), (py, qz), (qy, pz))
+    u1, u2, s1, s2 = rnd((px, z2z2), (qx, z1z1), (yz1, z2z2), (yz2, z1z1))
+    h = f.sub(u2, u1)
+    rr = f.sub(s2, s1)
+    rr = f.add(rr, rr)
+    h2, zs = f.add(h, h), f.add(pz, qz)
+    i, r2, zsq = rnd((h2, h2), (rr, rr), (zs, zs))
+    j, v, z3 = rnd((h, i), (u1, i), (f.sub(zsq, f.add(z1z1, z2z2)), h))
+    x3 = f.sub(f.sub(r2, j), f.add(v, v))
+    s1j, m = rnd((s1, j), (rr, f.sub(v, x3)))
+    out = (x3, f.sub(m, f.add(s1j, s1j)), z3)
+    p_inf, q_inf, h_zero, r_zero = f.is_zero(pz), f.is_zero(qz), f.is_zero(h), f.is_zero(rr)
+    same = h_zero & r_zero & ~p_inf & ~q_inf
+    blocks = same.reshape(nb, W).any(dim=1)
+    if blocks.any():
+        d = torch.nonzero(blocks.repeat_interleave(W)).flatten()
+        x, y, z = px[d], py[d], pz[d]
+        a, b, dz = rnd((x, x), (y, y), (f.add(y, y), z))
+        e, xb = f.add(f.add(a, a), a), f.add(x, b)
+        c, sq, ff = rnd((b, b), (xb, xb), (e, e))
+        dd = f.sub(sq, f.add(a, c))
+        dd = f.add(dd, dd)
+        dx3 = f.sub(ff, f.add(dd, dd))
+        (em,) = rnd((e, f.sub(dd, dx3)))
+        c8 = f.add(c, c)
+        c8 = f.add(c8, c8)
+        c8 = f.add(c8, c8)
+        dbl = (dx3, f.sub(em, c8), dz)
+        out = tuple(o.index_put((d,), f.select(same[d], dv, o[d])) for o, dv in zip(out, dbl))
+    one = f.one_like(px)
+    opposite = h_zero & ~r_zero & ~p_inf & ~q_inf
+    out = tuple(f.select(opposite, c, o) for c, o in zip((one, one, f.zero_like(one)), out))
+    out = tuple(f.select(p_inf, c, o) for c, o in zip((qx, qy, qz), out))
+    out = tuple(f.select(q_inf & ~p_inf, c, o) for c, o in zip((px, py, pz), out))
+    return tuple(hf._pack(c[:n]) for c in out), int(blocks.sum())
+
+
+# the JAX fold formula's complete add on _ADD_LANES' inputs, computed once
+_ADD_JAX: dict = {}
+_ADD_LANES = LANES[-1]
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_add_on_the_tile_matches_the_fold_pallas_add(env16, lanes):
+    """The complete G1 add with the tile's multiply, in both forms of the
+    converged k_add<Fq, Called<MulFoldMma>>: jac_add_select (every multiply
+    on every lane, then the selects: hopper_field.jac_add over TileFq) and
+    the narrow form's schedule (_add_g1_warps), on testing.special_lanes
+    (inf + q, p + inf, inf + inf, p + p with the same limbs and with
+    another Z, p + (-p): h = 0 with r != 0) and lane 70 = p + p alone in
+    the third block: the plain add's limbs and the JAX package's
+    ``_jac_add(complete=True)`` through the fold emitter, run once at 71
+    lanes (the 16-lane case takes its first 16 lanes)."""
+    p, q, *_ = special_lanes(False, _ADD_LANES, random.Random(150))
+    q[_ADD_LANES - 1] = p[_ADD_LANES - 1]
+    P, Q = (tuple(c[:lanes] for c in _port(pts, 3)) for pts in (p, q))
+    want = hf.add_plain(False, P, Q)
+    with _tile_fq():
+        f = hf._field(False)
+        assert isinstance(f, TileFq)
+        got = tuple(map(hf._pack, hf.jac_add(f, tuple(map(hf._half, P)), tuple(map(hf._half, Q)))))
+        narrow, blocks = _add_g1_warps(P, Q)
+    assert _equal(got, want) and _equal(narrow, want)
+    assert blocks == (1 if lanes <= 64 else 2)
+    assert not got[2][2].any() and not got[2][5].any()
+    if not _ADD_JAX:
+        jout = env16["pf"]._jac_add(_fold_emitter_eager(env16), _jax_cols(p, 3, False, env16),
+                                    _jax_cols(q, 3, False, env16), complete=True)
+        _ADD_JAX["out"] = tuple(_from_jax(c, False) for c in jout)
+    assert _equal(got, tuple(c[:lanes] for c in _ADD_JAX["out"]))
+
+
 # the fold unit's tensor-core instances as the profiler (demangled) and
 # ptxas / cuobjdump (mangled) name them, called and inlined, and a fold
-# instance on the dp4a fold beside them
+# instance on the dp4a fold beside them (the G1 distinct add)
 _NAMES = {
     "(anonymous namespace)::k_madd_scan<Fp<FqParams>, Called<MulFoldMma> >(unsigned int const*, ...)":
         "g1_madd_scan_fold",
@@ -373,7 +483,11 @@ _NAMES = {
     "(anonymous namespace)::k_double<Fq2, MulFoldMma>(unsigned int const*, ...)": "g2_double_fold",
     "(anonymous namespace)::k_add_shift<Fq2, MulFoldMma>(unsigned int const*, ...)": "g2_add_shift_fold",
     "(anonymous namespace)::k_madd_scan<Fq2, MulFoldMma>(unsigned int const*, ...)": "g2_madd_scan_fold",
-    "(anonymous namespace)::k_add<Fp<FqParams>, Called<MulFold> >(unsigned int const*, ...)": "g1_add_fold",
+    "(anonymous namespace)::k_add<Fp<FqParams>, Called<MulFoldMma> >(unsigned int const*, ...)": "g1_add_fold",
+    "(anonymous namespace)::k_mont_inv<FrParams, MulFoldMmaOf<FrParams> >(unsigned int const*, unsigned int*, long long)":
+        "mont_inv_fr_fold",
+    "(anonymous namespace)::k_add_distinct<Fp<FqParams>, Called<MulFold> >(unsigned int const*, ...)":
+        "g1_add_distinct_fold",
 }
 _SCAN = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_madd_scanI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_PKiixPjSC_SC_Pi"
 _DBL = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN8k_doubleI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_S9_PjSA_SA_xi"
@@ -383,8 +497,11 @@ _SHIFT = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_add_shiftI2FpI8FqP
 _G2_DBL = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN8k_doubleI3Fq210MulFoldMmaEEvPKjS4_S4_PjS5_S5_xi"
 _G2_SHIFT = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_add_shiftI3Fq210MulFoldMmaEEvPKjS4_S4_PjS5_S5_xii"
 _G2_SCAN = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_madd_scanI3Fq210MulFoldMmaEEvPKjS4_PKiixPjS7_S7_Pi"
-_G1_ADD = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN5k_addI2FpI8FqParamsE6CalledI7MulFoldEEEvPKjS9_S9_S9_S9_S9_"
-           "PjSA_SA_x")
+_G1_ADD = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN5k_addI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_S9_S9_"
+           "S9_S9_PjSA_SA_x")
+_INV_FR = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN10k_mont_invI8FrParams12MulFoldMmaOfIS2_EEEvPKjPjx"
+_G1_ADD_DISTINCT = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN14k_add_distinctI2FpI8FqParamsE6CalledI7MulFoldEEEvPKj"
+                    "S9_S9_S9_S9_S9_PjSA_SA_x")
 _FQ_MUL_MMA = "_Z11fq_mul_callI10MulFoldMmaE2FpI8FqParamsES3_S3_"
 _MUL_MMA = "_Z10mul_calledI10MulFoldMma8FqParamsE2FpIT0_ES4_S4_"
 
@@ -392,10 +509,11 @@ _MUL_MMA = "_Z10mul_calledI10MulFoldMma8FqParamsE2FpIT0_ES4_S4_"
 def test_mma_instances_keep_their_names():
     """The profiler's and ptxas's names of the tensor-core instances map to
     g1_madd_scan_fold / g1_double_fold / g1_add_shift_fold /
-    g2_double_fold / g2_madd_scan_fold / g2_add_shift_fold (the mode's name
-    holds MulFold), a fold instance on the dp4a fold (the G1 complete add)
-    keeps its own name, and the called multiplies (G1's mul_called, G2's
-    fq_mul_call) are no kernels of the kernels line."""
+    g2_double_fold / g2_madd_scan_fold / g2_add_shift_fold / g1_add_fold /
+    mont_inv_fr_fold (the mode's name holds MulFold; the Fr chain's is
+    MulFoldMmaOf<FrParams>), a fold instance on the dp4a fold (the G1
+    distinct add) keeps its own name, and the called multiplies (G1's
+    mul_called, G2's fq_mul_call) are no kernels of the kernels line."""
     _root_on_path()
     import chip_smoke
 
@@ -407,20 +525,23 @@ def test_mma_instances_keep_their_names():
     assert _build.short_name(_G2_DBL) == "k_double<Fq2,MulFoldMma>"
     assert _build.short_name(_G2_SCAN) == "k_madd_scan<Fq2,MulFoldMma>"
     assert _build.short_name(_G2_SHIFT) == "k_add_shift<Fq2,MulFoldMma>"
-    assert _build.short_name(_G1_ADD) == "k_add<FqParams,Called<MulFold>>"
-    names = (_SCAN, _DBL, _DBL_INLINE, _SHIFT, _G2_DBL, _G2_SCAN, _G2_SHIFT, _G1_ADD)
+    assert _build.short_name(_G1_ADD) == "k_add<FqParams,Called<MulFoldMma>>"
+    assert _build.short_name(_INV_FR) == "k_mont_inv<FrParams,MulFoldMmaOf>"
+    assert _build.short_name(_G1_ADD_DISTINCT) == "k_add_distinct<FqParams,Called<MulFold>>"
+    names = (_SCAN, _DBL, _DBL_INLINE, _SHIFT, _G2_DBL, _G2_SCAN, _G2_SHIFT, _G1_ADD, _INV_FR, _G1_ADD_DISTINCT)
     assert [chip_smoke.instance_name(_build.short_name(n)) for n in names] == [
         "g1_madd_scan_fold", "g1_double_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold",
-        "g2_madd_scan_fold", "g2_add_shift_fold", "g1_add_fold"]
+        "g2_madd_scan_fold", "g2_add_shift_fold", "g1_add_fold", "mont_inv_fr_fold", "g1_add_distinct_fold"]
     assert _build.short_name(_MUL_MMA) == "mul_called<MulFoldMma,FqParams>"
     assert _build.short_name(_FQ_MUL_MMA) == "fq_mul_call<MulFoldMma,FqParams>"
     assert chip_smoke.instance_name(_build.short_name(_MUL_MMA)) is None
     assert chip_smoke.instance_name(_build.short_name(_FQ_MUL_MMA)) is None
     # MMA_KERNELS names curve_fold.cu's kMmaKernels table in its order (mma_info indexes the table by it)
-    table = re.findall(r"\(k_(madd_scan|double|add_shift)<(Fq2?), ModeG[12]Mma>\)",
+    table = re.findall(r"\(k_(madd_scan|double|add_shift|add|mont_inv)<(Fq2?|FrParams), Mode(?:G[12]|Fr)Mma>\)",
                        (_build.CSRC / "curve_fold.cu").read_text())
-    assert hf.MMA_KERNELS == tuple(f"{'g2' if f == 'Fq2' else 'g1'}_{k}_fold" for k, f in table)
-    assert len(hf.MMA_KERNELS) == 6 and set(hf.MMA_KERNELS) <= set(hf.KERNELS)
+    assert hf.MMA_KERNELS == tuple("mont_inv_fr_fold" if f == "FrParams" else f"{'g2' if f == 'Fq2' else 'g1'}_{k}_fold"
+                                   for k, f in table)
+    assert len(hf.MMA_KERNELS) == 8 and set(hf.MMA_KERNELS) <= set(hf.KERNELS)
     assert {"vs_curve_fold_mma_upload", "vs_curve_fold_mma_info"} <= set(_build.UNITS["curve_fold.cu"])
 
 
@@ -473,20 +594,34 @@ _SASS = f"""
         /*0620*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
         /*0630*/                   RET.REL.NODEC R20 0x0 ;
 		Function : {_G1_ADD}
-        /*0700*/                   CALL.REL.NOINC 0x720 ;
-        /*0710*/                   EXIT ;
-        /*0720*/                   FFMA R1, R2, R3, R4 ;
-        /*0730*/                   IDP.4A.U8.S8 R4, R8, c[0x3][0x0], R4 ;
-        /*0740*/                   RET.REL.NODEC R20 0x0 ;
+        /*0700*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0710*/                   CALL.REL.NOINC 0x730 ;
+        /*0720*/                   EXIT ;
+        /*0730*/                   FFMA R1, R2, R3, R4 ;
+        /*0740*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
+        /*0750*/                   RET.REL.NODEC R20 0x0 ;
+		Function : {_INV_FR}
+        /*0800*/                   FFMA R1, R2, R3, R4 ;
+        /*0810*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
+        /*0820*/                   IMMA.16832.U8.S8 R12, R48.ROW, R44.COL, R12 ;
+        /*0830*/              @!P0 BRA 0x800 ;
+        /*0840*/                   EXIT ;
+		Function : {_G1_ADD_DISTINCT}
+        /*0900*/                   CALL.REL.NOINC 0x920 ;
+        /*0910*/                   EXIT ;
+        /*0920*/                   FFMA R1, R2, R3, R4 ;
+        /*0930*/                   IDP.4A.U8.S8 R4, R8, c[0x3][0x0], R4 ;
+        /*0940*/                   RET.REL.NODEC R20 0x0 ;
 """
 
 
 def test_sass_counts_hold_the_called_multiply():
     """[sass] counts a kernel's instructions with those of the multiply it
     calls out of line, which cuobjdump lists inside the kernel's code: the
-    tensor-core instances (the G2 doubling, scan and suffix round among
-    them) show IMMA and no IDP, the G1 fold complete add the dp4a of
-    mul_fold, each under its kernels-line name."""
+    tensor-core instances (the G2 doubling, scan and suffix round, the G1
+    complete add and the Fr chain among them) show IMMA and no IDP, the G1
+    fold distinct add the dp4a of mul_fold, each under its kernels-line
+    name."""
     _root_on_path()
     import chip_smoke
 
@@ -497,7 +632,9 @@ def test_sass_counts_hold_the_called_multiply():
         "g2_double_fold": {"IMMA": 1, "IDP": 0, "FFMA": 1, "all": 5},
         "g2_madd_scan_fold": {"IMMA": 2, "IDP": 0, "FFMA": 1, "all": 7},
         "g2_add_shift_fold": {"IMMA": 1, "IDP": 0, "FFMA": 0, "all": 4},
-        "g1_add_fold": {"IMMA": 0, "IDP": 1, "FFMA": 1, "all": 5},
+        "g1_add_fold": {"IMMA": 1, "IDP": 0, "FFMA": 1, "all": 6},
+        "mont_inv_fr_fold": {"IMMA": 2, "IDP": 0, "FFMA": 1, "all": 5},
+        "g1_add_distinct_fold": {"IMMA": 0, "IDP": 1, "FFMA": 1, "all": 5},
     }
     assert all(counts["IMMA"] and not counts["IDP"] for k, counts in chip_smoke.sass_counts(_SASS).items()
                if k in hf.MMA_KERNELS)
@@ -507,8 +644,9 @@ def test_sass_counts_hold_the_called_multiply():
 def test_fold_launcher_uploads_the_b_operand_once_a_card(monkeypatch):
     """hopper_field._launcher puts the fold unit's matrices in place before
     a fold launcher is handed out, once per card: the dp4a fold's packed
-    matrices of Fq and Fr, and the tensor-core fold's B operand
-    (fold_mul.mma_operand of Fq, N x K bytes); loop uploads nothing."""
+    matrix of Fq (the unit's dp4a instances are all Fq's), and the
+    tensor-core fold's B operands (fold_mul.mma_operand, N x K bytes) of Fq
+    and of Fr, which the Fr inversion chain reads; loop uploads nothing."""
     calls = []
 
     def recorder(name):
@@ -528,7 +666,7 @@ def test_fold_launcher_uploads_the_b_operand_once_a_card(monkeypatch):
         assert hf._launcher("vs_double", "fold", torch.device("cuda", index)) == "fold launcher"
     assert hf._launcher("vs_double", "loop", torch.device("cuda", 2)) == "loop launcher"
     one_card = [("vs_curve_fold_upload", 0, fold_mul.packed_matrix(lb.FQ).size),
-                ("vs_curve_fold_upload", 1, fold_mul.packed_matrix(lb.FR).size),
-                ("vs_curve_fold_mma_upload", 0, fold_mul.mma_operand(lb.FQ).size)]
+                ("vs_curve_fold_mma_upload", 0, fold_mul.mma_operand(lb.FQ).size),
+                ("vs_curve_fold_mma_upload", 1, fold_mul.mma_operand(lb.FR).size)]
     assert calls == one_card * 2
-    assert fold_mul.mma_operand(lb.FQ).size == 56 * 288
+    assert fold_mul.mma_operand(lb.FQ).size == 56 * 288 and fold_mul.mma_operand(lb.FR).size == 40 * 192

@@ -127,17 +127,20 @@ __device__ __forceinline__ Jac<E> jac_double(const Jac<E>& p) {
   return {x3, y3, z3};
 }
 
-// One round of jac_double_warps: warp w multiplies x * y for its 32 lanes
-// (its operands are product w of the round), and every thread gets the
-// round's 4 products of its lane, passed through each warp's tile.
-template <class M>
-__device__ __forceinline__ void warp_round(const Fq& x, const Fq& y, Fq (&t)[4]) {
-  const Fq r = fq_mul_call<M>(x, y);
-  const int lane = threadIdx.x & 31;
-  reinterpret_cast<Fq*>(M::warp_tile(threadIdx.x >> 5))[lane] = r;
+// One round of a block whose 4 warps all hold the same 32 lanes
+// (jac_double_warps, jac_add_warps): warp w < NP multiplies x * y with mul
+// for its 32 lanes (its operands are product w of the round; the other
+// warps idle, a warp-uniform test, which NP = 4 drops at compile time:
+// every warp of the 128 multiplies), and every thread gets the round's NP
+// products of its lane, passed through the warps' tiles.  M: a converged
+// mode with warp tiles (MulFoldMma, Called<MulFoldMma>).
+template <class M, int NP, class Mul>
+__device__ __forceinline__ void tile_round(const Fq& x, const Fq& y, Fq (&t)[4], Mul mul) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (NP == 4 || w < NP) reinterpret_cast<Fq*>(M::warp_tile(w))[lane] = mul(x, y);
   __syncthreads();
 #pragma unroll
-  for (int w = 0; w < 4; ++w) t[w] = reinterpret_cast<const Fq*>(M::warp_tile(w))[lane];
+  for (int k = 0; k < NP; ++k) t[k] = reinterpret_cast<const Fq*>(M::warp_tile(k))[lane];
   __syncthreads();  // the tiles are free for the next round's multiplies
 }
 
@@ -159,26 +162,27 @@ template <class M>
 __device__ Jac<Fq2> jac_double_warps(const Jac<Fq2>& p) {
   const int w = threadIdx.x >> 5;
   const Fq2 &x = p.x, &y = p.y, &z = p.z;
+  const auto mul = [](const Fq& a, const Fq& b) { return fq_mul_call<M>(a, b); };
   Fq t[4];
-  warp_round<M>(pick(w, add(x.c0, x.c1), x.c0, add(y.c0, y.c1), y.c0),
-                pick(w, sub(x.c0, x.c1), x.c1, sub(y.c0, y.c1), y.c1), t);
+  tile_round<M, 4>(pick(w, add(x.c0, x.c1), x.c0, add(y.c0, y.c1), y.c0),
+                   pick(w, sub(x.c0, x.c1), x.c1, sub(y.c0, y.c1), y.c1), t, mul);
   const Fq2 a = {t[0], add(t[1], t[1])};
   const Fq2 b = {t[2], add(t[3], t[3])};
   const Fq2 u = add(x, b);
-  warp_round<M>(pick(w, add(b.c0, b.c1), b.c0, add(u.c0, u.c1), u.c0),
-                pick(w, sub(b.c0, b.c1), b.c1, sub(u.c0, u.c1), u.c1), t);
+  tile_round<M, 4>(pick(w, add(b.c0, b.c1), b.c0, add(u.c0, u.c1), u.c0),
+                   pick(w, sub(b.c0, b.c1), b.c1, sub(u.c0, u.c1), u.c1), t, mul);
   const Fq2 c = {t[0], add(t[1], t[1])};
   Fq2 d = sub(Fq2{t[2], add(t[3], t[3])}, add(a, c));
   d = add(d, d);
   const Fq2 e = add(add(a, a), a);
   const Fq2 v = add(y, y);
-  warp_round<M>(pick(w, add(e.c0, e.c1), e.c0, v.c0, v.c1), pick(w, sub(e.c0, e.c1), e.c1, z.c0, z.c1), t);
+  tile_round<M, 4>(pick(w, add(e.c0, e.c1), e.c0, v.c0, v.c1), pick(w, sub(e.c0, e.c1), e.c1, z.c0, z.c1), t, mul);
   const Fq2 ff = {t[0], add(t[1], t[1])};
   const Fq z0 = t[2], z1 = t[3];
   const Fq2 x3 = sub(ff, add(d, d));
   const Fq2 g = sub(d, x3);
-  warp_round<M>(pick(w, add(v.c0, v.c1), e.c0, e.c1, add(e.c0, e.c1)),
-                pick(w, add(z.c0, z.c1), g.c0, g.c1, add(g.c0, g.c1)), t);
+  tile_round<M, 4>(pick(w, add(v.c0, v.c1), e.c0, e.c1, add(e.c0, e.c1)),
+                   pick(w, add(z.c0, z.c1), g.c0, g.c1, add(g.c0, g.c1)), t, mul);
   Fq2 c8 = add(c, c);
   c8 = add(c8, c8);
   c8 = add(c8, c8);
@@ -266,6 +270,70 @@ __device__ Jac<E> jac_add_select(const Jac<E>& p, const Jac<E>& q) {
   const bool opposite = h_zero && !r_zero && !p_inf && !q_inf;
   const E one = one_of<E>();
   out = {sel(opposite, one, out.x), sel(opposite, one, out.y), sel(opposite, zero_of<E>(), out.z)};
+  out = {sel(p_inf, q.x, out.x), sel(p_inf, q.y, out.y), sel(p_inf, q.z, out.z)};
+  const bool keep = q_inf && !p_inf;
+  return {sel(keep, p.x, out.x), sel(keep, p.y, out.y), sel(keep, p.z, out.z)};
+}
+
+// jac_add_select in G1 on the 4 warps of a block that all hold the same 32
+// lanes (k_add's narrow form): the generic add's 16 Fq products in 5 rounds
+// by their dependences, warp w taking product w of a round,
+//   1. z1z1 = pz^2, z2z2 = qz^2, py qz, qy pz
+//   2. u1 = px z2z2, u2 = qx z1z1, s1 = py qz z2z2, s2 = qy pz z1z1
+//   3. i = (2h)^2, rr^2, (pz + qz)^2
+//   4. j = h i, v = u1 i, z3 = ((pz + qz)^2 - z1z1 - z2z2) h
+//   5. s1 j, rr (v - x3)
+// and, where some lane of the block has equal finite operands, jac_double's
+// 7 in 3 (x^2, y^2, 2y z; b^2, (x + b)^2, e^2; e (d - x3)).  The tiles are
+// the block's, so that test is block-uniform (__syncthreads_or).  Then the
+// selects of jac_add_select, in the Pallas order.  A chain of 5 (8)
+// multiplies an add, against jac_add_select's 16 (23).  Same limbs.
+template <class M>
+__device__ Jac<Fq> jac_add_warps(const Jac<Fq>& p, const Jac<Fq>& q) {
+  const int w = threadIdx.x >> 5;
+  const auto mul = [](const Fq& a, const Fq& b) { return M::mul(a, b); };
+  Fq t[4];
+  tile_round<M, 4>(pick(w, p.z, q.z, p.y, q.y), pick(w, p.z, q.z, q.z, p.z), t, mul);
+  const Fq z1z1 = t[0], z2z2 = t[1];
+  tile_round<M, 4>(pick(w, p.x, q.x, t[2], t[3]), pick(w, z2z2, z1z1, z2z2, z1z1), t, mul);
+  const Fq u1 = t[0], s1 = t[2];
+  const Fq h = sub(t[1], u1);
+  Fq rr = sub(t[3], s1);
+  rr = add(rr, rr);
+  const Fq h2 = add(h, h), zs = add(p.z, q.z);
+  tile_round<M, 3>(pick(w, h2, rr, zs, zs), pick(w, h2, rr, zs, zs), t, mul);
+  const Fq i = t[0], r2 = t[1], zz = sub(t[2], add(z1z1, z2z2));
+  tile_round<M, 3>(pick(w, h, u1, zz, zz), pick(w, i, i, h, h), t, mul);
+  const Fq j = t[0], v = t[1];
+  Jac<Fq> out;
+  out.x = sub(sub(r2, j), add(v, v));
+  out.z = t[2];
+  const Fq vx = sub(v, out.x);
+  tile_round<M, 2>(pick(w, s1, rr, rr, rr), pick(w, j, vx, vx, vx), t, mul);
+  out.y = sub(t[1], add(t[0], t[0]));
+  const bool p_inf = is_zero(p.z);
+  const bool q_inf = is_zero(q.z);
+  const bool h_zero = is_zero(h);
+  const bool r_zero = is_zero(rr);
+  const bool same = h_zero && r_zero && !p_inf && !q_inf;
+  if (__syncthreads_or(same)) {
+    tile_round<M, 3>(pick(w, p.x, p.y, add(p.y, p.y), p.x), pick(w, p.x, p.y, p.z, p.x), t, mul);
+    const Fq a = t[0], b = t[1], z3 = t[2];
+    const Fq e = add(add(a, a), a), xb = add(p.x, b);
+    tile_round<M, 3>(pick(w, b, xb, e, e), pick(w, b, xb, e, e), t, mul);
+    const Fq c = t[0];
+    Fq d = sub(t[1], add(a, c));
+    d = add(d, d);
+    const Fq x3 = sub(t[2], add(d, d));
+    tile_round<M, 1>(e, sub(d, x3), t, mul);
+    Fq c8 = add(c, c);
+    c8 = add(c8, c8);
+    c8 = add(c8, c8);
+    out = {sel(same, x3, out.x), sel(same, sub(t[0], c8), out.y), sel(same, z3, out.z)};
+  }
+  const bool opposite = h_zero && !r_zero && !p_inf && !q_inf;
+  const Fq one = one_of<Fq>();
+  out = {sel(opposite, one, out.x), sel(opposite, one, out.y), sel(opposite, zero_of<Fq>(), out.z)};
   out = {sel(p_inf, q.x, out.x), sel(p_inf, q.y, out.y), sel(p_inf, q.z, out.z)};
   const bool keep = q_inf && !p_inf;
   return {sel(keep, p.x, out.x), sel(keep, p.y, out.y), sel(keep, p.z, out.z)};

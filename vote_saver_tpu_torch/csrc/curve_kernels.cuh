@@ -34,23 +34,25 @@
 // instances of K3d and K5/K6 take MulLoop inlined), a G2 kernel M, whose
 // Fq2 multiply calls its Fq multiply out of line (fq_mul_call).  The fold
 // unit's bucket scan, suffix round and doubling take Called<MulFoldMma> in
-// G1 and MulFoldMma in G2: the fold product on the int8 tensor cores
-// (fold_mma.cuh).
+// G1 and MulFoldMma in G2, its G1 complete add Called<MulFoldMma> and its
+// Fr inversion chain MulFoldMmaOf<FrParams>: the fold product on the int8
+// tensor cores (fold_mma.cuh).
 //
 // The converged form.  A mode whose multiply a warp runs together
 // (M::kConverged: mma.sync and ldmatrix are .sync.aligned) needs every
-// thread of a warp at each multiply.  k_madd_scan, k_add_shift and
-// k_double take this form for such a mode (if constexpr; the other modes'
-// code is the one form they had): every thread of the block runs
-// M::prologue() first; then a warp whose lanes are all past n exits, and a
-// thread past n inside a live warp computes on lane n - 1's data (lane_in)
-// and skips its stores; the scan's madd is jac_madd_select and the suffix
-// round's add jac_add_select (curve.cuh: every multiply on every lane,
+// thread of a warp at each multiply.  k_mont_inv, k_madd_scan, k_add,
+// k_add_shift and k_double take this form for such a mode (if constexpr;
+// the other modes' code is the one form they had): every thread of the
+// block runs M::prologue() first; then a warp whose lanes are all past n
+// exits, and a thread past n inside a live warp computes on lane n - 1's
+// data (lane_in) and skips its stores; the scan's madd is jac_madd_select
+// and the adds jac_add_select (curve.cuh: every multiply on every lane,
 // then selects) instead of jac_madd's early returns and jac_add's
 // branches.  The branches left before a multiply (scan_point's idle code;
-// the warp-uniform skips of k_add_shift and jac_add_select) end before the
-// multiply, and mul_fold_mma synchronises the warp (__syncwarp) between its
-// pieces and its product.  The launchers pass M::smem_bytes(kThreads) as the
+// the warp-uniform skips of k_add_shift and jac_add_select, the
+// block-uniform one of jac_add_warps) end before the multiply, and
+// mul_fold_mma synchronises the warp (__syncwarp) between its pieces and
+// its product.  The launchers pass M::smem_bytes(kThreads) as the
 // launch's dynamic shared memory (0 for the other modes), the scan kScanSmem
 // (below); a kernel may take more than 48 KB of it only once the card's
 // limit for it is lifted, which the fold unit's B operand upload does
@@ -122,11 +124,24 @@ __device__ __forceinline__ long long lane_in(long long i, long long n) {
 // one lane's multiply across threads (limb products spread over a warp,
 // carries by shuffles), so that a chain of 16 lanes fills more than one
 // warp's issue slots.
+//
+// In a converged mode (the fold unit's Fr instance, MulFoldMmaOf<FrParams>:
+// each multiply's fold product a warp's tile on the tensor cores, 60
+// mma.sync against the block's copy of Fr's B operand) the prologue runs
+// first, whole warps past n leave and a ragged warp's spare threads compute
+// on lane n - 1 and store nothing; the exponent's bits are the same on
+// every lane, so the chain is warp-uniform as it stands.  At the device
+// witness's 16 lanes it is one warp, 2.0 us a multiply (0.83 ms a chain,
+// against the dp4a fold's 2.67): the 1,024 digit FMAs are not what holds
+// it, since four warps sharing one tile, each a quarter of the columns,
+// took as long (PERF.md); the serial carry chain of fold_finish is.
 template <class P, class M>
 __global__ void __launch_bounds__(kThreads)
     k_mont_inv(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  M::prologue();
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (past_end<M>(t, n)) return;
+  const long long i = lane_in<M>(t, n);
   Fp<P> x;
   load(x, a, i);
   Fp<P> r = x;
@@ -134,6 +149,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = P::NM2_BITS - 2; k >= 0; --k) {
     r = M::mul(r, r);
     if ((P::nm2(k >> 5) >> (k & 31)) & 1u) r = M::mul(r, x);
+  }
+  if constexpr (M::kConverged) {
+    if (t >= n) return;
   }
   store(out, i, r);
 }
@@ -161,24 +179,56 @@ __global__ void __launch_bounds__(kThreads)
   exc[i] = (int32_t)e;
 }
 
+// K3 in G1, complete.  What bounds it on the vote path: latency.  Its
+// callers (the MSM's orphan merges and Horner steps, the ballot tail) add
+// 16-480 lanes a launch: one to four blocks on 132 SMs, each lane a chain
+// of 16 dependent Fq multiplies.  In a converged mode (the fold unit's
+// instance, Called<MulFoldMma>: each multiply's fold product a warp's tile
+// on the tensor cores) a block of 128 threads holds 32 lanes, its 4 warps
+// the same ones, and shares each add's products over them, 4 a round
+// (jac_add_warps, curve.cuh): a chain of 5 multiplies, the doubling
+// corner's 3 more only in a block where a lane needs them; a ragged
+// block's spare lanes compute on lane n - 1, and warp 0 stores.  The
+// prologue runs before anything else.  It ran faster than one thread a
+// lane running jac_add_select at every width measured, 16 to 2^14 lanes
+// (PERF.md), so it is the converged form at every width.
 template <class E, class M>
 __global__ void __launch_bounds__(kThreads)
     k_add(const uint32_t* px, const uint32_t* py, const uint32_t* pz,
           const uint32_t* qx, const uint32_t* qy, const uint32_t* qz,
           uint32_t* ox, uint32_t* oy, uint32_t* oz, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Jac<E> p, q;
-  load(p.x, px, i);
-  load(p.y, py, i);
-  load(p.z, pz, i);
-  load(q.x, qx, i);
-  load(q.y, qy, i);
-  load(q.z, qz, i);
-  const Jac<E> r = jac_add<E, M>(p, q);
-  store(ox, i, r.x);
-  store(oy, i, r.y);
-  store(oz, i, r.z);
+  if constexpr (M::kConverged) {
+    static_assert(std::is_same<E, Fq>::value, "k_add's converged form is G1's");
+    M::prologue();
+    const long long t = (long long)blockIdx.x * 32 + (threadIdx.x & 31);
+    const long long i = lane_in<M>(t, n);
+    Jac<Fq> p, q;
+    load(p.x, px, i);
+    load(p.y, py, i);
+    load(p.z, pz, i);
+    load(q.x, qx, i);
+    load(q.y, qy, i);
+    load(q.z, qz, i);
+    const Jac<Fq> r = jac_add_warps<M>(p, q);
+    if (t >= n || threadIdx.x >= 32) return;
+    store(ox, i, r.x);
+    store(oy, i, r.y);
+    store(oz, i, r.z);
+  } else {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    Jac<E> p, q;
+    load(p.x, px, i);
+    load(p.y, py, i);
+    load(p.z, pz, i);
+    load(q.x, qx, i);
+    load(q.y, qy, i);
+    load(q.z, qz, i);
+    const Jac<E> r = jac_add<E, M>(p, q);
+    store(ox, i, r.x);
+    store(oy, i, r.y);
+    store(oz, i, r.z);
+  }
 }
 
 // The affine point `code` names in the table, or (0, 0) for an idle code.
@@ -489,13 +539,14 @@ __global__ void __launch_bounds__(kThreads)
 
 using u32p = const uint32_t*;
 
-template <class M>
+// MQ: the mode of the Fq chain, MR: Fr's.
+template <class MQ, class MR>
 int launch_mont_inv(int field, const void* a, void* out, long long n, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (field == 0) {
-    k_mont_inv<FqParams, M><<<blocks_for(n), kThreads, 0, s>>>((u32p)a, (uint32_t*)out, n);
+    k_mont_inv<FqParams, MQ><<<blocks_for(n), kThreads, MQ::smem_bytes(kThreads), s>>>((u32p)a, (uint32_t*)out, n);
   } else {
-    k_mont_inv<FrParams, M><<<blocks_for(n), kThreads, 0, s>>>((u32p)a, (uint32_t*)out, n);
+    k_mont_inv<FrParams, MR><<<blocks_for(n), kThreads, MR::smem_bytes(kThreads), s>>>((u32p)a, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }
@@ -520,7 +571,8 @@ int launch_madd(int g2, const void* ax, const void* ay, const void* az, const vo
 template <class M1>
 int launch_g1_add(const void* px, const void* py, const void* pz, const void* qx, const void* qy,
                   const void* qz, void* ox, void* oy, void* oz, long long n, void* stream) {
-  k_add<Fq, M1><<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned blocks = M1::kConverged ? (unsigned)((n + 31) / 32) : blocks_for(n);
+  k_add<Fq, M1><<<blocks, kThreads, M1::smem_bytes(kThreads), static_cast<cudaStream_t>(stream)>>>(
       (u32p)px, (u32p)py, (u32p)pz, (u32p)qx, (u32p)qy, (u32p)qz, (uint32_t*)ox, (uint32_t*)oy,
       (uint32_t*)oz, n);
   return (int)cudaGetLastError();

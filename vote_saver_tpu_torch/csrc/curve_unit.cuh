@@ -8,13 +8,15 @@
 //
 // and may define
 //
-//   VS_MODE_G1_MMA  the mode of the G1 bucket scan, the G1 suffix round
-//                   and the G1 doubling (default Called<VS_MODE>; the fold
-//                   unit's: Called<MulFoldMma>, the fold product on the
-//                   tensor cores)
+//   VS_MODE_G1_MMA  the mode of the G1 bucket scan, the G1 suffix round,
+//                   the G1 doubling and the G1 complete add (default
+//                   Called<VS_MODE>; the fold unit's: Called<MulFoldMma>,
+//                   the fold product on the tensor cores)
 //   VS_MODE_G2_MMA  the mode of the G2 bucket scan, the G2 suffix round and
 //                   the G2 doubling (default VS_MODE; the fold unit's:
 //                   MulFoldMma)
+//   VS_MODE_FR_MMA  the mode of the Fr inversion chain (default VS_MODE;
+//                   the fold unit's: MulFoldMmaOf<FrParams>)
 //
 // and gets vs_mont_inv<suffix>, vs_madd<suffix>, vs_g1_add<suffix>,
 // vs_g2_add_team<suffix>, vs_double<suffix>, vs_madd_scan<suffix>,
@@ -22,10 +24,11 @@
 // with the signature of the loop launcher of the same name (kernels.cu,
 // add_team.cu, add_distinct.cu).  Every G1 kernel takes Called<VS_MODE>
 // (one out-of-line copy of the mode's multiply a kernel) but the scan, the
-// suffix round and the doubling, which take VS_MODE_G1_MMA, every G2 kernel
-// VS_MODE (its Fq2 multiply calls the Fq one out of line) but the scan,
-// the suffix round and the doubling, which take VS_MODE_G2_MMA, the
-// inversion chain and the team add VS_MODE itself.
+// suffix round, the doubling and the complete add, which take
+// VS_MODE_G1_MMA, every G2 kernel VS_MODE (its Fq2 multiply calls the Fq
+// one out of line) but the scan, the suffix round and the doubling, which
+// take VS_MODE_G2_MMA, the Fq inversion chain and the team add VS_MODE
+// itself, the Fr inversion chain VS_MODE_FR_MMA.
 //
 // The launchers run on the caller's stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError() (0 on success).
@@ -51,13 +54,18 @@ using ModeG2Mma = VS_MODE_G2_MMA;
 #else
 using ModeG2Mma = ModeG2;
 #endif
+#ifdef VS_MODE_FR_MMA
+using ModeFrMma = VS_MODE_FR_MMA;
+#else
+using ModeFrMma = VS_MODE;
+#endif
 }  // namespace
 
 extern "C" {
 
 // field: 0 = Fq, 1 = Fr.
 int VS_FN(vs_mont_inv)(int field, const void* a, void* out, long long n, void* stream) {
-  return launch_mont_inv<VS_MODE>(field, a, out, n, stream);
+  return launch_mont_inv<VS_MODE, ModeFrMma>(field, a, out, n, stream);
 }
 
 // g2: 0 = G1 (Fq coordinates), 1 = G2 (Fq2 coordinates), here and below.
@@ -71,7 +79,7 @@ int VS_FN(vs_madd)(int g2, const void* ax, const void* ay, const void* az, const
 int VS_FN(vs_g1_add)(const void* px, const void* py, const void* pz, const void* qx,
                      const void* qy, const void* qz, void* ox, void* oy, void* oz, long long n,
                      void* stream) {
-  return launch_g1_add<ModeG1>(px, py, pz, qx, qy, qz, ox, oy, oz, n, stream);
+  return launch_g1_add<ModeG1Mma>(px, py, pz, qx, qy, qz, ox, oy, oz, n, stream);
 }
 
 // coordinates (n, 2, 12) each, 16-byte aligned; outputs not aliasing inputs.

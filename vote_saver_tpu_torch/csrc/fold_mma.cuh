@@ -2,8 +2,9 @@
 // multiplies its 32 lanes together.
 //
 // Replaces, for the probes K7 and K10 (micro.cu) and, as the multiplier
-// mode MulFoldMma below, for the fold unit's bucket scans, suffix rounds
-// and doublings in G1 and G2 (curve_fold.cu), the fold product of
+// modes MulFoldMma (Fq) and MulFoldMmaOf<FrParams> below, for the fold
+// unit's bucket scans, suffix rounds, doublings and G1 complete add and for
+// its Fr inversion chain (curve_fold.cu), the fold product of
 // vote_saver_tpu/ops/fold_mul.py:fold_columns inside FqEmitFold
 // (vote_saver_tpu/ops/pallas_field.py:187-224): there the pieces of every
 // lane's product columns go through ONE bf16 dot_general against the
@@ -13,38 +14,44 @@
 // carry pass, two 16-bit Montgomery word steps and the conditional subtract
 // (fold_finish).  The limbs equal MulFold's, lane for lane.
 //
-// What bounds it on this card: the 2,304 fp32 FMAs of the digit columns
-// (48 x 48 digits an Fq multiply) at one warp instruction a clock per SM
-// sub-partition, the issue rate, so every other instruction of the multiply
-// costs an issue slot beside them.  MulFold's per-lane fold spent 3,744 dp4a
-// (half rate) and kept its 52 accumulators live beside the 96 digits.
+// What bounds it on this card: the fp32 FMAs of the digit columns (Fq 48 x
+// 48 = 2,304, Fr 32 x 32 = 1,024 a multiply) at one warp instruction a
+// clock per SM sub-partition, the issue rate, so every other instruction of
+// the multiply costs an issue slot beside them.  MulFold's per-lane fold
+// spent 3,744 dp4a (Fq; Fr 1,728) at half rate and kept its 52 (36)
+// accumulators live beside the 96 (64) digits.
 //
-// What the design does about it: the fold product leaves the lane.
+// What the design does about it: the fold product leaves the lane.  Fq's
+// sizes below, Fr's in brackets.
 //   1. Each thread computes its lane's columns as MulFold does, but starts
 //      every FMA chain at 2^23, so a column's float bits are 0x4B000000 plus
 //      the column (< 2^22): no conversion, and __byte_perm takes the three
 //      low bytes.  Four columns pack into three words, stored 16 bytes at a
 //      time into the lane's row of the warp's A tile in shared memory: 32
-//      rows x K = 288 bytes (285 pieces, zero padding), row r = 3c + t.
-//   2. The block copies the B operand (fold_mul.mma_operand: N = 56 output
-//      bytes x K, K contiguous, padding zero) from global memory into shared
-//      memory once, at its start.
-//   3. The warp multiplies its tile: 2 (m16) x 7 (n8) x 9 (k32) = 126
-//      mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32, the pieces unsigned
-//      bytes, the matrix balanced signed bytes (a .s8 A would misread pieces
-//      >= 128); every sum is below 285 * 255 * 128 < 2^24, exact in s32.
-//      ldmatrix loads the A and B fragments; k runs outermost, so each B
-//      fragment serves both m16 tiles and the 56 accumulators are the only
-//      state besides the lane's chains.
-//   4. The 32 x 56 s32 accumulator tile goes back through the same shared
-//      memory; each thread reads its lane's 52 coefficients and finishes.
-// Shared memory, against bank conflicts: A and B rows are K + 16 = 304 bytes
-// (76 words = 4 x 19): the 8 rows an ldmatrix phase or a quarter warp's
-// 16-byte stores touch fall on 8 disjoint groups of 4 banks.  The C tile's
-// rows are 56 words (24 mod 32), with the 4-word chunks of rows whose bit 2
-// is set swapped in pairs (word ^ 4): the 16-byte reads of 8 consecutive
-// rows and the 8-byte fragment stores of a half warp are then conflict-free.
-// A warp's C tile reuses its A tile.
+//      rows x K = 288 [192] bytes (285 [189] pieces, zero padding), row
+//      r = 3c + t.
+//   2. The block copies the B operand (fold_mul.mma_operand: N = 56 [40]
+//      output bytes x K, K contiguous, padding zero) from global memory into
+//      shared memory once, at its start.
+//   3. The warp multiplies its tile: 2 (m16) x 7 [5] (n8) x 9 [6] (k32) =
+//      126 [60] mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32, the pieces
+//      unsigned bytes, the matrix balanced signed bytes (a .s8 A would
+//      misread pieces >= 128); every sum is below 285 * 255 * 128 < 2^24,
+//      exact in s32.  ldmatrix loads the A and B fragments; k runs
+//      outermost, so each B fragment serves both m16 tiles and the 56 [40]
+//      accumulators are the only state besides the lane's chains.
+//   4. The 32 x N s32 accumulator tile goes back through the same shared
+//      memory; each thread reads its lane's 52 [36] coefficients and
+//      finishes.
+// Shared memory, against bank conflicts: A and B rows are K + 16 = 304
+// [208] bytes (76 [52] words: 4 times an odd number, so rows 0-7 start on
+// 8 distinct multiples of 4 words mod 32): the 8 rows an ldmatrix phase or a
+// quarter warp's 16-byte stores touch fall on 8 disjoint groups of 4 banks.
+// The C tile's rows are N = 56 [40] words (24 [8] mod 32, so rows 0-3 start
+// on 4 distinct groups of 8 banks and rows 4-7 on the same 4), with the
+// 4-word chunks of rows whose bit 2 is set swapped in pairs (word ^ 4): the
+// 16-byte reads of 8 consecutive rows and the 8-byte fragment stores of a
+// half warp are then conflict-free.  A warp's C tile reuses its A tile.
 //
 // The caller keeps all 32 threads of the warp converged through the multiply
 // (mma.sync and ldmatrix are .sync.aligned): a thread past the kernel's n
@@ -61,8 +68,8 @@
 template <class P>
 struct FoldMma {
   using G = FoldGeom<P>;
-  static constexpr int K = (G::ROWS + 31) / 32 * 32;  // pieces, padded to k32 steps (Fq 288)
-  static constexpr int N = (G::NBYTES + 7) / 8 * 8;   // output bytes, padded to n8 tiles (Fq 56)
+  static constexpr int K = (G::ROWS + 31) / 32 * 32;  // pieces, padded to k32 steps (Fq 288, Fr 192)
+  static constexpr int N = (G::NBYTES + 7) / 8 * 8;   // output bytes, padded to n8 tiles (Fq 56, Fr 40)
   static constexpr int KSTEPS = K / 32, NTILES = N / 8;
   static constexpr int ROW = K + 16;                  // bytes a row of the A and B tiles
   static constexpr int GROUPS = (G::NCOLS + 3) / 4;   // four columns make three words
@@ -73,18 +80,25 @@ struct FoldMma {
   static constexpr int smem_bytes(int threads) { return B_BYTES + threads / 32 * WARP_BYTES; }
   static_assert(12 * GROUPS == K, "the packed pieces fill the padded row");
   static_assert(NTILES % 2 == 1, "the C tile's swizzle needs N = 8 (mod 16)");
+  static_assert(ROW % 16 == 0 && (ROW / 4) % 8 == 4, "8 rows' 16-byte chunks on disjoint groups of banks");
   static_assert(G::NBYTES % 4 == 0, "the coefficients are read 16 bytes at a time");
 };
 
-// The B operand of Fq (fold_mul.mma_operand: N rows of K bytes), filled once
-// per loaded library by fold_mma_upload.
+// The B operands (fold_mul.mma_operand: N rows of K bytes) of Fq and Fr,
+// filled once per loaded library by fold_mma_upload.
 __device__ uint4 kFoldMmaFq[FoldMma<FqParams>::N * FoldMma<FqParams>::K / 16];
+__device__ uint4 kFoldMmaFr[FoldMma<FrParams>::N * FoldMma<FrParams>::K / 16];
 
-// Host: copy field 0's (Fq's) B operand into this translation unit's device
-// memory; a cudaError_t, 0 on success.
+// Host: copy the B operand of field 0 (Fq) or 1 (Fr) into this translation
+// unit's device memory; a cudaError_t, 0 on success.
 static inline int fold_mma_upload(int field, const void* bytes, long long nbytes) {
-  if (field != 0 || (size_t)nbytes != sizeof(kFoldMmaFq)) return (int)cudaErrorInvalidValue;
-  return (int)cudaMemcpyToSymbol(kFoldMmaFq, bytes, (size_t)nbytes);
+  if (field == 0 && (size_t)nbytes == sizeof(kFoldMmaFq)) {
+    return (int)cudaMemcpyToSymbol(kFoldMmaFq, bytes, (size_t)nbytes);
+  }
+  if (field == 1 && (size_t)nbytes == sizeof(kFoldMmaFr)) {
+    return (int)cudaMemcpyToSymbol(kFoldMmaFr, bytes, (size_t)nbytes);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Host: let kernel fn take `smem` bytes of dynamic shared memory a block,
@@ -115,19 +129,29 @@ static inline int kernel_info(const void* fn, int threads, int smem, int* out) {
   return 0;
 }
 
-// The block's copy of the B operand into rows of ROW bytes at sb; the caller
-// synchronises the block after it.
+// Field P's B operand in this unit's device memory.
 template <class P>
-__device__ __forceinline__ void fold_mma_load_b(uint8_t* sb) {
-  static_assert(sizeof(P) && false, "the tensor-core fold's B operand exists for Fq only");
+__device__ __forceinline__ const uint4* fold_mma_b();
+
+template <>
+__device__ __forceinline__ const uint4* fold_mma_b<FqParams>() {
+  return kFoldMmaFq;
 }
 
 template <>
-__device__ __forceinline__ void fold_mma_load_b<FqParams>(uint8_t* sb) {
-  using F = FoldMma<FqParams>;
+__device__ __forceinline__ const uint4* fold_mma_b<FrParams>() {
+  return kFoldMmaFr;
+}
+
+// The block's copy of field P's B operand into rows of ROW bytes at sb; the
+// caller synchronises the block after it.
+template <class P>
+__device__ __forceinline__ void fold_mma_load_b(uint8_t* sb) {
+  using F = FoldMma<P>;
   constexpr int CHUNKS = F::K / 16;
+  const uint4* b = fold_mma_b<P>();
   for (int q = threadIdx.x; q < F::N * CHUNKS; q += blockDim.x) {
-    *reinterpret_cast<uint4*>(sb + (q / CHUNKS) * F::ROW + 16 * (q % CHUNKS)) = kFoldMmaFq[q];
+    *reinterpret_cast<uint4*>(sb + (q / CHUNKS) * F::ROW + 16 * (q % CHUNKS)) = b[q];
   }
 }
 
@@ -255,18 +279,18 @@ __device__ __forceinline__ Fp<P> mul_fold_mma(const Fp<P>& a, const Fp<P>& b, co
 }
 
 // The tensor-core fold as a multiplier mode (mul_modes.cuh), for kernels
-// written over a mode: Fq only.  Its shared memory is the block's dynamic
-// shared memory, smem_bytes(threads) of it: the B operand at offset 0, warp
-// w's tile at B_BYTES + w * WARP_BYTES.  The prologue copies the B operand
-// into it and synchronises the block, so every thread of the block runs it
-// before any thread exits.  kConverged: every thread of a warp calls mul
-// together (a kernel's converged form, curve_kernels.cuh).  Through
-// Called<MulFoldMma> the multiply is one out-of-line copy a kernel, as every
-// G1 multiply of the curve kernels is; a G2 kernel over MulFoldMma calls it
-// out of line through its Fq2 multiply (fq_mul_call).
-struct MulFoldMma {
+// written over a mode, in the field P of the B operand its blocks hold.  Its
+// shared memory is the block's dynamic shared memory, smem_bytes(threads)
+// of it: the B operand at offset 0, warp w's tile at B_BYTES + w *
+// WARP_BYTES.  The prologue copies the B operand into it and synchronises
+// the block, so every thread of the block runs it before any thread exits.
+// kConverged: every thread of a warp calls mul together (a kernel's
+// converged form, curve_kernels.cuh).
+template <class P>
+struct MulFoldMmaOf {
+  using F = FoldMma<P>;
   static constexpr bool kConverged = true;
-  static constexpr int smem_bytes(int threads) { return FoldMma<FqParams>::smem_bytes(threads); }
+  static constexpr int smem_bytes(int threads) { return F::smem_bytes(threads); }
 
   __device__ static __forceinline__ uint8_t* smem() {
     extern __shared__ __align__(16) uint8_t vs_fold_mma_smem[];
@@ -275,18 +299,24 @@ struct MulFoldMma {
 
   // warp w's tile, which is free between multiplies: a kernel may pass
   // values between its warps through it (jac_double_warps, curve.cuh)
-  __device__ static __forceinline__ uint8_t* warp_tile(int w) {
-    return smem() + FoldMma<FqParams>::B_BYTES + w * FoldMma<FqParams>::WARP_BYTES;
-  }
+  __device__ static __forceinline__ uint8_t* warp_tile(int w) { return smem() + F::B_BYTES + w * F::WARP_BYTES; }
 
   __device__ static __forceinline__ void prologue() {
-    fold_mma_load_b<FqParams>(smem());
+    fold_mma_load_b<P>(smem());
     __syncthreads();
   }
 
-  template <class P>
-  __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
-    static_assert(std::is_same<P, FqParams>::value, "the tensor-core fold's B operand exists for Fq only");
-    return mul_fold_mma<P>(a, b, smem(), warp_tile(threadIdx.x >> 5));
+  template <class Q>
+  __device__ static __forceinline__ Fp<Q> mul(const Fp<Q>& a, const Fp<Q>& b) {
+    static_assert(std::is_same<Q, P>::value, "the block holds the B operand of another field");
+    return mul_fold_mma<Q>(a, b, smem(), warp_tile(threadIdx.x >> 5));
   }
 };
+
+// The Fq mode of the curve kernels, a type of its own so that its kernels
+// keep their names.  Through Called<MulFoldMma> the multiply is one
+// out-of-line copy a kernel, as every G1 multiply of the curve kernels is;
+// a G2 kernel over MulFoldMma calls it out of line through its Fq2
+// multiply (fq_mul_call).  The fold unit's Fr inversion chain takes
+// MulFoldMmaOf<FrParams> itself, its multiply inlined.
+struct MulFoldMma : MulFoldMmaOf<FqParams> {};

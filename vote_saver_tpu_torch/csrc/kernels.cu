@@ -102,7 +102,7 @@ int vs_g1_add(const void* px, const void* py, const void* pz, const void* qx, co
 }
 
 int vs_mont_inv(int field, const void* a, void* out, long long n, void* stream) {
-  return launch_mont_inv<MulLoop>(field, a, out, n, stream);
+  return launch_mont_inv<MulLoop, MulLoop>(field, a, out, n, stream);
 }
 
 int vs_double(int g2, const void* px, const void* py, const void* pz, void* ox, void* oy,

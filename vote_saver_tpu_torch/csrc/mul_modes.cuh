@@ -38,9 +38,10 @@
 // the lane keeps only the fp32 digit columns, which then bound it (2,304
 // FMAs a multiply at the issue rate), and MulFold's steps 1-3 and 5-6
 // around the product; fold_finish below is the tail both forms share.  The
-// fold unit's bucket scans, suffix rounds and doublings in G1 and G2
-// (curve_fold.cu) take the same tensor-core fold as a mode of its own,
-// MulFoldMma (fold_mma.cuh).
+// fold unit's bucket scans, suffix rounds and doublings in G1 and G2, its
+// G1 complete add and its Fr inversion chain (curve_fold.cu) take the same
+// tensor-core fold as a mode of its own, MulFoldMma in Fq and
+// MulFoldMmaOf<FrParams> in Fr (fold_mma.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,7 +59,7 @@
 //   prologue()           what every thread of a block runs once, before its
 //                        first multiply and before any thread exits.
 // false, 0 and nothing for MulLoop, MulV1 and MulFold; the tensor-core fold
-// MulFoldMma (fold_mma.cuh) sets all three.
+// MulFoldMmaOf<P> (fold_mma.cuh) sets all three.
 struct ModeTraits {
   static constexpr bool kConverged = false;
   static constexpr int smem_bytes(int) { return 0; }
@@ -278,6 +279,8 @@ struct Called {
   static constexpr bool kConverged = M::kConverged;
   static constexpr int smem_bytes(int threads) { return M::smem_bytes(threads); }
   __device__ static __forceinline__ void prologue() { M::prologue(); }
+  // M's warp tiles, where M has them (MulFoldMma: jac_add_warps, curve.cuh)
+  __device__ static __forceinline__ uint8_t* warp_tile(int w) { return M::warp_tile(w); }
   template <class P>
   __device__ static __forceinline__ Fp<P> mul(const Fp<P>& a, const Fp<P>& b) {
     return mul_called<M, P>(a, b);

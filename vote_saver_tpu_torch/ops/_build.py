@@ -165,12 +165,13 @@ def compile_seconds(unit: str, defines: tuple[str, ...] = ()) -> tuple[float, st
 def short_name(mangled: str) -> str:
     """k_add<Fq2,MulLoop>-style name of a mangled kernel or device function
     (template arguments: the field, the multiplier mode, Called<mode> for
-    its out-of-line form, integer constants)."""
+    its out-of-line form, integer constants; MulFoldMmaOf<P> is
+    MulFoldMmaOf, its field the kernel's)."""
     m = re.search(r"(k_[a-z_]+|mul_fold|mul_called|fq_mul_call)(I.*)?$", mangled)
     if not m:
         return mangled
-    args = re.findall(r"FqParams|FrParams|AddTeamG2|Fq2|CalledI\d*Mul(?:Loop|V1|FoldMma|Fold)|MulLoop|MulV1|MulFoldMma|"
-                      r"MulFold|Li\d+E", m.group(2) or "")
+    args = re.findall(r"FqParams|FrParams|AddTeamG2|Fq2|CalledI\d*Mul(?:Loop|V1|FoldMma|Fold)|MulLoop|MulV1|"
+                      r"MulFoldMmaOf|MulFoldMma|MulFold|Li\d+E", m.group(2) or "")
     args = [a[2:-1] if a.startswith("Li") else f"Called<{a[a.index('Mul'):]}>" if a.startswith("Called") else a
             for a in args]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")

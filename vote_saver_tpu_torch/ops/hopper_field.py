@@ -30,10 +30,10 @@ CUDA tensor a wrapper launches that mode's instance (loop: ``kernels.cu``,
 ``curve_fold.cu``, K1 ``mont_mul_modes.cu``), counted under its name, the
 loop name with ``_v1`` / ``_fold`` (``instance``), and raises where that
 instance is missing or fails; it never runs another mode's instance.  In
-fold the bucket scans, the suffix rounds and the doublings of G1 and G2
-(``MMA_KERNELS``) run the fold product on the int8 tensor cores, a warp's
-lanes one tile.  On a CPU tensor a wrapper runs the plain version, one
-function in every mode.
+fold the bucket scans, the suffix rounds and the doublings of G1 and G2,
+the G1 complete add and the Fr inversion chain (``MMA_KERNELS``) run the
+fold product on the int8 tensor cores, a warp's lanes one tile.  On a CPU
+tensor a wrapper runs the plain version, one function in every mode.
 
 Coordinates are int32 tensors ``(..., L)`` (G1, Fq/Fr) or ``(..., 2, L)``
 (G2) of 32-bit Montgomery limbs.  On a CUDA tensor a wrapper launches its
@@ -624,25 +624,26 @@ def _lib():
 def _launcher(fn: str, mode: str, device):
     """The extern "C" launcher `fn` (its loop name) of `mode`'s unit, with
     the fold unit's matrices in place on `device` before its first launch
-    there: the dp4a fold's in its __constant__ memory, the tensor-core
-    fold's B operand (``MMA_KERNELS``) in its device memory.  A missing
-    launcher raises AttributeError."""
+    there: the dp4a fold's of Fq in its __constant__ memory (its dp4a
+    instances are all Fq's), the tensor-core fold's B operands of Fq and Fr
+    (``MMA_KERNELS``) in its device memory.  A missing launcher raises
+    AttributeError."""
     lib = _lib()
     if mode == "loop":
         return getattr(lib, fn)
     if mode == "fold":
+        upload_fold_matrix(lib.vs_curve_fold_upload, 0, device)
         for field in (0, 1):
-            upload_fold_matrix(lib.vs_curve_fold_upload, field, device)
-        upload_fold_matrix(lib.vs_curve_fold_mma_upload, 0, device, pack=fold_mul.mma_operand)
+            upload_fold_matrix(lib.vs_curve_fold_mma_upload, field, device, pack=fold_mul.mma_operand)
     return getattr(lib, f"{fn}_{mode}")
 
 
-# the instances whose Fq multiply runs its fold product on the int8 tensor
-# cores (csrc/curve_fold.cu: Called<MulFoldMma> in G1, MulFoldMma in G2, a
-# warp's lanes as one tile of mma.sync), in the order of
-# vs_curve_fold_mma_info's kernel index
+# the instances whose multiply runs its fold product on the int8 tensor
+# cores (csrc/curve_fold.cu: Called<MulFoldMma> in G1, MulFoldMma in G2,
+# MulFoldMmaOf<FrParams> in the Fr inversion chain, a warp's lanes as one
+# tile of mma.sync), in the order of vs_curve_fold_mma_info's kernel index
 MMA_KERNELS = ("g1_madd_scan_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold",
-               "g2_madd_scan_fold", "g2_add_shift_fold")
+               "g2_madd_scan_fold", "g2_add_shift_fold", "g1_add_fold", "mont_inv_fr_fold")
 
 
 def kernel_info(entry, index: int, name: str, device="cuda") -> dict:
