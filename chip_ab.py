@@ -27,8 +27,11 @@ code:
     480 lanes), the G2 doubling at ``FOLD_G2_DOUBLE`` (Horner's 16 x 10,
     the ballot tail's 32 x 4), the G1 complete add at ``FOLD_ADD`` (the
     vote path's 16, 32 and 480 lanes and 2^14, on generic lanes: no
-    infinity, no doubling), the Fr inversion chain at ``FOLD_INV`` (the
-    device witness's 16 lanes, on random elements):
+    infinity, no doubling), the G2 complete add, the team add, at
+    ``FOLD_G2_ADD`` (the vote path's 16 and 32 lanes, its widest orphan
+    merge, 5,925, and 2^14, on generic lanes), the Fr inversion chain at
+    ``FOLD_INV`` (the device witness's 16 lanes) and the Fq chain at
+    ``FOLD_INV_FQ`` (the ballot tail's 464), on random elements:
     device ms a launch from torch.profiler, ms a call from CUDA events, the
     share of the function's bound (``chip_smoke.bound``: its multiply-adds
     at the Programming Guide's rate, the loop instance's bound) and of the
@@ -69,6 +72,8 @@ FOLD_DOUBLE = ((16, 10), (32, 4), (480, 4))
 FOLD_G2_DOUBLE = ((16, 10), (32, 4))
 # the fold G1 complete add's lanes (the vote path's launches are 16-480 wide) and the Fr chain's
 FOLD_ADD, FOLD_INV = (16, 32, 480, 1 << 14), (16,)
+# the fold G2 complete add's lanes (the vote path's: 16, 32 and orphan merges up to 5,925) and the Fq chain's
+FOLD_G2_ADD, FOLD_INV_FQ = (16, 32, 5925, 1 << 14), (464,)
 # the fold suffix round's shifts on the 432 x 512 grid: the first and the last round's
 FOLD_SHIFTS = (1, 256)
 WARP = 32  # a warp's lanes: the suffix round's kernel runs 32 consecutive lanes of its grid together
@@ -114,8 +119,8 @@ def _ms(v) -> str:
 
 
 def fold_kernels(cs, own, dev, reps: int = 5) -> dict:
-    """The bucket scan, the suffix round and the doubling of G1 and G2, the
-    G1 complete add and the Fr inversion chain with mode="fold" at the vote
+    """The bucket scan, the suffix round, the doubling and the complete add
+    of G1 and G2 and the Fr and Fq inversion chains with mode="fold" at the vote
     path's shapes (module docstring), each against
     the loop instance's output: {shape: device ms a launch
     (chip_smoke.device_ms), ms a call (CUDA events), the function's bound
@@ -164,10 +169,18 @@ def fold_kernels(cs, own, dev, reps: int = 5) -> dict:
         P, Q = (tuple(c[:lanes].contiguous() for c in v) for v in (pts, qts))
         cases.append(("g1_add", str(lanes), "k_add<", lambda m, P=P, Q=Q: hf.g1_add(P, Q, mode=m), (*P, *Q),
                       cs._curve_mads("add", False, lanes), "fq"))
-    for lanes in FOLD_INV:
-        a = lb.ints_to_tensor([rnd.randrange(lb.FR.modulus) for _ in range(lanes)], lb.FR, dev)
-        cases.append(("mont_inv_fr", str(lanes), "k_mont_inv<", lambda m, a=a: (hf.mont_inv("fr", a, m),), (a,),
-                      lanes * cs.INV_MULS["fr"] * cs.MADS["fr"], "fr"))
+    p2, q2, *_ = special_lanes(True, 64 + 8, rnd)
+    for lanes in FOLD_G2_ADD:
+        P, Q = (cs._to_dev(zip(*[v[8 + i % 64] for i in range(lanes)]), dev) for v in (p2, q2))
+        cases.append(("g2_add", str(lanes), "k_add_team", lambda m, P=P, Q=Q: hf.g2_add(P, Q, mode=m), (*P, *Q),
+                      cs._curve_mads("add", True, lanes), "fq"))
+    for name, widths in (("fr", FOLD_INV), ("fq", FOLD_INV_FQ)):
+        spec = lb.spec_for(name)
+        for lanes in widths:
+            a = lb.ints_to_tensor([rnd.randrange(spec.modulus) for _ in range(lanes)], spec, dev)
+            cases.append((f"mont_inv_{name}", str(lanes), "k_mont_inv<",
+                          lambda m, a=a, name=name: (hf.mont_inv(name, a, m),), (a,),
+                          lanes * cs.INV_MULS[name] * cs.MADS[name], name))
     out = {}
     for kname, shape, family, run, ins, mads, field in cases:
         got, want = run("fold"), run("loop")

@@ -30,18 +30,19 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      rates, K1 in each multiplier mode, K7, K8 and K10, each with parity
      against the host oracle, and each timed launch held against its plain
      version on every lane; each chain probe's registers, local bytes,
-     dynamic shared memory and resident warps a SM as the CUDA runtime
-     reports them.  K7 and K10 fold run their fold product on the int8
-     tensor cores, and so do the fold instances of the bucket scan, the
-     suffix round and the doubling in G1 and G2, of the G1 complete add
-     and of the Fr inversion chain (``hopper_field.MMA_KERNELS``:
-     ``g1_madd_scan_fold``, ``g1_double_fold``, ``g1_add_shift_fold``,
-     ``g2_double_fold``, ``g2_madd_scan_fold``, ``g2_add_shift_fold``,
-     ``g1_add_fold``, ``mont_inv_fr_fold``; their registers, local bytes,
-     shared memory and warps a SM logged from the CUDA runtime in
-     ``[kernels]`` and ``[modes]``): right after the build, ``cuobjdump
-     -sass`` of the probe library and of the curve library must show IMMA
-     and no IDP (dp4a) in all ten (``[sass]``);
+     shared memory and resident warps a SM as the CUDA runtime reports
+     them.  K7 and K10 fold run their fold product on the int8 tensor
+     cores, and so do the fold instances of the bucket scan, the suffix
+     round, the doubling and the complete add in G1 and G2 (G2's the team
+     add) and of the Fq and Fr inversion chains
+     (``hopper_field.MMA_KERNELS``: ``g1_madd_scan_fold``,
+     ``g1_double_fold``, ``g1_add_shift_fold``, ``g2_double_fold``,
+     ``g2_madd_scan_fold``, ``g2_add_shift_fold``, ``g1_add_fold``,
+     ``mont_inv_fr_fold``, ``mont_inv_fq_fold``, ``g2_add_fold``; their
+     registers, local bytes, shared memory and warps a SM logged from the
+     CUDA runtime in ``[kernels]`` and ``[modes]``): right after the build,
+     ``cuobjdump -sass`` of the probe library and of the curve library
+     must show IMMA and no IDP (dp4a) in all twelve (``[sass]``);
   5. admin key generation for the depth-6 election on the card (Groth16
      setup through FixedBaseTable and K3d): its five blobs byte-identical to
      the host-native arm's, both arms timed;
@@ -593,7 +594,7 @@ def log_mma_info(kname: str) -> dict:
 
     info = hf.mma_info(kname)
     log(f"[modes] {kname}: {info['registers']} registers, {info['local_bytes']} B local memory a thread, "
-        f"{info['smem_bytes']} B dynamic shared memory a block, {info['blocks_per_sm']} blocks = "
+        f"{info['smem_bytes']} B shared memory a block, {info['blocks_per_sm']} blocks = "
         f"{info['warps_per_sm']} warps a SM (CUDA runtime)")
     return info
 

@@ -563,9 +563,10 @@ def test_mont_inv_modes_match_plain(dev, name, N, mode):
 
 def test_fold_launch_uploads_its_units_matrix_first(dev):
     """The fold unit's __constant__ matrix of Fq, which its dp4a instances
-    read (the distinct add, the Fq inversion chain), is written before its
-    first launch on a card: with zeros put there and the record of the
-    upload dropped, the next fold launch uploads it again and is right."""
+    read (the distinct add among them), is written before its first launch
+    on a card: with zeros put there and the record of the upload dropped,
+    the next fold launch uploads it again and is right; a launch of the Fq
+    inversion chain (on the tensor cores) after it is right too."""
     lib = hf._lib()
     p, q, *_ = special_lanes(False, 256, random.Random(25))
     P, Qd = _put(p, 3, dev), _put(q, 3, dev)
@@ -691,14 +692,15 @@ def test_fold_mma_scan_matches_plain_at_the_path_shape(dev, g2, lanes):
 def test_fold_mma_launch_uploads_its_b_operand_first(dev, monkeypatch):
     """The tensor-core fold's B operands are in the curve unit's device
     memory before its first launch on a card: with zeros put in Fq's and
-    the record of the upload dropped, the next launch of any of the seven
+    the record of the upload dropped, the next launch of any of the nine
     Fq instances uploads it again and gives the plain limbs; likewise Fr's
     for the Fr inversion chain, which a launch finds uploaded once per
-    card, before it; the runtime reports each instance with its dynamic
-    shared memory a block: 55,936 B (Fq's B operand and four warp tiles),
+    card, before it; the runtime reports each instance with its shared
+    memory a block: 55,936 B (Fq's B operand and four warp tiles, dynamic),
     92,800 B in the G2 scan, whose block also parks its 128 accumulators
-    there, 34,944 B in the Fr chain (Fr's B operand and four warp
-    tiles)."""
+    there, 34,944 B in the Fr chain (Fr's B operand and four warp tiles),
+    and in the G2 team add 55,936 B and 18,192 B of static memory (eight
+    teams' 39 slots and the table)."""
     lib = hf._lib()
     p, q, *_ = special_lanes(False, 256, random.Random(33))
     P, Qd = _put(p, 3, dev), _put(q, 3, dev)
@@ -714,15 +716,17 @@ def test_fold_mma_launch_uploads_its_b_operand_first(dev, monkeypatch):
     grid2 = tuple(c.reshape(2, 64, 2, -1) for c in _put(shift_grid(True, 2, 64, random.Random(42)), 3, dev))
     rnd = random.Random(43)
     a = lb.ints_to_tensor([0, 1, R - 1] + [rnd.randrange(R) for _ in range(45)], lb.FR, dev)
+    aq = lb.ints_to_tensor([0, 1, Q - 1] + [rnd.randrange(Q) for _ in range(45)], lb.FQ, dev)
+    tp, tq = (_put(pts, 3, dev) for pts in team_add_lanes(True, 48, random.Random(48)))
     want = (hf.double_plain(False, P, 2), hf.madd_scan_plain(False, pxy, c)[0], hf.add_shift_plain(False, grid, 1),
             hf.double_plain(True, P2, 2), hf.madd_scan_plain(True, pxy2, c2)[0], hf.add_shift_plain(True, grid2, 1),
-            hf.add_plain(False, P, Qd))
+            hf.add_plain(False, P, Qd), (hf.mont_inv_plain("fq", aq),), hf.add_plain(True, tp, tq))
 
     def right():
         got = (hf.g1_double(P, 2, mode="fold"), hf.g1_madd_scan(pxy, c, mode="fold")[0],
                hf.g1_add_shift(grid, 1, mode="fold"), hf.g2_double(P2, 2, mode="fold"),
                hf.g2_madd_scan(pxy2, c2, mode="fold")[0], hf.g2_add_shift(grid2, 1, mode="fold"),
-               hf.g1_add(P, Qd, mode="fold"))
+               hf.g1_add(P, Qd, mode="fold"), (hf.mont_inv("fq", aq, "fold"),), hf.g2_add(tp, tq, mode="fold"))
         return tuple(all(torch.equal(x, y) for x, y in zip(g, w)) for g, w in zip(got, want))
 
     def inv_right():
@@ -731,16 +735,16 @@ def test_fold_mma_launch_uploads_its_b_operand_first(dev, monkeypatch):
     upload = lib.vs_curve_fold_mma_upload
     key = (upload.__name__, 0, P[0].device.index)
     fr_key = (upload.__name__, 1, P[0].device.index)
-    assert right() == (True,) * 7 and key in hf._fold_uploaded
+    assert right() == (True,) * 9 and key in hf._fold_uploaded
     for field, spec, k in ((0, lb.FQ, key), (1, lb.FR, fr_key)):
         zeros = np.zeros(fold_mul.mma_operand(spec).size, np.int8)
         with torch.cuda.device(dev):
             assert upload(field, zeros.ctypes.data, zeros.size) == 0
         if field == 0:
-            assert right() == (False,) * 7  # the B operand is what the tensor-core fold reads
+            assert right() == (False,) * 9  # the B operand is what the tensor-core fold reads
             assert inv_right()  # the Fr chain reads Fr's
         else:
-            assert not inv_right() and right() == (True,) * 7
+            assert not inv_right() and right() == (True,) * 9
         hf._fold_uploaded.discard(k)
     # Fq's operand is in place again (the Fr pass's launches re-uploaded it); the Fr chain's next launch
     # uploads Fr's, once, before it
@@ -763,8 +767,8 @@ def test_fold_mma_launch_uploads_its_b_operand_first(dev, monkeypatch):
     monkeypatch.setattr(hf, "_lib", lambda: lib_rec)
     assert inv_right() and inv_right()
     assert calls == [("upload", 1), ("launch",), ("launch",)], calls
-    assert right() == (True,) * 7 and {key, fr_key} <= hf._fold_uploaded
-    smem = {"g2_madd_scan_fold": 92800, "mont_inv_fr_fold": 34944}
+    assert right() == (True,) * 9 and {key, fr_key} <= hf._fold_uploaded
+    smem = {"g2_madd_scan_fold": 92800, "mont_inv_fr_fold": 34944, "g2_add_fold": 55936 + 18192}
     for name in hf.MMA_KERNELS:
         info = hf.mma_info(name, dev)
         assert info["smem_bytes"] == smem.get(name, 55936) and info["warps_per_sm"] >= 4, info
@@ -807,6 +811,45 @@ def test_fold_mont_inv_fr_matches_plain(dev, lanes):
     for want in (hf.mont_inv_plain("fr", a), hf.mont_inv("fr", a, "loop")):
         assert torch.equal(got, want)
     assert list(lb.tensor_to_ints(got[:64], lb.FR)) == [pow(x, R - 2, R) for x in xs[:64]]
+
+
+# the widths the fold G2 complete add (the converged team add) is held to
+# its plain version at: one lane, Horner's 16, one past, the ballot tail's
+# 32, one past, a ragged 71, the batch's widest orphan merge, 2^14
+G2_ADD_LANES = (1, 16, 17, 32, 33, 71, 5925, 1 << 14)
+
+
+@pytest.mark.parametrize("lanes", G2_ADD_LANES)
+def test_fold_g2_add_matches_plain(dev, lanes):
+    """The fold G2 complete add, a team of 16 threads a lane and two teams
+    a warp whose every multiply phase is one tile on the tensor cores, one
+    launch, equal to its plain version and to the loop instance, on
+    testing.team_add_lanes (warps pairing the outcomes q and p, q and the
+    doubling, the doubling and opposite points, the infinities with random
+    x and y) with lane 13 of every 64 a doubling beside a generic add in its
+    warp, and the last lane a doubling (alone in its warp where n is odd)."""
+    p, q = team_add_lanes(True, lanes, random.Random(46 + lanes))
+    for k in [k for k in range(lanes) if k % 64 == 13] + [lanes - 1]:
+        q[k] = p[k]
+    P, Qd = _put(p, 3, dev), _put(q, 3, dev)
+    got = _once("g2_add", "fold", lambda: hf.g2_add(P, Qd, mode="fold"))
+    for want in (hf.add_plain(True, P, Qd), hf.g2_add(P, Qd, mode="loop")):
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("lanes", (1, 16, 17, 33, 464))
+def test_fold_mont_inv_fq_matches_plain(dev, lanes):
+    """The fold Fq inversion chain, its Fq fold on the tensor cores, one
+    launch at ragged widths and the ballot tail's 464 lanes, on 0, 1,
+    q - 1, R mod q and random lanes: equal to its plain version, the loop
+    instance and Python's pow."""
+    rnd = random.Random(47 + lanes)
+    xs = ([0, 1, Q - 1, lb.FQ.mont_r % Q] + [rnd.randrange(Q) for _ in range(max(lanes, 4) - 4)])[:lanes]
+    a = lb.ints_to_tensor(xs, lb.FQ, dev)
+    got = _once("mont_inv_fq", "fold", lambda: hf.mont_inv("fq", a, "fold"))
+    for want in (hf.mont_inv_plain("fq", a), hf.mont_inv("fq", a, "loop")):
+        assert torch.equal(got, want)
+    assert list(lb.tensor_to_ints(got, lb.FQ)) == [pow(x, Q - 2, Q) for x in xs]
 
 
 def _suffix_grid(rows: int, bw: int, seed: int, dev, g2: bool = False):

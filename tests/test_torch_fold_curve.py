@@ -1,7 +1,7 @@
-"""The fold mode's G1 and G2 bucket scans, suffix rounds and doublings and
-its G1 complete add with their fold product on the int8 tensor cores
+"""The fold mode's G1 and G2 bucket scans, suffix rounds, doublings and
+complete adds with their fold product on the int8 tensor cores
 (``csrc/curve_fold.cu``: ``Called<MulFoldMma>`` in G1, ``MulFoldMma`` in
-G2), on the CPU, against the JAX package.
+G2 and in the G2 team add), on the CPU, against the JAX package.
 
 On the card each Fq multiply of these instances runs the tensor-core
 fold of ``csrc/fold_mma.cuh``: a warp's 32 lanes of byte pieces as one A
@@ -27,7 +27,11 @@ on every lane, then the selects) and the narrow form it runs
 (``_add_g1_warps``: a block's four warps sharing one 32-lane add's 16
 products in 5 rounds, the doubling's 7 in 3 only on a block with a
 doubling lane) on ``testing.special_lanes`` and one more doubling lane
-alone in its block, the JAX formula run op by op once at 71 lanes.  They
+alone in its block, the JAX formula run op by op once at 71 lanes; the
+G2 complete add as its converged team kernel runs it
+(``_add_g2_team_warps``: the team table, two teams a warp, each multiply
+phase a tile, a team writing only in the sections it takes) on
+``testing.special_lanes`` with mixed-outcome warps.  They
 must equal the existing plain versions and, limb for limb, the JAX package's
 ``_jac_madd`` / ``_jac_add(complete=True)`` / ``_jac_double`` through the
 fold emitter (``FqEmitFold``, the body of ``_g1_madd_call`` /
@@ -55,7 +59,7 @@ import torch
 
 from test_torch_curve import _from_jax, _jax_cols, _port, env16  # noqa: F401
 from test_torch_curve_modes import _emitter
-from vote_saver_tpu_torch.ops import _build, fold_mul
+from vote_saver_tpu_torch.ops import _build, add_team, fold_mul
 from vote_saver_tpu_torch.ops import hopper_field as hf
 from vote_saver_tpu_torch.ops import limbs as lb
 from vote_saver_tpu_torch.ops import msm_sched as ms
@@ -470,6 +474,109 @@ def test_add_on_the_tile_matches_the_fold_pallas_add(env16, lanes):
     assert _equal(got, tuple(c[:lanes] for c in _ADD_JAX["out"]))
 
 
+def _add_g2_team_warps(p, q):
+    """One G2 complete add over n lanes of (n, 2, L) coordinates as the
+    converged k_add_team<AddTeamG2, MulFoldMma> runs it (csrc/add_team.cuh),
+    over the current hopper_field.HALF["fq"]: add_team.schedule(True) phase
+    by phase, a lane a team of 16 threads and two teams a warp, the lanes
+    padded to whole warps with lane n - 1; a warp runs a section (pre, gen,
+    dbl, in that order) where either of its teams takes it; each multiply
+    phase is one tile multiply over the warp's 32 threads, thread r of a
+    team taking op r and an idle thread (no op, or its team not in the
+    section) the zero slot times itself, a dummy row; a team writes slots
+    only in the section its own outcome takes.  -> (coords, {section: warps
+    that ran it})."""
+    s, f, team = add_team.schedule(True), hf.HALF["fq"], add_team.TEAM
+    n, C = p[0].shape[0], s.comps
+    nw = -(-n // 2)
+    idx = torch.arange(2 * nw).clamp(max=n - 1)
+    ins = [hf._half(c[idx, k]) for c in (*p, *q) for k in range(C)]
+    zero = torch.zeros_like(ins[0])
+    slots = ins + [zero] * (s.slots - len(ins))  # zeros stand for the slots not yet written
+    slots[s.one] = f.one_like(zero)
+
+    def is_zero(ks):
+        return (torch.stack([slots[k] for k in ks], dim=-2) == 0).flatten(-2).all(dim=-1)
+
+    code = {o: k for k, o in enumerate(add_team.OUTCOMES)}  # the kernel's enum
+    outcome = torch.full((2 * nw,), -1)
+    outcome[is_zero(range(5 * C, 6 * C))] = code["p"]
+    outcome[is_zero(range(2 * C, 3 * C))] = code["q"]
+    ran = {}
+    for sec in ("pre", "gen", "dbl"):
+        mine = outcome < 0 if sec == "pre" else outcome == code[sec]
+        warps = mine.reshape(nw, 2).any(dim=1)
+        ran[sec] = int(warps.sum())
+        live = torch.nonzero(warps.repeat_interleave(2)).flatten()
+        w = mine[live][:, None]
+        for is_mul, ops in s.phases[slice(*getattr(s, sec))] if ran[sec] else ():
+            if is_mul:  # rows: team-major, thread r of a team row 16 t + r, so a tile of 32 rows is a warp
+                rows = [[torch.where(w, slots[op[i]][live], zero[live]) if r < len(ops) else zero[live]
+                         for r, op in enumerate(ops + [None] * (team - len(ops)))] for i in (2, 3)]
+                res = f.mul(*(torch.stack(r, dim=1).flatten(0, 1) for r in rows)).reshape(len(live), team, -1)
+                vals = [res[:, r] for r in range(len(ops))]
+            else:
+                vals = [(f.add if kind == add_team.ADD else f.sub)(slots[a][live], slots[b][live])
+                        for kind, _d, a, b in ops]
+            for (_k, dst, _a, _b), v in zip(ops, vals):
+                slots[dst] = slots[dst].index_put((live,), torch.where(w, v, slots[dst][live]))
+        if sec == "pre":
+            und = outcome < 0
+            h0, r0 = is_zero(s.h), is_zero(s.rr)
+            decided = torch.where(h0 & r0, code["dbl"], torch.where(h0, code["inf"], code["gen"]))
+            outcome = torch.where(und, decided, outcome)
+    out = []
+    for c in range(3):
+        comps = []
+        for k in range(C):
+            v = zero
+            for o, slot_ids in s.out.items():
+                v = torch.where((outcome == code[o])[:, None], slots[slot_ids[c * C + k]], v)
+            comps.append(v)
+        out.append(hf._pack(torch.stack(comps, dim=-2)[:n]))
+    return tuple(out), ran
+
+
+# the JAX fold formula's complete G2 add on _ADD_LANES' inputs, computed once
+_ADD_G2_JAX: dict = {}
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_g2_team_add_on_the_tile_matches_the_fold_pallas_add(env16, lanes):
+    """The complete G2 add as its converged team kernel runs it
+    (_add_g2_team_warps: the team table over TileFq, one tile multiply a
+    warp and multiply phase) on testing.special_lanes, whose warps pair
+    the outcomes q and p (warp 0: no section runs), q and the doubling (the
+    q team multiplies through pre and dbl and writes nothing), the doubling
+    and opposite points, plus warp 3 pairing a generic add with a doubling
+    and lane 70 a doubling alone in the last, ragged warp: the plain add's
+    limbs, add_team_plain's (the table on the plain Fq multiply) and the
+    JAX package's ``_jac_add(complete=True)`` through ``Fq2Emit`` over the
+    fold emitter, once at 71 lanes (the 16-lane case takes its first 16
+    lanes), its multiply the one the madd and doubling tests compiled at 71
+    lanes."""
+    p, q, *_ = special_lanes(True, _ADD_LANES, random.Random(160))
+    for k in (7, _ADD_LANES - 1):
+        q[k] = p[k]
+    P, Q = (tuple(c[:lanes] for c in _port(pts, 3)) for pts in (p, q))
+    want = hf.add_plain(True, P, Q)
+    assert _equal(add_team.add_team_plain(True, P, Q), want)
+    with _tile_fq():
+        assert isinstance(hf.HALF["fq"], TileFq)
+        got, ran = _add_g2_team_warps(P, Q)
+    assert _equal(got, want)
+    warps = -(-lanes // 2)
+    # warp 0 (q, p) runs nothing; warps 1-3 and, at 71 lanes, the last one take the doubling; warps 0-2 and
+    # that last one no generic add
+    last = lanes > 16
+    assert ran == dict(pre=warps - 1, gen=warps - 3 - last, dbl=3 + last)
+    if not _ADD_G2_JAX:
+        jout = env16["pf"]._jac_add(_emitter(env16, "fold", True), _jax_cols(p, 3, True, env16),
+                                    _jax_cols(q, 3, True, env16), complete=True)
+        _ADD_G2_JAX["out"] = tuple(_from_jax(c, True) for c in jout)
+    assert _equal(got, tuple(c[:lanes] for c in _ADD_G2_JAX["out"]))
+
+
 # the fold unit's tensor-core instances as the profiler (demangled) and
 # ptxas / cuobjdump (mangled) name them, called and inlined, and a fold
 # instance on the dp4a fold beside them (the G1 distinct add)
@@ -486,6 +593,9 @@ _NAMES = {
     "(anonymous namespace)::k_add<Fp<FqParams>, Called<MulFoldMma> >(unsigned int const*, ...)": "g1_add_fold",
     "(anonymous namespace)::k_mont_inv<FrParams, MulFoldMmaOf<FrParams> >(unsigned int const*, unsigned int*, long long)":
         "mont_inv_fr_fold",
+    "(anonymous namespace)::k_mont_inv<FqParams, MulFoldMma>(unsigned int const*, unsigned int*, long long)":
+        "mont_inv_fq_fold",
+    "(anonymous namespace)::k_add_team<AddTeamG2, MulFoldMma>(uint4 const*, ...)": "g2_add_fold",
     "(anonymous namespace)::k_add_distinct<Fp<FqParams>, Called<MulFold> >(unsigned int const*, ...)":
         "g1_add_distinct_fold",
 }
@@ -500,6 +610,10 @@ _G2_SCAN = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_madd_scanI3Fq210M
 _G1_ADD = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN5k_addI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_S9_S9_"
            "S9_S9_PjSA_SA_x")
 _INV_FR = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN10k_mont_invI8FrParams12MulFoldMmaOfIS2_EEEvPKjPjx"
+# (the card's toolkit's names of the Fq chain and the G2 team add, as cuobjdump printed them)
+_INV_FQ = "_ZN42_GLOBAL__N__b1ccb0e9_13_curve_fold_cu_kFqN10k_mont_invI8FqParams10MulFoldMmaEEvPKjPjx"
+_G2_TEAM = ("_ZN42_GLOBAL__N__b1ccb0e9_13_curve_fold_cu_kFqN10k_add_teamI9AddTeamG210MulFoldMmaEEvPK5uint4S5_S5_S5_S5_"
+            "S5_PS3_S6_S6_x")
 _G1_ADD_DISTINCT = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN14k_add_distinctI2FpI8FqParamsE6CalledI7MulFoldEEEvPKj"
                     "S9_S9_S9_S9_S9_PjSA_SA_x")
 _FQ_MUL_MMA = "_Z11fq_mul_callI10MulFoldMmaE2FpI8FqParamsES3_S3_"
@@ -510,8 +624,9 @@ def test_mma_instances_keep_their_names():
     """The profiler's and ptxas's names of the tensor-core instances map to
     g1_madd_scan_fold / g1_double_fold / g1_add_shift_fold /
     g2_double_fold / g2_madd_scan_fold / g2_add_shift_fold / g1_add_fold /
-    mont_inv_fr_fold (the mode's name holds MulFold; the Fr chain's is
-    MulFoldMmaOf<FrParams>), a fold instance on the dp4a fold (the G1
+    mont_inv_fr_fold / mont_inv_fq_fold / g2_add_fold (the mode's name
+    holds MulFold; the Fr chain's is MulFoldMmaOf<FrParams>, the Fq chain's
+    and the G2 team add's MulFoldMma), a fold instance on the dp4a fold (the G1
     distinct add) keeps its own name, and the called multiplies (G1's
     mul_called, G2's fq_mul_call) are no kernels of the kernels line."""
     _root_on_path()
@@ -527,21 +642,25 @@ def test_mma_instances_keep_their_names():
     assert _build.short_name(_G2_SHIFT) == "k_add_shift<Fq2,MulFoldMma>"
     assert _build.short_name(_G1_ADD) == "k_add<FqParams,Called<MulFoldMma>>"
     assert _build.short_name(_INV_FR) == "k_mont_inv<FrParams,MulFoldMmaOf>"
+    assert _build.short_name(_INV_FQ) == "k_mont_inv<FqParams,MulFoldMma>"
+    assert _build.short_name(_G2_TEAM) == "k_add_team<AddTeamG2,MulFoldMma>"
     assert _build.short_name(_G1_ADD_DISTINCT) == "k_add_distinct<FqParams,Called<MulFold>>"
-    names = (_SCAN, _DBL, _DBL_INLINE, _SHIFT, _G2_DBL, _G2_SCAN, _G2_SHIFT, _G1_ADD, _INV_FR, _G1_ADD_DISTINCT)
+    names = (_SCAN, _DBL, _DBL_INLINE, _SHIFT, _G2_DBL, _G2_SCAN, _G2_SHIFT, _G1_ADD, _INV_FR, _INV_FQ, _G2_TEAM,
+             _G1_ADD_DISTINCT)
     assert [chip_smoke.instance_name(_build.short_name(n)) for n in names] == [
         "g1_madd_scan_fold", "g1_double_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold",
-        "g2_madd_scan_fold", "g2_add_shift_fold", "g1_add_fold", "mont_inv_fr_fold", "g1_add_distinct_fold"]
+        "g2_madd_scan_fold", "g2_add_shift_fold", "g1_add_fold", "mont_inv_fr_fold", "mont_inv_fq_fold",
+        "g2_add_fold", "g1_add_distinct_fold"]
     assert _build.short_name(_MUL_MMA) == "mul_called<MulFoldMma,FqParams>"
     assert _build.short_name(_FQ_MUL_MMA) == "fq_mul_call<MulFoldMma,FqParams>"
     assert chip_smoke.instance_name(_build.short_name(_MUL_MMA)) is None
     assert chip_smoke.instance_name(_build.short_name(_FQ_MUL_MMA)) is None
     # MMA_KERNELS names curve_fold.cu's kMmaKernels table in its order (mma_info indexes the table by it)
-    table = re.findall(r"\(k_(madd_scan|double|add_shift|add|mont_inv)<(Fq2?|FrParams), Mode(?:G[12]|Fr)Mma>\)",
-                       (_build.CSRC / "curve_fold.cu").read_text())
-    assert hf.MMA_KERNELS == tuple("mont_inv_fr_fold" if f == "FrParams" else f"{'g2' if f == 'Fq2' else 'g1'}_{k}_fold"
-                                   for k, f in table)
-    assert len(hf.MMA_KERNELS) == 8 and set(hf.MMA_KERNELS) <= set(hf.KERNELS)
+    table = re.findall(r"\(k_(madd_scan|double|add_shift|add_team|add|mont_inv)<(Fq2?|FrParams|FqParams|AddTeamG2), "
+                       r"Mode(?:G[12]|Fr|Fq)Mma>\)", (_build.CSRC / "curve_fold.cu").read_text())
+    named = {"FrParams": "mont_inv_fr_fold", "FqParams": "mont_inv_fq_fold", "AddTeamG2": "g2_add_fold"}
+    assert hf.MMA_KERNELS == tuple(named.get(f, f"{'g2' if f == 'Fq2' else 'g1'}_{k}_fold") for k, f in table)
+    assert len(hf.MMA_KERNELS) == 10 and set(hf.MMA_KERNELS) <= set(hf.KERNELS)
     assert {"vs_curve_fold_mma_upload", "vs_curve_fold_mma_info"} <= set(_build.UNITS["curve_fold.cu"])
 
 
@@ -606,6 +725,17 @@ _SASS = f"""
         /*0820*/                   IMMA.16832.U8.S8 R12, R48.ROW, R44.COL, R12 ;
         /*0830*/              @!P0 BRA 0x800 ;
         /*0840*/                   EXIT ;
+		Function : {_INV_FQ}
+        /*0a00*/                   FFMA R1, R2, R3, R4 ;
+        /*0a10*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
+        /*0a20*/              @!P0 BRA 0xa00 ;
+        /*0a30*/                   EXIT ;
+		Function : {_G2_TEAM}
+        /*0b00*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0b10*/                   VOTE.ANY R0, PT, P0 ;
+        /*0b20*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
+        /*0b30*/                   IMMA.16832.U8.S8 R12, R48.ROW, R44.COL, R12 ;
+        /*0b40*/                   EXIT ;
 		Function : {_G1_ADD_DISTINCT}
         /*0900*/                   CALL.REL.NOINC 0x920 ;
         /*0910*/                   EXIT ;
@@ -618,8 +748,9 @@ _SASS = f"""
 def test_sass_counts_hold_the_called_multiply():
     """[sass] counts a kernel's instructions with those of the multiply it
     calls out of line, which cuobjdump lists inside the kernel's code: the
-    tensor-core instances (the G2 doubling, scan and suffix round, the G1
-    complete add and the Fr chain among them) show IMMA and no IDP, the G1
+    tensor-core instances (the G2 doubling, scan, suffix round and team
+    add, the G1 complete add and both chains among them) show IMMA and no
+    IDP, the G1
     fold distinct add the dp4a of mul_fold, each under its kernels-line
     name."""
     _root_on_path()
@@ -634,6 +765,8 @@ def test_sass_counts_hold_the_called_multiply():
         "g2_add_shift_fold": {"IMMA": 1, "IDP": 0, "FFMA": 0, "all": 4},
         "g1_add_fold": {"IMMA": 1, "IDP": 0, "FFMA": 1, "all": 6},
         "mont_inv_fr_fold": {"IMMA": 2, "IDP": 0, "FFMA": 1, "all": 5},
+        "mont_inv_fq_fold": {"IMMA": 1, "IDP": 0, "FFMA": 1, "all": 4},
+        "g2_add_fold": {"IMMA": 2, "IDP": 0, "FFMA": 0, "all": 5},
         "g1_add_distinct_fold": {"IMMA": 0, "IDP": 1, "FFMA": 1, "all": 5},
     }
     assert all(counts["IMMA"] and not counts["IDP"] for k, counts in chip_smoke.sass_counts(_SASS).items()

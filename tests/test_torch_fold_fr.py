@@ -1,6 +1,7 @@
-"""The fold mode's Fr inversion chain with its fold product on the int8
-tensor cores (``csrc/curve_fold.cu``: ``k_mont_inv<FrParams,
-MulFoldMmaOf<FrParams>>``), on the CPU, against the JAX package.
+"""The fold mode's Fr and Fq inversion chains with their fold product on
+the int8 tensor cores (``csrc/curve_fold.cu``: ``k_mont_inv<FrParams,
+MulFoldMmaOf<FrParams>>``, ``k_mont_inv<FqParams, MulFoldMma>``), on the
+CPU, against the JAX package.
 
 On the card each Fr multiply of the chain runs the tensor-core fold of
 ``csrc/fold_mma.cuh`` in Fr: a warp's 32 lanes of byte pieces (K = 192) as
@@ -16,7 +17,10 @@ the Fermat chain as ``k_mont_inv`` runs it (``hopper_field.mont_inv_plain``
 over ``TileFr``: the top bit of r - 2 seeds the result, a square per
 further bit, a multiply per set bit) at 16 lanes (the device witness's)
 and at a ragged 37 equals ``mont_inv_plain`` and ``pow(x, r - 2, r)``, 0
-mapping to 0; Fr's B operand is 40 x 192 bytes.  The JAX multiply runs
+mapping to 0, and so does the Fq chain over ``TileFq``
+(``tests/test_torch_fold_curve.py``: Fq's B operand, 126 ``mma.sync`` a
+multiply) on 0, 1, q - 1, R mod q and random lanes; Fr's B operand is 40
+x 192 bytes.  The JAX multiply runs
 eagerly, op by op (about a second), not compiled (tens of seconds).  Exact
 equality throughout.
 
@@ -30,6 +34,7 @@ import pytest
 import torch
 
 from test_torch_curve import env16  # noqa: F401
+from test_torch_fold_curve import TileFq
 from vote_saver_tpu_torch import convert
 from vote_saver_tpu_torch.ops import fold_mul
 from vote_saver_tpu_torch.ops import hopper_field as hf
@@ -58,10 +63,12 @@ class TileFr(hf.HalfField):
         return hf._half(out).reshape(a.shape)
 
 
-def _lanes(n: int, seed: int) -> list[int]:
-    """0, 1, r - 1, R mod r, then random elements of Fr."""
+def _lanes(n: int, seed: int, spec=lb.FR) -> list[int]:
+    """0, 1, N - 1, R mod N, then random elements of the field (Fr unless
+    `spec` names another)."""
     rnd = random.Random(seed)
-    return [0, 1, R - 1, lb.FR.mont_r % R] + [rnd.randrange(R) for _ in range(n - 4)]
+    N = spec.modulus
+    return [0, 1, N - 1, spec.mont_r % N] + [rnd.randrange(N) for _ in range(n - 4)]
 
 
 def test_fr_operand_is_40_by_192():
@@ -93,16 +100,24 @@ def test_fr_tile_multiply_matches_the_fold_pallas_k1(env16):  # noqa: F811
     assert torch.equal(got, convert.from_jax_limbs(np.asarray(jout).T))
 
 
-@pytest.mark.parametrize("lanes", [16, 37])
-def test_fermat_chain_on_the_tile_matches_plain_and_pow(lanes, monkeypatch):
-    """k_mont_inv<FrParams, MulFoldMmaOf<FrParams>>'s chain: 254 squares and
-    163 multiplies, each a tile multiply over the lanes, at the device
-    witness's 16 lanes (half a tile) and at 37 (a ragged second tile)."""
-    xs = _lanes(lanes, 210 + lanes)
-    a = lb.ints_to_tensor(xs, lb.FR)
-    want = hf.mont_inv_plain("fr", a)
-    monkeypatch.setitem(hf.HALF, "fr", TileFr(lb.FR))
-    got = hf.mont_inv_plain("fr", a)
+# (field, lanes): Fr's cases keep their ids; Fq's at the same widths
+CHAIN_CASES = [pytest.param("fr", n, id=str(n)) for n in (16, 37)] + [
+    pytest.param("fq", n, id=f"fq-{n}") for n in (16, 37)]
+
+
+@pytest.mark.parametrize("name,lanes", CHAIN_CASES)
+def test_fermat_chain_on_the_tile_matches_plain_and_pow(name, lanes, monkeypatch):
+    """k_mont_inv<FrParams, MulFoldMmaOf<FrParams>>'s chain (254 squares and
+    163 multiplies) and k_mont_inv<FqParams, MulFoldMma>'s (380 and 228),
+    each multiply a tile multiply over the lanes, at 16 lanes (half a tile;
+    the device witness's width in Fr) and at 37 (a ragged second tile)."""
+    spec = lb.spec_for(name)
+    N = spec.modulus
+    xs = _lanes(lanes, 210 + lanes + 100 * (name == "fq"), spec)
+    a = lb.ints_to_tensor(xs, spec)
+    want = hf.mont_inv_plain(name, a)
+    monkeypatch.setitem(hf.HALF, name, TileFr(lb.FR) if name == "fr" else TileFq(lb.FQ))
+    got = hf.mont_inv_plain(name, a)
     assert torch.equal(got, want)
-    assert list(lb.tensor_to_ints(got, lb.FR)) == [pow(x, R - 2, R) for x in xs]
+    assert list(lb.tensor_to_ints(got, spec)) == [pow(x, N - 2, N) for x in xs]
     assert not got[0].any()

@@ -11,22 +11,23 @@
 // forms of that product:
 //
 //   * the bucket scan (k_madd_scan), the suffix round (k_add_shift) and
-//     the doubling (k_double) of both groups, the G1 complete add (k_add)
-//     and the Fr inversion chain (k_mont_inv): Called<MulFoldMma>
-//     (fold_mma.cuh) in G1, MulFoldMma in G2, whose Fq2 multiply calls it
-//     out of line (fq_mul_call), MulFoldMmaOf<FrParams> in the Fr chain;
-//     the product a warp's 32 lanes at once as 126 (Fr: 60) mma.sync on
-//     the int8 tensor cores, the B operands in this unit's device memory
-//     (kFoldMmaFq, kFoldMmaFr), copied into each block's shared memory by
-//     the kernel's prologue.  What bounds a multiply there: the 2,304 (Fr:
-//     1,024) fp32 FMAs of the digit columns, one issue slot each.  The
-//     eight kernels run in their converged form (curve_kernels.cuh).
-//   * every other kernel (the G2 team add, the single-row madd, the
-//     distinct and flagged adds, the Fq inversion chain): MulFold
-//     (mul_modes.cuh), the product as 72 x 52
-//     dp4a a lane against the matrix in this unit's __constant__ memory;
-//     bound by the 2,304 FMAs and those 3,744 dp4a with their constant
-//     reads, one lane at a time.
+//     the doubling (k_double) of both groups, the complete adds of both
+//     groups (k_add in G1, the team add k_add_team in G2) and both
+//     inversion chains (k_mont_inv): Called<MulFoldMma> (fold_mma.cuh) in
+//     G1, MulFoldMma in G2, whose Fq2 multiply calls it out of line
+//     (fq_mul_call; the team add multiplies Fq values and inlines it), and
+//     in the Fq chain, MulFoldMmaOf<FrParams> in the Fr chain; the product
+//     a warp's 32 lanes at once as 126 (Fr: 60) mma.sync on the int8 tensor
+//     cores, the B operands in this unit's device memory (kFoldMmaFq,
+//     kFoldMmaFr), copied into each block's shared memory by the kernel's
+//     prologue.  What bounds a multiply there: the 2,304 (Fr: 1,024) fp32
+//     FMAs of the digit columns, one issue slot each.  The ten kernels run
+//     in their converged form (curve_kernels.cuh, add_team.cuh).
+//   * every other kernel (the single-row madd, the distinct and flagged
+//     adds), none of them on the vote path: MulFold (mul_modes.cuh), the
+//     product as 72 x 52 dp4a a lane against the matrix in this unit's
+//     __constant__ memory; bound by the 2,304 FMAs and those 3,744 dp4a
+//     with their constant reads, one lane at a time.
 //
 // The matrices live in this unit's own memory (kFoldFq in __constant__,
 // which every dp4a instance here reads, all of them Fq's; kFoldMmaFq and
@@ -45,6 +46,7 @@
 #define VS_SUFFIX _fold
 #define VS_MODE_G1_MMA Called<MulFoldMma>
 #define VS_MODE_G2_MMA MulFoldMma
+#define VS_MODE_FQ_MMA MulFoldMma
 #define VS_MODE_FR_MMA MulFoldMmaOf<FrParams>
 #include "curve_unit.cuh"
 
@@ -52,7 +54,8 @@ namespace {
 
 // the tensor-core instances, in the order of hopper_field.MMA_KERNELS, each
 // with its dynamic shared memory a block (the G2 scan's also holds its
-// parked accumulators, curve_kernels.cuh)
+// parked accumulators, curve_kernels.cuh); a missing entry leaves its
+// launch refused above 48 KB
 struct MmaKernel {
   const void* fn;
   int smem;
@@ -67,7 +70,12 @@ const MmaKernel kMmaKernels[] = {
     {reinterpret_cast<const void*>(k_add_shift<Fq2, ModeG2Mma>), ModeG2Mma::smem_bytes(kThreads)},
     {reinterpret_cast<const void*>(k_add<Fq, ModeG1Mma>), ModeG1Mma::smem_bytes(kThreads)},
     {reinterpret_cast<const void*>(k_mont_inv<FrParams, ModeFrMma>), ModeFrMma::smem_bytes(kThreads)},
+    {reinterpret_cast<const void*>(k_mont_inv<FqParams, ModeFqMma>), ModeFqMma::smem_bytes(kThreads)},
+    {reinterpret_cast<const void*>(k_add_team<AddTeamG2, ModeG2Mma>), ModeG2Mma::smem_bytes(kThreads)},
 };
+
+// kernel_info and the launches size a block alike: kThreads threads
+static_assert(kTeam * kTeamsOf<ModeG2Mma> == kThreads, "the team add's converged block is kThreads");
 
 }  // namespace
 

@@ -34,9 +34,10 @@
 // instances of K3d and K5/K6 take MulLoop inlined), a G2 kernel M, whose
 // Fq2 multiply calls its Fq multiply out of line (fq_mul_call).  The fold
 // unit's bucket scan, suffix round and doubling take Called<MulFoldMma> in
-// G1 and MulFoldMma in G2, its G1 complete add Called<MulFoldMma> and its
-// Fr inversion chain MulFoldMmaOf<FrParams>: the fold product on the int8
-// tensor cores (fold_mma.cuh).
+// G1 and MulFoldMma in G2, its G1 complete add Called<MulFoldMma>, its Fq
+// inversion chain MulFoldMma and its Fr inversion chain
+// MulFoldMmaOf<FrParams>: the fold product on the int8 tensor cores
+// (fold_mma.cuh; the G2 team add's converged form is add_team.cuh's).
 //
 // The converged form.  A mode whose multiply a warp runs together
 // (M::kConverged: mma.sync and ldmatrix are .sync.aligned) needs every
@@ -125,16 +126,18 @@ __device__ __forceinline__ long long lane_in(long long i, long long n) {
 // carries by shuffles), so that a chain of 16 lanes fills more than one
 // warp's issue slots.
 //
-// In a converged mode (the fold unit's Fr instance, MulFoldMmaOf<FrParams>:
-// each multiply's fold product a warp's tile on the tensor cores, 60
-// mma.sync against the block's copy of Fr's B operand) the prologue runs
-// first, whole warps past n leave and a ragged warp's spare threads compute
-// on lane n - 1 and store nothing; the exponent's bits are the same on
-// every lane, so the chain is warp-uniform as it stands.  At the device
-// witness's 16 lanes it is one warp, 2.0 us a multiply (0.83 ms a chain,
-// against the dp4a fold's 2.67): the 1,024 digit FMAs are not what holds
-// it, since four warps sharing one tile, each a quarter of the columns,
-// took as long (PERF.md); the serial carry chain of fold_finish is.
+// In a converged mode (the fold unit's instances, MulFoldMmaOf<FrParams>
+// and MulFoldMma: each multiply's fold product a warp's tile on the tensor
+// cores, 60 (Fq: 126) mma.sync against the block's copy of the field's B
+// operand) the prologue runs first, whole warps past n leave and a ragged
+// warp's spare threads compute on lane n - 1 and store nothing; the
+// exponent's bits are the same on every lane, so the chain is warp-uniform
+// as it stands.  At the device witness's 16 lanes the Fr chain is one
+// warp, 2.0 us a multiply (0.83 ms a chain, against the dp4a fold's 2.67):
+// the 1,024 digit FMAs are not what holds it, since four warps sharing one
+// tile, each a quarter of the columns, took as long (PERF.md); the serial
+// carry chain of fold_finish is.  The Fq chain runs the ballot tail's 464
+// lanes as 15 warps on 4 SMs, each a chain of 608 tile multiplies.
 template <class P, class M>
 __global__ void __launch_bounds__(kThreads)
     k_mont_inv(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, long long n) {

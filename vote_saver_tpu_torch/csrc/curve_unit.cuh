@@ -12,9 +12,11 @@
 //                   the G1 doubling and the G1 complete add (default
 //                   Called<VS_MODE>; the fold unit's: Called<MulFoldMma>,
 //                   the fold product on the tensor cores)
-//   VS_MODE_G2_MMA  the mode of the G2 bucket scan, the G2 suffix round and
-//                   the G2 doubling (default VS_MODE; the fold unit's:
-//                   MulFoldMma)
+//   VS_MODE_G2_MMA  the mode of the G2 bucket scan, the G2 suffix round,
+//                   the G2 doubling and the G2 team add (default VS_MODE;
+//                   the fold unit's: MulFoldMma)
+//   VS_MODE_FQ_MMA  the mode of the Fq inversion chain (default VS_MODE;
+//                   the fold unit's: MulFoldMma)
 //   VS_MODE_FR_MMA  the mode of the Fr inversion chain (default VS_MODE;
 //                   the fold unit's: MulFoldMmaOf<FrParams>)
 //
@@ -26,9 +28,9 @@
 // (one out-of-line copy of the mode's multiply a kernel) but the scan, the
 // suffix round, the doubling and the complete add, which take
 // VS_MODE_G1_MMA, every G2 kernel VS_MODE (its Fq2 multiply calls the Fq
-// one out of line) but the scan, the suffix round and the doubling, which
-// take VS_MODE_G2_MMA, the Fq inversion chain and the team add VS_MODE
-// itself, the Fr inversion chain VS_MODE_FR_MMA.
+// one out of line) but the scan, the suffix round, the doubling and the
+// team add, which take VS_MODE_G2_MMA, the Fq inversion chain
+// VS_MODE_FQ_MMA, the Fr inversion chain VS_MODE_FR_MMA.
 //
 // The launchers run on the caller's stream, do not synchronise, allocate
 // nothing, and return cudaGetLastError() (0 on success).
@@ -54,6 +56,11 @@ using ModeG2Mma = VS_MODE_G2_MMA;
 #else
 using ModeG2Mma = ModeG2;
 #endif
+#ifdef VS_MODE_FQ_MMA
+using ModeFqMma = VS_MODE_FQ_MMA;
+#else
+using ModeFqMma = VS_MODE;
+#endif
 #ifdef VS_MODE_FR_MMA
 using ModeFrMma = VS_MODE_FR_MMA;
 #else
@@ -65,7 +72,7 @@ extern "C" {
 
 // field: 0 = Fq, 1 = Fr.
 int VS_FN(vs_mont_inv)(int field, const void* a, void* out, long long n, void* stream) {
-  return launch_mont_inv<VS_MODE, ModeFrMma>(field, a, out, n, stream);
+  return launch_mont_inv<ModeFqMma, ModeFrMma>(field, a, out, n, stream);
 }
 
 // g2: 0 = G1 (Fq coordinates), 1 = G2 (Fq2 coordinates), here and below.
@@ -86,7 +93,7 @@ int VS_FN(vs_g1_add)(const void* px, const void* py, const void* pz, const void*
 int VS_FN(vs_g2_add_team)(const void* px, const void* py, const void* pz, const void* qx,
                           const void* qy, const void* qz, void* ox, void* oy, void* oz,
                           long long n, void* stream) {
-  return launch_g2_add_team<VS_MODE>(px, py, pz, qx, qy, qz, ox, oy, oz, n, stream);
+  return launch_g2_add_team<ModeG2Mma>(px, py, pz, qx, qy, qz, ox, oy, oz, n, stream);
 }
 
 int VS_FN(vs_double)(int g2, const void* px, const void* py, const void* pz, void* ox, void* oy,

@@ -3,8 +3,9 @@
 //
 // Replaces, for the probes K7 and K10 (micro.cu) and, as the multiplier
 // modes MulFoldMma (Fq) and MulFoldMmaOf<FrParams> below, for the fold
-// unit's bucket scans, suffix rounds, doublings and G1 complete add and for
-// its Fr inversion chain (curve_fold.cu), the fold product of
+// unit's bucket scans, suffix rounds, doublings, complete adds (G1's k_add,
+// G2's team add) and both inversion chains (curve_fold.cu), the fold
+// product of
 // vote_saver_tpu/ops/fold_mul.py:fold_columns inside FqEmitFold
 // (vote_saver_tpu/ops/pallas_field.py:187-224): there the pieces of every
 // lane's product columns go through ONE bf16 dot_general against the
@@ -112,8 +113,9 @@ static inline int allow_smem(const void* fn, int smem) {
 // Host: what the CUDA runtime reports of kernel fn launched with `threads`
 // threads and `smem` bytes of dynamic shared memory a block on the current
 // device: out = {registers a thread, local (spill and stack) bytes a
-// thread, dynamic shared memory a block, resident blocks a SM, threads a
-// block}; a cudaError_t, 0 on success.
+// thread, shared memory a block (`smem` and the kernel's static shared
+// memory), resident blocks a SM, threads a block}; a cudaError_t, 0 on
+// success.
 static inline int kernel_info(const void* fn, int threads, int smem, int* out) {
   cudaFuncAttributes attr;
   int err = allow_smem(fn, smem);
@@ -123,7 +125,7 @@ static inline int kernel_info(const void* fn, int threads, int smem, int* out) {
   if (err != 0) return err;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  out[2] = smem;
+  out[2] = smem + (int)attr.sharedSizeBytes;
   out[3] = blocks;
   out[4] = threads;
   return 0;
@@ -317,6 +319,7 @@ struct MulFoldMmaOf {
 // keep their names.  Through Called<MulFoldMma> the multiply is one
 // out-of-line copy a kernel, as every G1 multiply of the curve kernels is;
 // a G2 kernel over MulFoldMma calls it out of line through its Fq2
-// multiply (fq_mul_call).  The fold unit's Fr inversion chain takes
-// MulFoldMmaOf<FrParams> itself, its multiply inlined.
+// multiply (fq_mul_call).  The G2 team add and the Fq inversion chain take
+// MulFoldMma itself, the Fr inversion chain MulFoldMmaOf<FrParams>, their
+// multiplies inlined.
 struct MulFoldMma : MulFoldMmaOf<FqParams> {};

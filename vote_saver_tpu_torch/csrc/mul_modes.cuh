@@ -38,10 +38,12 @@
 // the lane keeps only the fp32 digit columns, which then bound it (2,304
 // FMAs a multiply at the issue rate), and MulFold's steps 1-3 and 5-6
 // around the product; fold_finish below is the tail both forms share.  The
-// fold unit's bucket scans, suffix rounds and doublings in G1 and G2, its
-// G1 complete add and its Fr inversion chain (curve_fold.cu) take the same
-// tensor-core fold as a mode of its own, MulFoldMma in Fq and
-// MulFoldMmaOf<FrParams> in Fr (fold_mma.cuh).
+// fold unit's bucket scans, suffix rounds, doublings and complete adds in
+// G1 and G2 (G2's the team add) and its Fq and Fr inversion chains
+// (curve_fold.cu) take the same tensor-core fold as a mode of its own,
+// MulFoldMma in Fq and MulFoldMmaOf<FrParams> in Fr (fold_mma.cuh); MulFold
+// is left to the fold unit's kernels off the vote path (the single-row
+// madd, the distinct and flagged adds) and to K1's fold instance.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -588,7 +588,7 @@ def report_lines(res: dict, gpu: str) -> list[str]:
         lines.append(f"[{tag}] {what}: {r['mul_mps']:.1f} M mul/s ({r['ms']:.4f} ms at {r['lanes']} lanes, {shape}); "
                      f"parity ok at {r['parity_lanes']} lanes; the {r['lanes']}-lane launch equal to plain "
                      f"({r['plain_ms']:.1f} ms); {r['registers']} registers, {r['local_bytes']} B local a thread, "
-                     f"{r['smem_bytes']} B dynamic shared memory a block, {r['warps_per_sm']} warps a SM{extra}; {gpu}")
+                     f"{r['smem_bytes']} B shared memory a block, {r['warps_per_sm']} warps a SM{extra}; {gpu}")
     return lines
 
 

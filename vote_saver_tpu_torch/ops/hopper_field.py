@@ -30,9 +30,10 @@ CUDA tensor a wrapper launches that mode's instance (loop: ``kernels.cu``,
 ``curve_fold.cu``, K1 ``mont_mul_modes.cu``), counted under its name, the
 loop name with ``_v1`` / ``_fold`` (``instance``), and raises where that
 instance is missing or fails; it never runs another mode's instance.  In
-fold the bucket scans, the suffix rounds and the doublings of G1 and G2,
-the G1 complete add and the Fr inversion chain (``MMA_KERNELS``) run the
-fold product on the int8 tensor cores, a warp's lanes one tile.  On a CPU
+fold the bucket scans, the suffix rounds, the doublings and the complete
+adds of G1 and G2 and the Fq and Fr inversion chains (``MMA_KERNELS``:
+every fold kernel of the vote path) run the fold product on the int8
+tensor cores, a warp's lanes one tile.  On a CPU
 tensor a wrapper runs the plain version, one function in every mode.
 
 Coordinates are int32 tensors ``(..., L)`` (G1, Fq/Fr) or ``(..., 2, L)``
@@ -640,18 +641,21 @@ def _launcher(fn: str, mode: str, device):
 
 # the instances whose multiply runs its fold product on the int8 tensor
 # cores (csrc/curve_fold.cu: Called<MulFoldMma> in G1, MulFoldMma in G2,
-# MulFoldMmaOf<FrParams> in the Fr inversion chain, a warp's lanes as one
-# tile of mma.sync), in the order of vs_curve_fold_mma_info's kernel index
+# the G2 team add and the Fq inversion chain, MulFoldMmaOf<FrParams> in the
+# Fr inversion chain, a warp's lanes as one tile of mma.sync), in the order
+# of vs_curve_fold_mma_info's kernel index; the fold unit's other instances
+# (the single-row madd, the distinct and flagged adds) keep the dp4a fold
 MMA_KERNELS = ("g1_madd_scan_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold",
-               "g2_madd_scan_fold", "g2_add_shift_fold", "g1_add_fold", "mont_inv_fr_fold")
+               "g2_madd_scan_fold", "g2_add_shift_fold", "g1_add_fold", "mont_inv_fr_fold",
+               "mont_inv_fq_fold", "g2_add_fold")
 
 
 def kernel_info(entry, index: int, name: str, device="cuda") -> dict:
     """What the CUDA runtime reports of kernel `index` of the info entry
     `entry` (``vs_mul_chain_info``, ``vs_curve_fold_mma_info``; csrc
     fold_mma.cuh's kernel_info) on `device`: registers and local (spill and
-    stack) bytes a thread, dynamic shared memory a block, and the blocks and
-    warps resident on one SM.  `name` labels an error."""
+    stack) bytes a thread, shared memory a block (dynamic and static), and
+    the blocks and warps resident on one SM.  `name` labels an error."""
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device_of(device)):
         rc = entry(index, ctypes.addressof(out))
