@@ -37,6 +37,10 @@ code:
     at the Programming Guide's rate, the loop instance's bound) and of the
     fold algorithm's (``chip_smoke.mode_work``'s "fold"), each output equal
     to the loop instance's;
+  * Groth16 setup's fixed-base products (``setup_window_sums``): the
+    depth-6 admin key generation's wall seconds, and each group's
+    ``groth16._fixed_base_batch`` on that setup's scalars alone under
+    torch.profiler: launches and device ms by kernel;
   * chip_smoke.py's ``[slice]`` (``run_slice``: the depth-6 B = 16 vote
     phase, its stage seconds, the host-witness and radix-2 batches and the
     profiled batch's device time per kernel), its device-arm batches 0-2
@@ -201,6 +205,55 @@ def fold_kernels(cs, own, dev, reps: int = 5) -> dict:
               f"{bound_ms:.5f} ms ({bound_by}), fold algorithm's bound {fold_ms:.5f} ms, " + (
                   "shares not measured" if share is None else
                   f"{100 * share:.2f}% / {100 * fold_share:.2f}% of them"), flush=True)
+    return out
+
+
+def setup_window_sums(cs, own) -> dict:
+    """Groth16 setup's fixed-base products at depth 6, as both trees have
+    them: the depth-6 admin key generation on the card (loop, after one
+    warm-up call that builds the tables), its wall seconds, with
+    ``groth16._fixed_base_batch`` wrapped to keep each group's scalars;
+    then each group's ``_fixed_base_batch`` once more alone in a profiling
+    window: its seconds, its launches by kernel (hopper_field's counts) and
+    the device ms of every kernel it launched."""
+    import torch
+
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.protocol import groth16, phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
+
+    batch, scalars = groth16._fixed_base_batch, {}
+
+    def kept(group, ks, device):
+        scalars[group] = list(ks)
+        return batch(group, ks, device)
+
+    groth16._fixed_base_batch = kept
+    try:
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            phases.init_admin_phase_generate_keys(cs.DEPTH, cs.EID_BITS, FrRandom(cs.SEED), device="cuda")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        groth16._fixed_base_batch = batch
+    out = dict(wall_s=walls[1], first_wall_s=walls[0], groups={})
+    for group, ks in scalars.items():
+        hf.reset_launches()
+        t0 = time.perf_counter()
+        _r, events = own.profile_window(lambda ks=ks, group=group: batch(group, ks, "cuda"))
+        call_s = time.perf_counter() - t0
+        launches = {k: v for k, v in hf.launches.items() if v}
+        by: dict = {}
+        for name, us in events or ():  # the port's kernels by their kernels-line names
+            name = own.kernel_key(name) or name.split("(")[0].split("::")[-1][:60]
+            by[name] = by.get(name, 0.0) + us / 1e3
+        out["groups"][group] = dict(n=len(ks), call_s=call_s, launches=launches, kernels=by,
+                                    device_ms=sum(by.values()) if events is not None else None)
+        print(f"[ab] setup {group}: {len(ks)} scalars, {call_s:.3f} s under the profiler, device "
+              f"{_ms(out['groups'][group]['device_ms'])}, launches {launches}, by kernel {by}", flush=True)
+    print(f"[ab] setup wall (depth {cs.DEPTH}, loop): {walls[1]:.3f} s (first call {walls[0]:.3f} s)", flush=True)
     return out
 
 
@@ -379,6 +432,7 @@ def one(tree: pathlib.Path, widths) -> dict:
     res["fold_kernels"] = fold_kernels(cs, own, dev)
 
     e = cs.election(cs.DEPTH)
+    res["setup"] = setup_window_sums(cs, own)
     pk_crs, vk_crs, pk_eid, _sk_eid, _vk_eid = e["keys"]
     eid, rt, tree_blob = e["data"]
     ctx = phases.prepare_vote_context(cs.DEPTH, cs.EID_BITS, tree_blob, rt, eid, pk_eid, pk_crs, vk_crs,
@@ -445,7 +499,10 @@ def main() -> None:
     side = {}
     for r in runs:
         t = side.setdefault(r["tree"], dict(batch_s=[], loop_batches_s=[], fold_batch_s=[], fold_busy_s=[], g2_add={},
-                                            mont_mul_fr={}, fold_kernels={}))
+                                            mont_mul_fr={}, fold_kernels={}, setup_wall_s=[], setup_device_ms={}))
+        t["setup_wall_s"].append(r["setup"]["wall_s"])
+        for group, v in r["setup"]["groups"].items():
+            t["setup_device_ms"].setdefault(group, []).append(v["device_ms"])
         t["batch_s"].append(r["slice"]["batch_s"])
         t["loop_batches_s"] += r["loop_batches_s"]
         t["fold_batch_s"].append(r["fold_batch"]["batch_s"])

@@ -9,9 +9,11 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
   3. each kernel against its plain PyTorch version on the card (K1 at 2^16
      lanes in Fq and Fr in each multiplier mode, K2-K4 and the flagged
      distinct add K5/K6 at 2^14 lanes and the distinct add K3d at 2^16
-     lanes, the FixedBaseTable width, in G1 and G2; K3 in G2 as a team of
-     threads a lane), special lanes included; exact equality; both
-     timed.  The chain kernels (K1's Fermat
+     lanes, in G1 and G2; K3 in G2 as a team of threads a lane), special
+     lanes included; exact equality; both timed.  K3d as setup's window sum
+     (``window_sum``: a FixedBaseTable's 32 entries an output gathered and
+     summed in one launch) at 2048 and 2^16 outputs on special digit rows,
+     the loop instance at every team size (``check_window_sums``).  The chain kernels (K1's Fermat
      inversion ``mont_inv``, K4 with a count of doublings) also at the
      widths and counts the vote path gives them (``CHAIN_SHAPES``), and
      the MSM kernels (K2's bucket scan ``madd_scan``, K3's suffix round
@@ -42,10 +44,14 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      registers, local bytes, shared memory and warps a SM logged from the
      CUDA runtime in ``[kernels]`` and ``[modes]``): right after the build,
      ``cuobjdump -sass`` of the probe library and of the curve library
-     must show IMMA and no IDP (dp4a) in all twelve (``[sass]``);
+     must show IMMA and no IDP (dp4a) in all twelve, and the fold window
+     sums (``DP4A_KERNELS``) IDP and no IMMA (``[sass]``);
   5. admin key generation for the depth-6 election on the card (Groth16
-     setup through FixedBaseTable and K3d): its five blobs byte-identical to
-     the host-native arm's, both arms timed;
+     setup through FixedBaseTable's window sum, one launch a group, and
+     no single K3d launch): its five blobs byte-identical to the
+     host-native arm's, both arms timed; the window sums' widths and the
+     Fq inversions; once more under torch.profiler (loop): the device ms of
+     each window sum;
   5b. the int8 matmul NTT (``ops/ntt_mxu.py``) at the vote path's shape,
      B = 16 rows of a 2^15 domain: each of the four kinds exactly equal to
      the radix-2 path on the card, both timed with CUDA events; each int8
@@ -153,7 +159,9 @@ DEPTH, BATCH, EID_BITS = 6, 16, 64
 K1_LANES, CURVE_LANES, FB_LANES = 1 << 16, 1 << 14, 1 << 16
 MSM_N, MSM_W, MSM_G2_N = 1 << 16, 10, 1 << 14
 # the kernels each path runs (a kernel of a path that never launched fails)
-SETUP_KERNELS = ("g1_add_distinct", "g2_add_distinct", "mont_mul_fq", "mont_inv_fq")
+SETUP_KERNELS = ("g1_window_sum", "g2_window_sum", "mont_mul_fq", "mont_inv_fq")
+# K3d's single distinct add: checked in [kernels], launched no time in setup, which runs the window sum
+OFF_SETUP_PATH = ("g1_add_distinct", "g2_add_distinct")
 VOTE_KERNELS = ("mont_mul_fq", "mont_mul_fr", "g1_madd_scan", "g2_madd_scan", "g1_add_shift", "g2_add_shift",
                 "g1_add", "g2_add", "g1_double", "g2_double", "mont_inv_fq", "mont_inv_fr")
 # K2's single-row form: checked in [kernels], launched no time on the vote path
@@ -173,6 +181,8 @@ CURVE_MODES = ("v1", "fold")
 FOLD_PROBES = ("mul_chain_k7_fold", "mul_chain_k10_fold")
 # the built libraries [sass] reads for them
 FOLD_LIBS = ("libvstorch_micro_", "libvstorch_curve_fold_")
+# fold instances that keep the per-lane dp4a fold, whose [sass] must show IDP and no IMMA
+DP4A_KERNELS = ("g1_window_sum_fold", "g2_window_sum_fold")
 # the spin kernels (and their cycles each, about 0.25 ms) that open each profiling window (profile_window)
 PROFILE_PAD, PAD_CYCLES = 32, 500_000
 # what a profiling window's CUDA-event time may exceed its host time plus its kernels' device time by
@@ -213,6 +223,9 @@ MSM_SHAPES = {
     "g2_add_shift": ((432, 512, 1), (432, 512, 256), (32, 512, 1)),
 }
 H_POINTS = (1 << 15) - 1  # the h query's points: the affine table the scan reads
+# setup's window sum: the special and random rows of testing.window_scalars, and the same rows
+# drawn at random positions at the width of a large setup group (depth 6: 85,6xx G1, 17,6xx G2)
+WINDOW_ROWS, WINDOW_WIDE = 2048, 1 << 16
 # [path]: the widths of the vote path's complete adds (the MSMs' Horner steps,
 # the ballot tail's windowed multiplies and affine sums; the batch's largest
 # orphan merge joins them from [profile]) and 2^14 lanes
@@ -578,7 +591,7 @@ def check_kernels(rnd) -> dict:
     for kname, rows in check_chains(rnd, points).items():
         main = {k: rows[0][k] for k in ("equal", "max_abs_err", "ms", "plain_ms", "lanes", "work")}
         results.setdefault(kname, main)["chains"] = rows
-    for kname, rows in check_msm_kernels(rnd).items():
+    for kname, rows in (*check_msm_kernels(rnd).items(), *check_window_sums(rnd).items()):
         results[kname] = dict({k: rows[0][k] for k in ("equal", "max_abs_err", "ms", "plain_ms", "lanes", "work")},
                               shapes=rows)
     for kname in hf.MMA_KERNELS:
@@ -695,6 +708,80 @@ def check_msm_kernels(rnd, dev="cuda") -> dict:
                     out.setdefault(inst, []).append(row)
                     del got
                 del exp
+    return out
+
+
+def window_adds(digits) -> int:
+    """The adds of the window sum's tree (pairs of windows, then pairs of
+    those, ...) whose operands are both finite on these digit rows: an
+    infinite operand (digit 0, or a subtree of zero digits) takes the
+    formula's select and no multiply."""
+    import numpy as np
+
+    live = np.asarray(digits) != 0
+    adds = 0
+    while live.shape[1] > 1:
+        a, b = live[:, 0::2], live[:, 1::2]
+        adds += int((a & b).sum())
+        live = a | b
+    return adds
+
+
+def check_window_sums(rnd, dev="cuda") -> dict:
+    """Setup's window sum (K3d as FixedBaseTable.mul repeats it) against
+    window_sum_plain in every multiplier mode, at every team size the mode
+    builds (loop: 1, 2, 4, 8; v1 and fold: WINDOW_TEAM): WINDOW_ROWS rows
+    of testing.window_scalars, and WINDOW_WIDE rows drawn from them at
+    random positions, whose plain result is the WINDOW_ROWS rows' drawn
+    the same way (the sum is row by row; the plain version at 2^16 rows
+    takes a minute in G2).  Each row: equality, the event-timed ms a call,
+    the profiler's device ms a launch (WINDOW_TEAM), the plain ms (at
+    WINDOW_ROWS) and the work the bound counts: the table, digits and
+    outputs once, and the tree's adds with both operands finite."""
+    import torch
+
+    from vote_saver_tpu_torch.micro import time_ms, timed
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import msm
+    from vote_saver_tpu_torch.refimpl import curves as rc
+    from vote_saver_tpu_torch.testing import window_scalars
+
+    out = {}
+    for g2 in (False, True):
+        pre = "g2" if g2 else "g1"
+        tbl = msm.FixedBaseTable(rc.g2_gen if g2 else rc.g1_gen, pre)
+        table = tuple(c.to(dev) for c in tbl.table)
+        rows = tbl.digits(window_scalars(WINDOW_ROWS, rnd))
+        perm = torch.randint(0, WINDOW_ROWS, (WINDOW_WIDE,), generator=torch.Generator().manual_seed(rnd.randrange(
+            1 << 30)))
+        digits = torch.from_numpy(rows).to(dev)
+        exp, plain_ms = timed(lambda: hf.window_sum_plain(g2, table, digits))
+        cases = ((digits, exp, plain_ms, window_adds(rows)),
+                 (digits[perm.to(dev)].contiguous(), tuple(c[perm.to(dev)] for c in exp), None,
+                  window_adds(rows[perm.numpy()])))
+        fn = hf.g2_window_sum if g2 else hf.g1_window_sum
+        for mode in hf.MODES:
+            inst = hf.instance(f"{pre}_window_sum", mode)
+            teams = (hf.WINDOW_TEAM, 1, 2, 8) if mode == "loop" else (hf.WINDOW_TEAM,)
+            for team in teams:
+                for d, want, p_ms, adds in cases:
+                    n = d.shape[0]
+                    run = lambda d=d, mode=mode, team=team: fn(table, d, checked=True, mode=mode, team=team)  # noqa: E731
+                    got = run()
+                    torch.cuda.synchronize()
+                    reps = 20 if n <= WINDOW_ROWS else 3 if mode == "fold" else 10
+                    work = mode_work(dict(bytes=_nbytes(*table, d, *got), mads=_curve_mads("add", g2, adds)), mode)
+                    row = dict(shape=[n, team], lanes=n, team=team, equal=all(torch.equal(x, y) for x, y in zip(got, want)),
+                               max_abs_err=_diff(got, want), ms=time_ms(run, reps),
+                               device_ms=device_ms(run, reps, "k_window_sum") if team == hf.WINDOW_TEAM else None,
+                               plain_ms=p_ms, work=work)
+                    log(f"[{'kernels' if mode == 'loop' else 'modes'}] {inst}: {n} outputs, team {team}: "
+                        f"equal={row['equal']} max_abs_err={row['max_abs_err']} kernel {row['ms']:.4f} ms a call, "
+                        f"device {_ms(row['device_ms'])} a launch"
+                        + ("" if p_ms is None else f", plain {p_ms:.1f} ms"))
+                    if not row["equal"]:
+                        fail(f"{inst} at {n} outputs, team {team}, disagrees with its plain version")
+                    out.setdefault(inst, []).append(row)
     return out
 
 
@@ -888,6 +975,7 @@ def check_setup(e: dict, mode: str = "loop") -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(hf.launches)
+    widths = {k: dict(hf.widths[hf.instance(k, mode)]) for k in ("g1_window_sum", "g2_window_sum")}
     names = ("pk_crs", "vk_crs", "pk_eid", "sk_eid", "vk_eid")
     differ = [n for n, a, b in zip(names, keys, e["keys"]) if a != b]
     host = "cached" if e["setup_s"] is None else f"{e['setup_s']:.2f} s"
@@ -903,7 +991,25 @@ def check_setup(e: dict, mode: str = "loop") -> dict:
     other = sorted(k for k, v in launches.items() if v and hf.mode_of(k) != mode)
     if other:
         fail(f"setup in {mode} launched other modes' instances: {other}")
-    return dict(device_s=secs, host_s=e["setup_s"], launches=launches)
+    stray = {hf.instance(k, mode): launches[hf.instance(k, mode)] for k in OFF_SETUP_PATH
+             if launches[hf.instance(k, mode)]}
+    if stray:
+        fail(f"setup in {mode} launched K3d's single distinct add: {stray}")
+    log(f"{tag}: window sums by outputs {widths}, mont_inv_fq launches {launches[hf.instance('mont_inv_fq', mode)]}")
+    out = dict(device_s=secs, host_s=e["setup_s"], launches=launches)
+    if mode == "loop":
+        # once more in a profiling window: the device time of each window sum and of the whole setup
+        _keys, events = profile_window(
+            lambda: phases.init_admin_phase_generate_keys(DEPTH, EID_BITS, FrRandom(SEED), device="cuda"))
+        if events is None:
+            log(f"{tag}: window sums' device time not measured (the profiling window lost records)")
+        else:
+            by = {k: sum(us for name, us in events if kernel_key(name) == k) / 1e3
+                  for k in ("g1_window_sum", "g2_window_sum", "mont_inv_fq")}
+            out["device_ms"] = dict(by, all=sum(us for _n, us in events) / 1e3)
+            log(f"{tag}: device ms under torch.profiler: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in out["device_ms"].items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1062,8 +1168,8 @@ def kernel_key(name: str) -> str | None:
     the loop name, with ``_v1`` / ``_fold`` for an instance in MulV1 /
     MulFold (``Called<MulV1>`` too); the G2 complete add's team kernel
     ``k_add_team<AddTeamG2,M>`` is ``g2_add``."""
-    m = re.search(r"\bk_(mont_mul_mode|mont_mul|mont_inv|madd_scan|madd|add_distinct|addx|add_shift|add_team|add|double)"
-                  r"<([^,>]+)", name)
+    m = re.search(r"\bk_(mont_mul_mode|mont_mul|mont_inv|madd_scan|madd|add_distinct|addx|add_shift|add_team|add|double|"
+                  r"window_sum)<([^,>]+)", name)
     if not m:
         return None
     fam, arg = m.groups()
@@ -1148,7 +1254,12 @@ def check_fold_sass(kl) -> dict:
         log(f"[sass] {k}: {c}")
         if not c or not c["IMMA"] or c["IDP"]:
             fail(f"{k} is not on the tensor cores (cuobjdump -sass: {c})")
-    return {k: counts[k] for k in kernels}
+    for k in DP4A_KERNELS:
+        c = counts.get(k)
+        log(f"[sass] {k}: {c}")
+        if not c or c["IMMA"] or not c["IDP"]:
+            fail(f"{k} is not the per-lane dp4a fold (cuobjdump -sass: {c})")
+    return {k: counts[k] for k in (*kernels, *DP4A_KERNELS)}
 
 
 def profile_batch(batch, library: set):
@@ -2060,7 +2171,9 @@ def main() -> None:
     resources = {}
     for name, regs, spill in _build.resource_lines(kl.resource_usage):
         log(f"[build] {name}: {regs} registers, {spill} B spill stores")
-        resources[instance_name(name)] = (regs, spill)
+        # the loop window sum's other team sizes are logged only
+        if not (name.startswith("k_window_sum<") and not name.endswith(f",{hf.WINDOW_TEAM}>")):
+            resources[instance_name(name)] = (regs, spill)
     sass = check_fold_sass(kl)
 
     # each phase's wall seconds, for the run's time budget
@@ -2093,14 +2206,14 @@ def main() -> None:
     phase("cli", run_cli, rnd, gpu)
 
     kern.update(probe_entries(probes))
-    paths = dict.fromkeys(SETUP_KERNELS, setup_launches)
+    paths = dict.fromkeys((*SETUP_KERNELS, *OFF_SETUP_PATH), setup_launches)
     paths.update(dict.fromkeys((*VOTE_KERNELS, *OFF_VOTE_PATH), vote_launches))
     paths.update(dict.fromkeys(COMBINE_KERNELS, {k: combine[k[:2]]["addx"]["launches"].get(k, 0)
                                                  for k in COMBINE_KERNELS}))
     paths.update(dict.fromkeys((*K1_MODE_KERNELS, *micro.KERNELS), probes["launches"]))
     # each mode's instances: their launches on that mode's setup, batch and combination phase
     for mode, r in modes.items():
-        paths.update({hf.instance(k, mode): r["setup"]["launches"] for k in SETUP_KERNELS})
+        paths.update({hf.instance(k, mode): r["setup"]["launches"] for k in (*SETUP_KERNELS, *OFF_SETUP_PATH)})
         paths.update({hf.instance(k, mode): r["launches"] for k in (*VOTE_KERNELS, *OFF_VOTE_PATH)})
         paths.update({hf.instance(k, mode): {hf.instance(k, mode): r["combine"][k[:2]]["addx"]["launches"].get(
             hf.instance(k, mode), 0)} for k in COMBINE_KERNELS})
@@ -2145,9 +2258,10 @@ def main() -> None:
                 b_ms, b_by = bound(row["work"], probes["res"]["rates"])
                 entries[-1]["shapes"].append(dict({k2: row[k2] for k2 in (
                     "shape", "lanes", "max_abs_err", "ms", "device_ms", "plain_ms")}, bound_ms=b_ms, bound_by=b_by))
+                plain = "not timed" if row["plain_ms"] is None else f"{row['plain_ms']:.1f} ms"
                 log(f"[bound] {k} at {row['shape']}: {row['ms']:.4f} ms a call, device {_ms(row['device_ms'])} "
-                    f"a launch, plain {row['plain_ms']:.1f} ms, against a bound of {b_ms:.5f} ms ({b_by})"
-                    f"{fold_bound(row['work'], probes['res']['rates'])}; {gpu}")
+                    f"a launch, plain {plain}, against a bound of {b_ms:.5f} ms ({b_by}, "
+                    f"{100 * b_ms / row['ms']:.1f}% of its time){fold_bound(row['work'], probes['res']['rates'])}; {gpu}")
     log(f"[done] {time.perf_counter() - t_all:.1f} s (kernel build {kl.build_seconds:.1f} s; by phase: "
         + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()) + ")")
     log(gpu)

@@ -7,8 +7,9 @@ only the port is installed:
 
 Each kernel (K1 in Fq and Fr in each multiplier mode and as the Fermat
 inversion, K2-K4, K4 with a count of doublings, K2's bucket scan, K3's
-suffix round, K3d and K5/K6 in G1 and G2, K3 in G2 as a team of threads
-a lane at ragged widths, K1 with an operand broadcast over the batch at
+suffix round, K3d and K5/K6 in G1 and G2, K3d as setup's window sum in
+every mode and team size at 2048 and 2^16 outputs, K3 in G2 as a team of
+threads a lane at ragged widths, K1 with an operand broadcast over the batch at
 the vote path's shapes) must equal its plain PyTorch version limb for limb
 on the special lanes of ``vote_saver_tpu_torch.testing``, in one launch per
 call (the team kernel with no spill); a scheduled MSM,
@@ -54,6 +55,7 @@ from vote_saver_tpu_torch.ops import curve_ops as co
 from vote_saver_tpu_torch.ops import fold_mul
 from vote_saver_tpu_torch.ops import hopper_field as hf
 from vote_saver_tpu_torch.ops import limbs as lb
+from vote_saver_tpu_torch.ops import msm
 from vote_saver_tpu_torch.ops import msm_sched as ms
 from vote_saver_tpu_torch.params import Q, R
 from vote_saver_tpu_torch.protocol import groth16 as tg
@@ -61,7 +63,7 @@ from vote_saver_tpu_torch.protocol import marshal as M
 from vote_saver_tpu_torch.refimpl import curves as rc
 from vote_saver_tpu_torch.refimpl import jacobian as rj
 from vote_saver_tpu_torch.testing import (ADDX_EXC, MADD_EXC, SCAN_EXC, scan_lanes, shift_grid, special_lanes,
-                                          team_add_lanes)
+                                          team_add_lanes, window_scalars)
 from vote_saver_tpu_torch.utils.rng import FrRandom
 
 pytestmark = pytest.mark.cuda
@@ -376,11 +378,52 @@ def test_setup_on_card_matches_host(dev):
     for x in xs:
         cs.constrain(lc((x, 1)), lc((x, 1)), lc((x, 1)))
     cs.constrain(lc(*((x, 1) for x in xs)), lc((0, 1)), lc((out, 1)))
-    before = hf.launches["g1_add_distinct"], hf.launches["g2_add_distinct"]
+    hf.reset_launches()
     pk, vk = tg.setup(cs, FrRandom(6), device=dev)
-    assert hf.launches["g1_add_distinct"] > before[0] and hf.launches["g2_add_distinct"] > before[1]
+    # each group's scalars in one window-sum launch, and no single distinct add
+    assert {k: hf.launches[k] for k in ("g1_window_sum", "g2_window_sum", "g1_add_distinct", "g2_add_distinct")} == {
+        "g1_window_sum": 1, "g2_window_sum": 1, "g1_add_distinct": 0, "g2_add_distinct": 0}
     hpk, hvk = tg.setup(cs, FrRandom(6), device="host")
     assert M.ser_groth16_pk(pk) == M.ser_groth16_pk(hpk) and M.ser_groth16_vk(vk) == M.ser_groth16_vk(hvk)
+
+
+_WINDOW_PLAIN: dict = {}
+
+
+def _window_case(g2: bool, dev):
+    """(table on the card, 2048 digit rows of testing.window_scalars, their
+    window_sum_plain), the plain version run once a group."""
+    if g2 not in _WINDOW_PLAIN:
+        tbl = msm.FixedBaseTable(rc.g2_gen if g2 else rc.g1_gen, "g2" if g2 else "g1")
+        table = tuple(c.to(dev) for c in tbl.table)
+        digits = torch.from_numpy(tbl.digits(window_scalars(2048, random.Random(30 + g2)))).to(dev)
+        _WINDOW_PLAIN[g2] = table, digits, hf.window_sum_plain(g2, table, digits)
+    return _WINDOW_PLAIN[g2]
+
+
+@pytest.mark.parametrize("mode", hf.MODES)
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_window_sum_matches_plain(dev, g2, mode):
+    """Setup's window sum in each mode, at every team size in loop (v1 and
+    fold build only WINDOW_TEAM), one launch of the mode's instance a call, equal to window_sum_plain on the special
+    rows (0, 1, R - 1, a zero low or high half, one nonzero window) at 2048
+    outputs, and at 2^16: the 2048 rows drawn at random positions, so a
+    lane that read another row would differ from the plain rows it draws."""
+    table, digits, exp = _window_case(g2, dev)
+    perm = torch.randint(0, digits.shape[0], (1 << 16,), generator=torch.Generator().manual_seed(31 + g2)).to(dev)
+    wide = (digits[perm].contiguous(), tuple(c[perm] for c in exp))
+    fn = hf.g2_window_sum if g2 else hf.g1_window_sum
+    name = "g2_window_sum" if g2 else "g1_window_sum"
+    teams = (1, 2, 4, 8) if mode == "loop" else (hf.WINDOW_TEAM,)
+    for team in teams:
+        for d, want in ((digits, exp), wide):
+            got = _once(name, mode, lambda d=d, team=team: fn(table, d, mode=mode, team=team))
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), (team, d.shape[0])
+    for team in {1, 2, 4, 8} - set(teams):
+        with pytest.raises(ValueError):
+            fn(table, digits, mode=mode, team=team)
+    with pytest.raises(IndexError):
+        fn(table, torch.full_like(digits[:4], 256), mode=mode)
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])

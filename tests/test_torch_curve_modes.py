@@ -190,7 +190,7 @@ def test_every_instance_is_listed_and_built(kernel, mode):
         assert unit == f"curve_{mode}.cu"
     launcher = {"mont_inv": "vs_mont_inv", "madd_scan": "vs_madd_scan", "madd": "vs_madd",
                 "add_shift": "vs_add_shift", "add_distinct": "vs_add_distinct", "double": "vs_double",
-                "addx": "vs_addx"}.get(kernel[3:] if kernel[:2] in ("g1", "g2") else kernel[:8])
+                "addx": "vs_addx", "window_sum": "vs_window_sum"}.get(kernel[3:] if kernel[:2] in ("g1", "g2") else kernel[:8])
     if kernel == "g1_add":
         launcher = "vs_g1_add"
     elif kernel == "g2_add":

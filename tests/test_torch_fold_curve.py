@@ -578,8 +578,9 @@ def test_g2_team_add_on_the_tile_matches_the_fold_pallas_add(env16, lanes):
 
 
 # the fold unit's tensor-core instances as the profiler (demangled) and
-# ptxas / cuobjdump (mangled) name them, called and inlined, and a fold
-# instance on the dp4a fold beside them (the G1 distinct add)
+# ptxas / cuobjdump (mangled) name them, called and inlined, and fold
+# instances on the dp4a fold beside them (the G1 distinct add, the window
+# sums), and a loop window sum at another team size
 _NAMES = {
     "(anonymous namespace)::k_madd_scan<Fp<FqParams>, Called<MulFoldMma> >(unsigned int const*, ...)":
         "g1_madd_scan_fold",
@@ -598,6 +599,10 @@ _NAMES = {
     "(anonymous namespace)::k_add_team<AddTeamG2, MulFoldMma>(uint4 const*, ...)": "g2_add_fold",
     "(anonymous namespace)::k_add_distinct<Fp<FqParams>, Called<MulFold> >(unsigned int const*, ...)":
         "g1_add_distinct_fold",
+    "(anonymous namespace)::k_window_sum<Fp<FqParams>, Called<MulFold>, 4>(unsigned int const*, ...)":
+        "g1_window_sum_fold",
+    "(anonymous namespace)::k_window_sum<Fq2, MulFold, 4>(unsigned int const*, ...)": "g2_window_sum_fold",
+    "(anonymous namespace)::k_window_sum<Fp<FqParams>, MulLoop, 8>(unsigned int const*, ...)": "g1_window_sum",
 }
 _SCAN = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN11k_madd_scanI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_PKiixPjSC_SC_Pi"
 _DBL = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN8k_doubleI2FpI8FqParamsE6CalledI10MulFoldMmaEEEvPKjS9_S9_PjSA_SA_xi"
@@ -616,6 +621,10 @@ _G2_TEAM = ("_ZN42_GLOBAL__N__b1ccb0e9_13_curve_fold_cu_kFqN10k_add_teamI9AddTea
             "S5_PS3_S6_S6_x")
 _G1_ADD_DISTINCT = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN14k_add_distinctI2FpI8FqParamsE6CalledI7MulFoldEEEvPKj"
                     "S9_S9_S9_S9_S9_PjSA_SA_x")
+# the fold unit's window sums, on the dp4a fold, at kWindowTeam = 4 threads an output
+_G1_WINDOW = ("_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN12k_window_sumI2FpI8FqParamsE6CalledI7MulFoldELi4EEEvPKj"
+              "S9_S9_PKiPjSC_SC_x")
+_G2_WINDOW = "_ZN39_GLOBAL__N__56a1e2f0_13_curve_fold_cu_kFqN12k_window_sumI3Fq27MulFoldLi4EEEvPKjS4_S4_PKiPjS7_S7_x"
 _FQ_MUL_MMA = "_Z11fq_mul_callI10MulFoldMmaE2FpI8FqParamsES3_S3_"
 _MUL_MMA = "_Z10mul_calledI10MulFoldMma8FqParamsE2FpIT0_ES4_S4_"
 
@@ -645,12 +654,14 @@ def test_mma_instances_keep_their_names():
     assert _build.short_name(_INV_FQ) == "k_mont_inv<FqParams,MulFoldMma>"
     assert _build.short_name(_G2_TEAM) == "k_add_team<AddTeamG2,MulFoldMma>"
     assert _build.short_name(_G1_ADD_DISTINCT) == "k_add_distinct<FqParams,Called<MulFold>>"
+    assert _build.short_name(_G1_WINDOW) == "k_window_sum<FqParams,Called<MulFold>,4>"
+    assert _build.short_name(_G2_WINDOW) == "k_window_sum<Fq2,MulFold,4>"
     names = (_SCAN, _DBL, _DBL_INLINE, _SHIFT, _G2_DBL, _G2_SCAN, _G2_SHIFT, _G1_ADD, _INV_FR, _INV_FQ, _G2_TEAM,
-             _G1_ADD_DISTINCT)
+             _G1_ADD_DISTINCT, _G1_WINDOW, _G2_WINDOW)
     assert [chip_smoke.instance_name(_build.short_name(n)) for n in names] == [
         "g1_madd_scan_fold", "g1_double_fold", "g1_double_fold", "g1_add_shift_fold", "g2_double_fold",
         "g2_madd_scan_fold", "g2_add_shift_fold", "g1_add_fold", "mont_inv_fr_fold", "mont_inv_fq_fold",
-        "g2_add_fold", "g1_add_distinct_fold"]
+        "g2_add_fold", "g1_add_distinct_fold", "g1_window_sum_fold", "g2_window_sum_fold"]
     assert _build.short_name(_MUL_MMA) == "mul_called<MulFoldMma,FqParams>"
     assert _build.short_name(_FQ_MUL_MMA) == "fq_mul_call<MulFoldMma,FqParams>"
     assert chip_smoke.instance_name(_build.short_name(_MUL_MMA)) is None
@@ -742,6 +753,20 @@ _SASS = f"""
         /*0920*/                   FFMA R1, R2, R3, R4 ;
         /*0930*/                   IDP.4A.U8.S8 R4, R8, c[0x3][0x0], R4 ;
         /*0940*/                   RET.REL.NODEC R20 0x0 ;
+		Function : {_G1_WINDOW}
+        /*0c00*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0c10*/                   CALL.REL.NOINC 0xc40 ;
+        /*0c20*/                   SHFL.DOWN PT, R9, R9, 0x1, 0x1c1f ;
+        /*0c30*/                   EXIT ;
+        /*0c40*/                   FFMA R1, R2, R3, R4 ;
+        /*0c50*/                   IDP.4A.U8.S8 R4, R8, c[0x3][0x0], R4 ;
+        /*0c60*/                   IDP.4A.U8.S8 R5, R8, c[0x3][0x4], R5 ;
+        /*0c70*/                   RET.REL.NODEC R20 0x0 ;
+		Function : {_G2_WINDOW}
+        /*0d00*/                   CALL.REL.NOINC 0xd20 ;
+        /*0d10*/                   EXIT ;
+        /*0d20*/                   IDP.4A.U8.S8 R4, R8, c[0x3][0x0], R4 ;
+        /*0d30*/                   RET.REL.NODEC R20 0x0 ;
 """
 
 
@@ -750,9 +775,8 @@ def test_sass_counts_hold_the_called_multiply():
     calls out of line, which cuobjdump lists inside the kernel's code: the
     tensor-core instances (the G2 doubling, scan, suffix round and team
     add, the G1 complete add and both chains among them) show IMMA and no
-    IDP, the G1
-    fold distinct add the dp4a of mul_fold, each under its kernels-line
-    name."""
+    IDP, the G1 fold distinct add and the fold window sums (DP4A_KERNELS)
+    the dp4a of mul_fold, each under its kernels-line name."""
     _root_on_path()
     import chip_smoke
 
@@ -768,10 +792,15 @@ def test_sass_counts_hold_the_called_multiply():
         "mont_inv_fq_fold": {"IMMA": 1, "IDP": 0, "FFMA": 1, "all": 4},
         "g2_add_fold": {"IMMA": 2, "IDP": 0, "FFMA": 0, "all": 5},
         "g1_add_distinct_fold": {"IMMA": 0, "IDP": 1, "FFMA": 1, "all": 5},
+        "g1_window_sum_fold": {"IMMA": 0, "IDP": 2, "FFMA": 1, "all": 8},
+        "g2_window_sum_fold": {"IMMA": 0, "IDP": 1, "FFMA": 0, "all": 4},
     }
     assert all(counts["IMMA"] and not counts["IDP"] for k, counts in chip_smoke.sass_counts(_SASS).items()
                if k in hf.MMA_KERNELS)
     assert set(hf.MMA_KERNELS) <= set(chip_smoke.sass_counts(_SASS))
+    assert all(counts["IDP"] and not counts["IMMA"] for k, counts in chip_smoke.sass_counts(_SASS).items()
+               if k in chip_smoke.DP4A_KERNELS)
+    assert set(chip_smoke.DP4A_KERNELS) <= set(chip_smoke.sass_counts(_SASS))
 
 
 def test_fold_launcher_uploads_the_b_operand_once_a_card(monkeypatch):

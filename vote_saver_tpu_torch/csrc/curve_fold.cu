@@ -24,7 +24,7 @@
 //     FMAs of the digit columns, one issue slot each.  The ten kernels run
 //     in their converged form (curve_kernels.cuh, add_team.cuh).
 //   * every other kernel (the single-row madd, the distinct and flagged
-//     adds), none of them on the vote path: MulFold (mul_modes.cuh), the
+//     adds, setup's window sum), none of them on the vote path: MulFold (mul_modes.cuh), the
 //     product as 72 x 52 dp4a a lane against the matrix in this unit's
 //     __constant__ memory; bound by the 2,304 FMAs and those 3,744 dp4a
 //     with their constant reads, one lane at a time.

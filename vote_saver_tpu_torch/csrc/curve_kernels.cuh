@@ -13,9 +13,12 @@
 //      k_add_shift<E, M> <- the same call in _suffix_and_total's rounds, with
 //                        the roll and select of its partner inside
 //   K3d k_add_distinct<E, M> <- _g1_add_call / _g2_add_call with
-//                        complete=False, reached through
-//                        JacobianOps.add_distinct by FixedBaseTable.mul's
-//                        window sum, i.e. by Groth16 setup on the device
+//                        complete=False (JacobianOps.add_distinct)
+//      k_window_sum<E, M, T> <- the same call, repeated by
+//                        FixedBaseTable.mul's window sum (curve_ops'
+//                        sum_reduce, distinct=True), i.e. by Groth16 setup
+//                        on the device: the gather and the whole sum in one
+//                        launch
 //   K4 k_double<E, M> <- pallas_field._g1_dbl_call / _g2_dbl_call, with a
 //                        count: the fori_loop of doublings that msm_sched's
 //                        _horner and curve_ops' scalar_mul_windowed wrap
@@ -511,6 +514,154 @@ __global__ void __launch_bounds__(kThreads)
   store(oz, i, r.z);
 }
 
+// K3d as FixedBaseTable.mul's window sum repeats it (Groth16 setup on the
+// device): out[i] = sum over w < 32 of table[w][digits[i][w]], the table
+// Jacobian (32, 256) points (entry d of row w is d 2^(8w) times the base,
+// entry 0 infinity) and digits (n, 32) int32, the LSB window first.  The
+// JAX package gathers a (32, n) block and sums it by the Hillis-Steele scan
+// of curve_ops.sum_reduce(distinct=True), of which it keeps index 0: that
+// index is the balanced tree over the 32 windows in their order, 16 + 8 + 4
+// + 2 + 1 = 31 distinct adds with the lower windows as p and the higher as
+// q at every node.  This kernel adds the same operands in the same order
+// with the same formula, so its limbs are the scan's; the scan's other
+// lanes (5 x 32 adds a scalar, against 31) and the gathered block are
+// never computed.
+//
+// A team of T threads (T in 1, 2, 4, 8) owns one output.  Thread `rank`
+// sums its K = 32 / T consecutive windows: pairs of windows, each read from
+// the table (16-byte loads; the table, 1.18 MB in G1 and 2.36 MB in G2,
+// stays in L2), then a binary counter over the pairs, which parks the
+// lower partial sums in the block's shared memory (ParkedJac, at most
+// log2(K) - 1 of them) and merges two as soon as they cover as many
+// windows: the balanced subtree of its windows.  Then log2(T) rounds of
+// __shfl_down_sync join the team's subtrees, rank r (a multiple of 2d in
+// round d) adding rank r + d's sum as q.  Every add is one call site of
+// jac_add_distinct in the loop (so its multiplies are one copy in the
+// code); infinity (digit 0, or a subtree of zero digits) takes the
+// formula's selects.
+//
+// What bounds it: the 31 x 16 multiplies an output (G2: Fq2 ones, 3 Fq
+// multiplies each), about 496 x 300 multiply-adds in G1, against 32 x 48 B
+// (G2: 96 B) of L2 reads and 144 B (288 B) of output.  A team shortens an
+// output's chain of adds from 31 to 32 / T - 1 + log2(T) at the cost of
+// threads idle in the rounds (T = 4: 31 of 36 thread-adds do work), and
+// multiplies the threads in flight by T; the kernel's registers are
+// k_add_distinct's, and a thread parks log2(32 / T) - 1 points of shared
+// memory.  T = 4 ran fastest in both groups at the depth-6 setup's widths
+// (PERF.md), so it is kWindowTeam (hopper_field.WINDOW_TEAM); the loop unit
+// also builds T = 1, 2 and 8, which chip_smoke.py times beside it, the v1
+// and fold units only kWindowTeam.
+constexpr int kWindowTeam = 4;
+constexpr int kFbWindows = 32;
+constexpr int kFbEntries = 256;
+
+__host__ __device__ constexpr int log2_of(int v) { return v <= 1 ? 0 : 1 + log2_of(v / 2); }
+
+template <int T>
+constexpr int kWindowParked = log2_of(kFbWindows / T) - 1;
+
+template <class E, int T>
+constexpr int kWindowSmem = kWindowParked<T> * kThreads * (int)sizeof(Jac<E>);
+
+// 16-byte read-only loads of element i of a table whose rows are 16-byte
+// aligned (Fq: 48 B, Fq2: 96 B).
+template <class P>
+__device__ __forceinline__ void load_ro16(Fp<P>& x, const uint32_t* __restrict__ base, int64_t i) {
+  static_assert(P::L % 4 == 0, "whole uint4 words");
+  const uint4* p = reinterpret_cast<const uint4*>(base + i * P::L);
+#pragma unroll
+  for (int j = 0; j < P::L / 4; ++j) {
+    const uint4 v = __ldg(p + j);
+    x.v[4 * j] = v.x;
+    x.v[4 * j + 1] = v.y;
+    x.v[4 * j + 2] = v.z;
+    x.v[4 * j + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void load_ro16(Fq2& x, const uint32_t* __restrict__ base, int64_t i) {
+  load_ro16(x.c0, base, 2 * i);
+  load_ro16(x.c1, base, 2 * i + 1);
+}
+
+template <class E>
+__device__ __forceinline__ Jac<E> window_entry(const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
+                                               const uint32_t* __restrict__ tz, int w, int32_t d) {
+  const int64_t k = (int64_t)w * kFbEntries + d;
+  Jac<E> e;
+  load_ro16(e.x, tx, k);
+  load_ro16(e.y, ty, k);
+  load_ro16(e.z, tz, k);
+  return e;
+}
+
+template <class P>
+__device__ __forceinline__ void shfl_down(unsigned mask, Fp<P>& x, int d, int width) {
+#pragma unroll
+  for (int j = 0; j < P::L; ++j) x.v[j] = __shfl_down_sync(mask, x.v[j], d, width);
+}
+
+__device__ __forceinline__ void shfl_down(unsigned mask, Fq2& x, int d, int width) {
+  shfl_down(mask, x.c0, d, width);
+  shfl_down(mask, x.c1, d, width);
+}
+
+template <class E, class M, int T>
+__global__ void __launch_bounds__(kThreads)
+    k_window_sum(const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
+                 const uint32_t* __restrict__ tz, const int32_t* __restrict__ digits, uint32_t* ox,
+                 uint32_t* oy, uint32_t* oz, long long n) {
+  constexpr int K = kFbWindows / T, ROUNDS = log2_of(T);
+  constexpr int W = (int)(sizeof(Jac<E>) / 4);
+  static_assert(K >= 4 && K * T == kFbWindows && 32 % T == 0, "T in 1, 2, 4, 8");
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = t / T;
+  if (i >= n) return;  // the whole team: teams are aligned in the warp
+  const int rank = (int)(t % T);
+  const unsigned team = T == 32 ? 0xffffffffu : ((1u << T) - 1u) << ((threadIdx.x & 31) & ~(T - 1));
+  const int w0 = rank * K;
+  const int32_t* dg = digits + i * kFbWindows + w0;
+  extern __shared__ __align__(16) uint32_t window_parked[];
+  const auto slot = [&](int s) { return ParkedJac<E>{window_parked + s * kThreads * W + threadIdx.x, kThreads}; };
+  Jac<E> cur;
+  int next = 0, top = 0, merges = 0;
+#pragma unroll 1
+  for (int s = 0; s < K - 1 + ROUNDS; ++s) {
+    Jac<E> p, q;
+    bool adds = true;
+    if (s < K - 1) {
+      if (merges == 0) {  // the next pair of windows
+        const int2 d = __ldg(reinterpret_cast<const int2*>(dg + next));
+        p = window_entry<E>(tx, ty, tz, w0 + next, d.x);
+        q = window_entry<E>(tx, ty, tz, w0 + next + 1, d.y);
+        next += 2;
+        merges = __ffs(next / 2) - 1;  // the pair count's trailing zeros
+      } else {  // the newest parked sum (lower windows) and the current one
+        const ParkedJac<E> lo = slot(--top);
+        p = {jx(lo), jy(lo), jz(lo)};
+        q = cur;
+        --merges;
+      }
+    } else if constexpr (ROUNDS > 0) {  // the team's rounds
+      const int d = 1 << (s - (K - 1));
+      p = q = cur;
+      shfl_down(team, q.x, d, T);
+      shfl_down(team, q.y, d, T);
+      shfl_down(team, q.z, d, T);
+      adds = (rank & (2 * d - 1)) == 0;
+    }
+    cur = adds ? jac_add_distinct<E, M>(p, q) : p;
+    if (s < K - 1 && merges == 0 && next < K) {
+      ParkedJac<E> hi = slot(top++);
+      put(hi, cur);
+    }
+  }
+  if (rank != 0) return;
+  store(ox, i, cur.x);
+  store(oy, i, cur.y);
+  store(oz, i, cur.z);
+}
+
 // K5/K6: exc[i] = 1 where lane i hit the doubling corner (p = q, both finite)
 template <class E, class M>
 __global__ void __launch_bounds__(kThreads)
@@ -643,6 +794,46 @@ int launch_add_distinct(int g2, const void* px, const void* py, const void* pz, 
         (uint32_t*)oz, n);
   }
   return (int)cudaGetLastError();
+}
+
+template <class E, class M, int T>
+int launch_window_sum_team(const void* tx, const void* ty, const void* tz, const void* digits, void* ox, void* oy,
+                           void* oz, long long n, cudaStream_t s) {
+  constexpr int smem = kWindowSmem<E, T>;
+  if (smem > 48 * 1024) {  // past the default limit of dynamic shared memory
+    const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(k_window_sum<E, M, T>),
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k_window_sum<E, M, T><<<blocks_for(n * T), kThreads, smem, s>>>(
+      (u32p)tx, (u32p)ty, (u32p)tz, (const int32_t*)digits, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+// kWindowTeam, and where kAllTeams the other team sizes too
+template <class E, class M, bool kAllTeams>
+int launch_window_sum_of(const void* tx, const void* ty, const void* tz, const void* digits, void* ox, void* oy,
+                         void* oz, long long n, int team, cudaStream_t s) {
+  if (team == kWindowTeam) return launch_window_sum_team<E, M, kWindowTeam>(tx, ty, tz, digits, ox, oy, oz, n, s);
+  if constexpr (kAllTeams) {
+    switch (team) {
+      case 1: return launch_window_sum_team<E, M, 1>(tx, ty, tz, digits, ox, oy, oz, n, s);
+      case 2: return launch_window_sum_team<E, M, 2>(tx, ty, tz, digits, ox, oy, oz, n, s);
+      case 8: return launch_window_sum_team<E, M, 8>(tx, ty, tz, digits, ox, oy, oz, n, s);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// table (32, 256, L) / (32, 256, 2, L) x3, 16-byte aligned; digits (n, 32)
+// int32, each below 256; out (n, L) / (n, 2, L) x3; team kWindowTeam, or
+// where kAllTeams 1, 2, 4 or 8.
+template <class M1, class M2, bool kAllTeams>
+int launch_window_sum(int g2, const void* tx, const void* ty, const void* tz, const void* digits, void* ox,
+                      void* oy, void* oz, long long n, int team, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (g2) return launch_window_sum_of<Fq2, M2, kAllTeams>(tx, ty, tz, digits, ox, oy, oz, n, team, s);
+  return launch_window_sum_of<Fq, M1, kAllTeams>(tx, ty, tz, digits, ox, oy, oz, n, team, s);
 }
 
 // K5 (g2 = 0) / K6 (g2 = 1); exc: (n,) int32.

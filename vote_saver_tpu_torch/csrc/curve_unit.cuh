@@ -22,9 +22,11 @@
 //
 // and gets vs_mont_inv<suffix>, vs_madd<suffix>, vs_g1_add<suffix>,
 // vs_g2_add_team<suffix>, vs_double<suffix>, vs_madd_scan<suffix>,
-// vs_add_shift<suffix>, vs_add_distinct<suffix> and vs_addx<suffix>, each
+// vs_add_shift<suffix>, vs_add_distinct<suffix>, vs_window_sum<suffix> and
+// vs_addx<suffix>, each
 // with the signature of the loop launcher of the same name (kernels.cu,
-// add_team.cu, add_distinct.cu).  Every G1 kernel takes Called<VS_MODE>
+// add_team.cu, add_distinct.cu; the window sum here only at kWindowTeam
+// threads an output).  Every G1 kernel takes Called<VS_MODE>
 // (one out-of-line copy of the mode's multiply a kernel) but the scan, the
 // suffix round, the doubling and the complete add, which take
 // VS_MODE_G1_MMA, every G2 kernel VS_MODE (its Fq2 multiply calls the Fq
@@ -116,6 +118,11 @@ int VS_FN(vs_add_distinct)(int g2, const void* px, const void* py, const void* p
                            const void* qx, const void* qy, const void* qz, void* ox, void* oy,
                            void* oz, long long n, void* stream) {
   return launch_add_distinct<ModeG1, ModeG2>(g2, px, py, pz, qx, qy, qz, ox, oy, oz, n, stream);
+}
+
+int VS_FN(vs_window_sum)(int g2, const void* tx, const void* ty, const void* tz, const void* digits,
+                         void* ox, void* oy, void* oz, long long n, int team, void* stream) {
+  return launch_window_sum<ModeG1, ModeG2, false>(g2, tx, ty, tz, digits, ox, oy, oz, n, team, stream);
 }
 
 int VS_FN(vs_addx)(int g2, const void* px, const void* py, const void* pz, const void* qx,

@@ -48,6 +48,7 @@ UNITS = {
     },
     "add_distinct.cu": {
         "vs_add_distinct": [ctypes.c_int] + [_VP] * 9 + [_LL, _VP],
+        "vs_window_sum": [ctypes.c_int] + [_VP] * 7 + [_LL, ctypes.c_int, _VP],
         "vs_addx": [ctypes.c_int] + [_VP] * 10 + [_LL, _VP],
     },
     "mont_mul_modes.cu": {

@@ -25,24 +25,6 @@ from .field_ops import fq_ops, fr_ops
 from .fq2_ops import Fq2Ops, fq2_ops
 
 
-def _tree_sum(adder, p, axis: int):
-    """Hillis-Steele sum of points over `axis`: step s adds points[i + 2^s]
-    into points[i] (lanes past the end keep their value); index 0 ends with
-    the total."""
-    coords = tuple(torch.movedim(c, axis, 0) for c in p)
-    n = coords[0].shape[0]
-    if n == 1:
-        return tuple(c[0] for c in coords)
-    idx = torch.arange(n, device=coords[0].device)
-    for s in range((n - 1).bit_length()):
-        shift = 1 << s
-        shifted = tuple(torch.roll(c, -shift, dims=0) for c in coords)
-        added = adder(coords, shifted)
-        valid = (idx + shift < n).reshape((n,) + (1,) * (coords[0].dim() - 1))
-        coords = tuple(torch.where(valid, a, c) for a, c in zip(added, coords))
-    return tuple(c[0] for c in coords)
-
-
 class JacobianOps:
     """Short-Weierstrass y^2 = x^3 + b with a = 0, over FieldOps or Fq2Ops."""
 
@@ -125,7 +107,7 @@ class JacobianOps:
         points[i + 2^s] into points[i]; index 0 ends with the total).
         distinct=True uses add_distinct (valid when every partial sum is
         provably distinct, e.g. window decompositions)."""
-        return _tree_sum(self.add_distinct if distinct else self.add, p, axis)
+        return hf.tree_sum(self.add_distinct if distinct else self.add, p, axis)
 
     def to_affine(self, p):
         """Fermat-inversion affine conversion; infinity maps to (0, 0)."""
@@ -193,7 +175,7 @@ class EdwardsOps:
     def sum_reduce(self, p, axis: int = 0):
         """Log-depth Hillis-Steele sum over `axis` (complete addition, so
         out-of-range lanes are only left unchanged)."""
-        return _tree_sum(self.add, p, axis)
+        return hf.tree_sum(self.add, p, axis)
 
     def to_affine(self, p):
         """(x, y) = (X / Z, Y / Z): one Fermat inversion (K1's chain in one

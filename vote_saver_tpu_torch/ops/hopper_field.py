@@ -16,6 +16,9 @@ keeps the signature and layout of its Pallas entry point:
      ``g1_add_shift``/``g2_add_shift(coords, shift)``: one suffix round of
      the MSM's combination phase, its partner read in the kernel
   K3d ``g1_add_distinct``/``g2_add_distinct(p, q)`` <- g1/g2_add_pallas(complete=False)
+     ``g1_window_sum``/``g2_window_sum(table, digits)``: FixedBaseTable.mul's
+     window sum, the gather and the tree of 31 distinct adds an output in
+     one launch
   K4 ``g1_double``/``g2_double(p, times=1)``        <- g1/g2_double_pallas,
      ``times`` doublings in one launch
   K5/K6 ``g1_addx``/``g2_addx(p, q) -> (coords, exc)`` <- g1/g2_addx_pallas
@@ -70,7 +73,7 @@ MODES = ("loop", "v1", "fold")
 CURVE_KERNELS = (
     "mont_inv_fq", "mont_inv_fr", "g1_madd", "g2_madd", "g1_madd_scan", "g2_madd_scan",
     "g1_add", "g2_add", "g1_add_shift", "g2_add_shift", "g1_add_distinct", "g2_add_distinct",
-    "g1_double", "g2_double", "g1_addx", "g2_addx",
+    "g1_double", "g2_double", "g1_addx", "g2_addx", "g1_window_sum", "g2_window_sum",
 )
 KERNELS = (
     "mont_mul_fq", "mont_mul_fr", "g1_madd", "g2_madd",
@@ -78,7 +81,7 @@ KERNELS = (
     "g1_add_distinct", "g2_add_distinct",
     "mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold",
     "g1_addx", "g2_addx", "mont_inv_fq", "mont_inv_fr",
-    "g1_madd_scan", "g2_madd_scan", "g1_add_shift", "g2_add_shift",
+    "g1_madd_scan", "g2_madd_scan", "g1_add_shift", "g2_add_shift", "g1_window_sum", "g2_window_sum",
     *(f"{k}_{mode}" for mode in MODES[1:] for k in CURVE_KERNELS),
 )
 
@@ -136,13 +139,17 @@ REPLACES = {
     # the K3 call of _suffix_and_total's rounds (vote_saver_tpu/ops/msm_sched.py:492-505)
     "g1_add_shift": "vote_saver_tpu/ops/pallas_field.py:517",
     "g2_add_shift": "vote_saver_tpu/ops/pallas_field.py:570",
+    # the K3d call that FixedBaseTable.mul's window sum (vote_saver_tpu/ops/msm.py:86-92) repeats
+    "g1_window_sum": "vote_saver_tpu/ops/pallas_field.py:517",
+    "g2_window_sum": "vote_saver_tpu/ops/pallas_field.py:570",
 }
 # v1 and fold: the pallas_call of the loop instance, compiled in that mode
 REPLACES.update({instance(k, mode): REPLACES[k] for mode in MODES[1:] for k in CURVE_KERNELS})
 # the csrc/ translation unit each kernel is built from
 SOURCES = dict.fromkeys(KERNELS, "vote_saver_tpu_torch/csrc/kernels.cu")
 SOURCES["g2_add"] = "vote_saver_tpu_torch/csrc/add_team.cu"
-SOURCES.update(dict.fromkeys(("g1_add_distinct", "g2_add_distinct", "g1_addx", "g2_addx"),
+SOURCES.update(dict.fromkeys(("g1_add_distinct", "g2_add_distinct", "g1_addx", "g2_addx", "g1_window_sum",
+                              "g2_window_sum"),
                              "vote_saver_tpu_torch/csrc/add_distinct.cu"))
 SOURCES.update(dict.fromkeys(("mont_mul_fq_v1", "mont_mul_fr_v1", "mont_mul_fq_fold", "mont_mul_fr_fold"),
                              "vote_saver_tpu_torch/csrc/mont_mul_modes.cu"))
@@ -609,6 +616,46 @@ def add_shift_plain(g2: bool, coords, shift: int):
     return add_plain(g2, coords, shift_partner(coords, shift, inf))
 
 
+def tree_sum(adder, p, axis: int):
+    """Hillis-Steele sum of points over `axis`: step s adds points[i + 2^s]
+    into points[i] (lanes past the end keep their value); index 0 ends with
+    the total."""
+    coords = tuple(torch.movedim(c, axis, 0) for c in p)
+    n = coords[0].shape[0]
+    if n == 1:
+        return tuple(c[0] for c in coords)
+    idx = torch.arange(n, device=coords[0].device)
+    for s in range((n - 1).bit_length()):
+        shift = 1 << s
+        shifted = tuple(torch.roll(c, -shift, dims=0) for c in coords)
+        added = adder(coords, shifted)
+        valid = (idx + shift < n).reshape((n,) + (1,) * (coords[0].dim() - 1))
+        coords = tuple(torch.where(valid, a, c) for a, c in zip(added, coords))
+    return tuple(c[0] for c in coords)
+
+
+def check_window_digits(digits, entries: int) -> None:
+    """IndexError where a window digit (a tensor or a numpy array) is not
+    an entry of a table row of `entries`: the kernel reads the table
+    unchecked.  On a CUDA tensor the check is a reduction read back on the
+    host, so FixedBaseTable.mul checks its digits on the host first."""
+    empty = digits.size == 0 if isinstance(digits, np.ndarray) else digits.numel() == 0
+    if not empty and (int(digits.min()) < 0 or int(digits.max()) >= entries):
+        raise IndexError(f"a window digit is not an entry of the table's {entries}")
+
+
+def window_sum_plain(g2: bool, table, digits):
+    """FixedBaseTable.mul's window sum as it ran before k_window_sum: the
+    (W, n) gather table[w][digits[:, w]] of the Jacobian table (W, E, ...)
+    x3, then the Hillis-Steele sum over the windows by add_distinct_plain;
+    a digit past a row raises IndexError."""
+    check_window_digits(digits, table[0].shape[1])
+    d = torch.as_tensor(digits, device=table[0].device).to(torch.int64)
+    rows = torch.arange(table[0].shape[0], device=d.device)[:, None]
+    gathered = tuple(c[rows, d.T] for c in table)
+    return tree_sum(lambda p, q: add_distinct_plain(g2, p, q), gathered, 0)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -973,6 +1020,56 @@ def g1_add_distinct(p, q, mode=None):
 def g2_add_distinct(p, q, mode=None):
     """K3d over Fq2; coords (..., 2, L)."""
     return _add(True, p, q, complete=False, mode=mode)
+
+
+# threads a window-sum output (k_window_sum's team; csrc kWindowTeam), in
+# G1 and G2: the fastest of 1, 2, 4 and 8 on the card at the depth-6
+# setup's widths (PERF.md).  The loop instance also takes 1, 2 and 8, which
+# chip_smoke.py times beside it; v1 and fold take only this.
+WINDOW_TEAM = 4
+# k_window_sum's table: 32 windows of 8 bits
+WINDOW_SHAPE = (32, 256)
+
+
+def _window_sum(g2: bool, table, digits, checked: bool, mode, team):
+    mode = _mode(mode)
+    if not _on_cuda(table[0]):
+        return window_sum_plain(g2, table, digits)
+    team = WINDOW_TEAM if team is None else team
+    if team not in ((1, 2, 4, 8) if mode == "loop" else (WINDOW_TEAM,)):
+        raise ValueError(f"the {mode} window sum takes no team of {team!r} threads an output")
+    tail = (2, _L) if g2 else (_L,)
+    dev = table[0].device
+    _check(table, WINDOW_SHAPE[1:] + tail, WINDOW_SHAPE[0], dev)
+    table = tuple(map(_aligned16, table))
+    if (digits.dtype != torch.int32 or digits.device != dev or digits.dim() != 2
+            or digits.shape[1] != WINDOW_SHAPE[0] or not digits.is_contiguous()):
+        raise ValueError(f"digits must be a contiguous (n, {WINDOW_SHAPE[0]}) int32 tensor on {dev}")
+    if not checked:
+        check_window_digits(digits, WINDOW_SHAPE[1])
+    n = digits.shape[0]
+    out = tuple(torch.empty((n,) + tail, dtype=torch.int32, device=dev) for _ in range(3))
+    name = instance("g2_window_sum" if g2 else "g1_window_sum", mode)
+    if n:
+        ptrs = [t.data_ptr() for t in (*table, digits, *out)]
+        _raise_on(_launcher("vs_window_sum", mode, dev)(int(g2), *ptrs, n, int(team), _stream(dev)), name)
+        _count(name, n)
+    return out
+
+
+def g1_window_sum(table, digits, checked: bool = False, mode=None, team=None):
+    """K3d as FixedBaseTable.mul's window sum: table (32, 256, L) x3
+    Jacobian, entry 0 of each row infinity; digits (n, 32) int32, the LSB
+    window first -> (n, L) x3, the sum of each row's 32 entries in the JAX
+    scan's tree.  A digit past a row raises IndexError (``checked=True``:
+    the caller has run ``check_window_digits``, so nothing is read back from
+    the card).  `team`: threads an output, ``WINDOW_TEAM`` by default."""
+    return _window_sum(False, table, digits, checked, mode, team)
+
+
+def g2_window_sum(table, digits, checked: bool = False, mode=None, team=None):
+    """G2 variant: table (32, 256, 2, L) x3 -> (n, 2, L) x3."""
+    return _window_sum(True, table, digits, checked, mode, team)
 
 
 def _addx(g2: bool, p, q, mode=None):

@@ -6,8 +6,9 @@ Counterpart of ``msm_var_base``, ``FixedBaseTable``,
 fallback of the scheduled MSM, run when a mixed-add lane flags the doubling
 corner: every add is the complete K3 and every doubling K4, so no corner
 exists on it.  ``FixedBaseTable`` multiplies many scalars by one base (the
-CRS in Groth16 setup): a table gather per 8-bit window, then a window sum
-by the distinct-operand add K3d.
+CRS in Groth16 setup): a table entry per 8-bit window, summed by the
+distinct-operand add K3d in the JAX scan's tree, the gather and the sum in
+one launch on the card (``hopper_field.g1_window_sum``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from ..params import R
 from ..refimpl import jacobian as rj
 from . import curve_ops as co
+from . import hopper_field as hf
 from .curve_ops import JacobianOps
 
 FB_WINDOW = 4
@@ -38,10 +40,11 @@ def msm_var_base(ops: JacobianOps, points, scalar_digits):
 class FixedBaseTable:
     """Host-built table entry[w][d] = d * 2^(bw*w) * base (entry 0 of each
     row is infinity), as Jacobian tensors (W, 2^bw, ...): 8-bit windows and
-    32 of them by default.  The per-scalar window sum uses distinct-operand
-    adds: partial sums cover disjoint scalar bit ranges, so no true doubling
-    occurs (infinity is handled by the kernel's selects).  Its digits are
-    ``digits()``'s, not the 4-bit ``scalars_to_window_digits`` defaults."""
+    32 of them by default (the card's window sum takes only that shape).
+    The per-scalar window sum uses distinct-operand adds: partial sums cover
+    disjoint scalar bit ranges, so no true doubling occurs (infinity is
+    handled by the kernel's selects).  Its digits are ``digits()``'s, not
+    the 4-bit ``scalars_to_window_digits`` defaults."""
 
     def __init__(self, base_affine_int, group: str = "g1", window_bits: int = 8):
         self.group = group
@@ -62,10 +65,10 @@ class FixedBaseTable:
         if key not in self._dev:  # the table is copied to each device once
             self._dev[key] = tuple(c.to(device) for c in self.table)
         table = self._dev[key]
-        d = torch.as_tensor(digits, device=table[0].device).to(torch.int64)
-        rows = torch.arange(self.num_windows, device=d.device)[:, None]
-        gathered = tuple(c[rows, d.T] for c in table)  # (W, n, ...)
-        return ops.sum_reduce(gathered, axis=0, distinct=True)
+        hf.check_window_digits(digits, 1 << self.window_bits)  # on the host, before they go up
+        d = torch.as_tensor(digits, device=table[0].device).to(torch.int32).contiguous()
+        window_sum = hf.g2_window_sum if ops.is_fq2 else hf.g1_window_sum
+        return window_sum(table, d, checked=True)
 
     def digits(self, scalars) -> np.ndarray:
         """Ints -> (n, W) int32 window digits, LSB window first."""

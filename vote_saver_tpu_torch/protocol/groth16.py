@@ -123,12 +123,16 @@ def _fb_table(group: str) -> msm_mod.FixedBaseTable:
 
 def _fixed_base_batch(group: str, scalars: list[int], device) -> list:
     """Fixed-base multiplication of many scalars on `device`; returns host
-    affine points (None for a zero scalar).  Chunks of 2048 scalars, the
-    last one zero-padded, as in the JAX package: every chunk's window sum
-    is 5 distinct adds over 32 x 2048 lanes."""
+    affine points (None for a zero scalar).  On the card every scalar of
+    the group goes in one window-sum launch and one affine conversion.  On
+    the CPU (the plain versions) chunks of 2048 scalars, the last one
+    zero-padded, as in the JAX package: every chunk's window sum is 5
+    distinct adds over 32 x 2048 lanes."""
     table = _fb_table(group)
     ops = co.g1_ops() if group == "g1" else co.g2_ops()
     from_dev = co.g1_from_device if group == "g1" else co.g2_from_device
+    if torch.device(device).type == "cuda":
+        return from_dev(table.mul(ops, table.digits(scalars), device))
     out = []
     for off in range(0, len(scalars), _FB_CHUNK):
         chunk = scalars[off : off + _FB_CHUNK]

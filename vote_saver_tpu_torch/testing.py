@@ -1,4 +1,5 @@
-"""Inputs that drive every special lane of the curve kernels K2-K6.
+"""Inputs that drive every special lane of the curve kernels K2-K6 and of
+setup's window sum.
 
 Shared by the CPU tests and chip_smoke.py, so the kernels meet the same
 corner cases on the card as their plain versions meet against the Pallas
@@ -13,7 +14,7 @@ import random
 import numpy as np
 import torch
 
-from .params import Q
+from .params import Q, R
 from .refimpl import curves as rc
 from .refimpl import field as rf
 from .refimpl import jacobian as rj
@@ -46,6 +47,18 @@ ADDX_EXC = [0, 0, 0, 1, 1, 0, 0, 0]
 # then lifted again, only the (0, 0) point, (0, 0) between points, signs,
 # idle rows between entries
 SCAN_EXC = [0, 1, 0, 0, 0, 0, 0]
+
+
+def window_scalars(n: int, rnd: random.Random) -> list[int]:
+    """n >= 6 scalars for FixedBaseTable's window sum (32 windows of 8
+    bits): 0, 1 and R - 1, a scalar whose low 16 windows are zero (an
+    infinite left subtree), one whose high 16 windows are zero, one with a
+    single nonzero window (below window 31, so below R), then n - 6 random
+    scalars."""
+    low_zero = rnd.randrange(1, R >> 128) << 128
+    high_zero = rnd.randrange(1, 1 << 128)
+    single = rnd.randrange(1, 256) << (8 * rnd.randrange(31))
+    return [0, 1, R - 1, low_zero, high_zero, single] + [rnd.randrange(R) for _ in range(n - 6)]
 
 
 def neg_y(y, g2: bool):
