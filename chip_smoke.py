@@ -53,8 +53,9 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      Fq inversions; once more under torch.profiler (loop): the device ms of
      each window sum;
   5b. the int8 matmul NTT (``ops/ntt_mxu.py``) at the vote path's shape,
-     B = 16 rows of a 2^15 domain: each of the four kinds exactly equal to
-     the radix-2 path on the card, both timed with CUDA events; each int8
+     B = 16 rows of a 2^15 domain, and at depth 14's, B = 32 rows of a 2^16
+     domain: each of the four kinds exactly equal to the radix-2 path on
+     the card, both timed with CUDA events; at 2^15, each int8
      product (``torch._int_mm``, a library call: step A, step C, the fold)
      timed alone against its bound, its device kernels named by
      torch.profiler; one fold's device launches counted;
@@ -108,6 +109,16 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      arm, both timed, and at depth 14 on the card only, its root and
      MERKLE_SAMPLES leaves and parents against the oracle: seconds,
      hashes/s, peak device memory and launches a depth;
+  11b. ``[scale]``: BASELINE configs 3 and 4 at their depths (10, 14) and
+     batch (B = 32), cut to 64 voters: setup on the card byte for byte
+     against the host-native arm (keys cached under ``.torch_cache/``),
+     then ``vote_saver_tpu_torch.scale.run`` through the stream from an
+     empty cache (setup and the Merkle tree on the card, the parse, two
+     batches, lanes 0 and 31 of each among the verified ballots, the
+     tally, its check and its counts); every vote kernel launched on its
+     batches, no single-row madd, H's transforms on the matmul NTT at
+     2^15 / 2^16; seconds by phase and stage, launches a batch, peak
+     device memory;
   12. the port's CLI over a depth-6 election in a temporary workdir, phase
      by phase (every voter's keys; setup and the tree on the card; one
      vote call of B = 16; their verification; the tally and its check;
@@ -120,10 +131,11 @@ Every count of kernel launches is set to 0 just before a path runs (setup,
 the combination phase through K5/K6, the probes, the timed device-arm
 batches, each path of ``[modes]`` in each mode, the host-witness batch,
 the tally, each pass of the stream and of its sequential comparison, each
-``vote_phase_batch`` call, the Merkle trees, each CLI phase that votes or
-sets up, the C-ABI vote) and read just after it; the ``kernels`` line reports each kernel's count on its
+``vote_phase_batch`` call, the Merkle trees, each ``[scale]`` run, each
+CLI phase that votes or sets up, the C-ABI vote) and read just after it; the ``kernels`` line reports each kernel's count on its
 path (a v1 or fold instance, K1's included: on that mode's path in
-``[modes]``; K1 Fr's on the Merkle build, ``merkle_launches``), and its
+``[modes]``; K1 Fr's on the Merkle build, ``merkle_launches``; each vote
+kernel's on ``[scale]``'s two batches at each depth, ``scale_launches``), and its
 registers and spill bytes from ptxas's report.  A kernel of a path that launched 0 times fails
 the run, and so does a launch of K2's single-row form on the vote path,
 which runs the scan.  Each kernel's ``bound_ms`` is the larger of
@@ -133,7 +145,9 @@ multiplies and issued instructions over documented per-SM rates times the
 SM count and the maximum SM clock (``micro.card_int_rates``; multiply-adds
 at K9's measured rate where that is higher), float32 operations over 67
 TFLOP/s, int8 products over 1,979 TOP/s.  The run imports nothing of JAX or
-of the JAX package.  The last two lines of stdout are ``{"kernels": [...]}`` and
+of the JAX package.  The ballots that phases 7-10 verify are each checked
+in full by ``verify_ballot`` (host code) on a pool of spawned processes
+(``verified``), terminated at exit.  The last two lines of stdout are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device:
 
     python3 chip_smoke.py
@@ -141,8 +155,12 @@ of the JAX package.  The last two lines of stdout are ``{"kernels": [...]}`` and
 
 from __future__ import annotations
 
+import atexit
+import functools
 import importlib.abc
 import json
+import multiprocessing
+import os
 import pathlib
 import pickle
 import random
@@ -235,6 +253,8 @@ WIDTH_KERNELS = ("g2_add", "mont_mul_fr", "g1_add")
 # the matmul NTT at the vote path's shape: B = 16 rows of the depth-6 2^15 domain;
 # a batch runs 3 inv + 3 fwd_coset + 1 inv_coset transforms
 NTT_N, NTT_B = 1 << 15, 16
+# and at depth 14's: B = 32 rows of a 2^16 domain (BASELINE config 4), each kind against radix-2
+NTT_WIDE_N, NTT_WIDE_B = 1 << 16, 32
 NTT_KINDS = (("fwd", "ntt"), ("inv", "intt"), ("fwd_coset", "coset_ntt"), ("inv_coset", "coset_intt"))
 NTT_PER_BATCH = 7
 # [stream]: batches past [slice]'s three device-arm ones, and the batches
@@ -246,6 +266,11 @@ STREAM_EXTRA, SYNC_BATCHES = 2, 2
 MERKLE_DEPTHS, MERKLE_DEEP, MERKLE_SAMPLES = (DEPTH, 10), 14, 64
 # the Pedersen hash's kernels: K1 in Fr, its multiply and its Fermat chain
 MERKLE_KERNELS = ("mont_mul_fr", "mont_inv_fr")
+# [scale]: BASELINE configs 3 and 4 (depths 10 and 14, B = 32) cut to 64 voters, two stream
+# batches; the voters verified (lanes 0 and 31 of each batch among them); H's domain at each depth
+SCALE_CONFIGS, SCALE_VOTERS = (3, 4), 64
+SCALE_VERIFY = (0, 11, 22, 31, 32, 43, 54, 63)
+SCALE_DOMAIN = {10: 1 << 15, 14: 1 << 16}
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -265,6 +290,28 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     log(f"FAIL: {msg}")
     raise SystemExit(1)
+
+
+def _verify(args) -> bool:
+    """verify_ballot(proof, pinput, ct, vk_eid, vk_crs), in a worker process."""
+    from vote_saver_tpu_torch.protocol import phases
+
+    return phases.verify_ballot(*args)
+
+
+@functools.cache
+def _verify_pool():
+    """The processes verify_ballot runs on (host code: pairings and affine
+    multiplies, about a second a ballot), terminated at exit."""
+    pool = multiprocessing.get_context("spawn").Pool(max(1, len(os.sched_getaffinity(0)) - 1))
+    atexit.register(pool.terminate)
+    return pool
+
+
+def verified(ballots, vk_eid: bytes, vk_crs: bytes) -> int:
+    """How many of `ballots` pass verify_ballot, every one checked in full,
+    spread over the worker processes."""
+    return sum(_verify_pool().map(_verify, [(b[0], b[1], b[2], vk_eid, vk_crs) for b in ballots]))
 
 
 # ---------------------------------------------------------------------------
@@ -933,36 +980,53 @@ def run_probes(gpu: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def election(depth: int):
-    """Voter keys, CRS + SAVER keys (host-native setup from FrRandom(SEED))
-    and election data for `depth` (blobs), cached under .torch_cache/ by
-    depth and seed; ``setup_s`` is the host-native setup's seconds, None
-    when cached."""
+def host_keys(depth: int):
+    """CRS + SAVER keys for `depth` (blobs) through the host-native setup
+    from FrRandom(SEED), cached under .torch_cache/ by depth and seed:
+    (keys, the setup's seconds or None when cached)."""
     from vote_saver_tpu_torch.circuit.voting import build_voting_circuit
     from vote_saver_tpu_torch.protocol import phases
     from vote_saver_tpu_torch.utils.rng import FrRandom
 
     build_voting_circuit(depth, EID_BITS)  # cached: no setup time below includes it
-    cache = ROOT / ".torch_cache" / f"election_d{depth}_s{SEED:x}_keys.pkl"
+    cache = ROOT / ".torch_cache" / f"keys_d{depth}_s{SEED:x}.pkl"
     if cache.exists():
         log(f"[setup] depth {depth}: cached {cache.relative_to(ROOT)}")
-        return dict(pickle.loads(cache.read_bytes()), setup_s=None)
+        return pickle.loads(cache.read_bytes()), None
     t0 = time.perf_counter()
     keys = phases.init_admin_phase_generate_keys(depth, EID_BITS, FrRandom(SEED), device="host")
     setup_s = time.perf_counter() - t0
+    cache.parent.mkdir(exist_ok=True)
+    cache.write_bytes(pickle.dumps(keys))
+    log(f"[setup] depth {depth}: host-native setup {setup_s:.2f} s (keys)")
+    return keys, setup_s
+
+
+def election(depth: int):
+    """Voter keys, the host-native keys (``host_keys``) and election data
+    for `depth` (blobs), cached under .torch_cache/ by depth and seed;
+    ``setup_s`` is the host-native setup's seconds, None when cached."""
+    from vote_saver_tpu_torch.protocol import phases
+    from vote_saver_tpu_torch.utils.rng import FrRandom
+
+    cache = ROOT / ".torch_cache" / f"election_d{depth}_s{SEED:x}.pkl"
+    if cache.exists():
+        log(f"[setup] depth {depth}: cached {cache.relative_to(ROOT)}")
+        return dict(pickle.loads(cache.read_bytes()), setup_s=None)
+    keys, setup_s = host_keys(depth)
     rng = FrRandom(SEED + 2)
     voters = [phases.init_voter_phase(i, rng) for i in range(BATCH)]
     data = phases.init_admin_phase_generate_data(depth, EID_BITS, [v[0] for v in voters], rng)
     e = dict(voters=voters, keys=keys, data=data)
-    cache.parent.mkdir(exist_ok=True)
     cache.write_bytes(pickle.dumps(e))
-    log(f"[setup] depth {depth}: host-native setup {setup_s:.2f} s (keys); election built")
+    log(f"[setup] depth {depth}: election built")
     return dict(e, setup_s=setup_s)
 
 
-def check_setup(e: dict, mode: str = "loop") -> dict:
-    """The same keys through Groth16 setup on the card, in the process's
-    multiplier mode, which is `mode`: only its instances may launch."""
+def check_setup(e: dict, mode: str = "loop", depth: int = DEPTH, tag: str | None = None) -> dict:
+    """The same keys through Groth16 setup for `depth` on the card, in the
+    process's multiplier mode, which is `mode`: only its instances may
+    launch.  At DEPTH in loop mode once more under the profiler."""
     import torch
 
     from vote_saver_tpu_torch.ops import hopper_field as hf
@@ -971,7 +1035,7 @@ def check_setup(e: dict, mode: str = "loop") -> dict:
 
     hf.reset_launches()
     t0 = time.perf_counter()
-    keys = phases.init_admin_phase_generate_keys(DEPTH, EID_BITS, FrRandom(SEED), device="cuda")
+    keys = phases.init_admin_phase_generate_keys(depth, EID_BITS, FrRandom(SEED), device="cuda")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(hf.launches)
@@ -979,8 +1043,8 @@ def check_setup(e: dict, mode: str = "loop") -> dict:
     names = ("pk_crs", "vk_crs", "pk_eid", "sk_eid", "vk_eid")
     differ = [n for n, a, b in zip(names, keys, e["keys"]) if a != b]
     host = "cached" if e["setup_s"] is None else f"{e['setup_s']:.2f} s"
-    tag = "[setup]" if mode == "loop" else f"[modes] {mode}: setup"
-    log(f"{tag} depth {DEPTH} on the card: {secs:.2f} s (host-native arm: {host}); "
+    tag = tag or ("[setup]" if mode == "loop" else f"[modes] {mode}: setup")
+    log(f"{tag} depth {depth} on the card: {secs:.2f} s (host-native arm: {host}); "
         f"launches {({k: v for k, v in launches.items() if v})}")
     if differ:
         fail(f"setup on the card in {mode} wrote other blobs than the host-native arm: {differ}")
@@ -996,8 +1060,8 @@ def check_setup(e: dict, mode: str = "loop") -> dict:
     if stray:
         fail(f"setup in {mode} launched K3d's single distinct add: {stray}")
     log(f"{tag}: window sums by outputs {widths}, mont_inv_fq launches {launches[hf.instance('mont_inv_fq', mode)]}")
-    out = dict(device_s=secs, host_s=e["setup_s"], launches=launches)
-    if mode == "loop":
+    out = dict(device_s=secs, host_s=e["setup_s"], launches=launches, widths=widths)
+    if mode == "loop" and depth == DEPTH:
         # once more in a profiling window: the device time of each window sum and of the whole setup
         _keys, events = profile_window(
             lambda: phases.init_admin_phase_generate_keys(DEPTH, EID_BITS, FrRandom(SEED), device="cuda"))
@@ -1018,10 +1082,10 @@ def check_setup(e: dict, mode: str = "loop") -> dict:
 
 
 def check_ntt(gpu: str) -> tuple[dict, set]:
-    """Each kind of the matmul NTT at NTT_B x NTT_N against the radix-2
-    path on the same inputs (random elements, the first row led by values
-    that saturate digit columns and fold boundaries): exact equality, both
-    timed a call; then each int8 product at the path's shapes timed alone
+    """Each kind of the matmul NTT at NTT_B x NTT_N, and at NTT_WIDE_B x
+    NTT_WIDE_N, against the radix-2 path on the same inputs (random
+    elements, the first row led by values that saturate digit columns and
+    fold boundaries): exact equality, both timed a call; then each int8 product at the path's shapes timed alone
     with CUDA events and by the profiler, against the larger of its int8
     operations over INT8_OPS and its bytes (operands read once, the int32
     result written once) over HBM_BPS; one fold and one whole transform
@@ -1038,37 +1102,52 @@ def check_ntt(gpu: str) -> tuple[dict, set]:
 
     dev = lb.device_of("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    x = random_limbs("fr", NTT_B * NTT_N, dev, gen).reshape(NTT_B, NTT_N, 8)
-    x[0, :8] = lb.ints_to_tensor([0, 1, R - 1, R - 2, (1 << 254) - 1, R - (1 << 200), 2, R // 2], lb.FR, dev)
-    x[1, :4] = lb.ints_to_tensor([R - 1] * 4, lb.FR, dev)
-    t0 = time.perf_counter()
-    mm = tntt.get_ntt(NTT_N, "matmul")
-    for kind, _ref in NTT_KINDS:
-        ntt_mxu.get_plan(NTT_N, kind)
-    plans_s = time.perf_counter() - t0
-    r2 = tntt.get_ntt(NTT_N, "radix2")
-    out = dict(n=NTT_N, batch=NTT_B, plans_host_s=plans_s, kinds={})
-    for kind, ref in NTT_KINDS:
-        ntt_mxu.reset_products()
-        hf.reset_launches()
+
+    def inputs(n, rows):
+        x = random_limbs("fr", rows * n, dev, gen).reshape(rows, n, 8)
+        x[0, :8] = lb.ints_to_tensor([0, 1, R - 1, R - 2, (1 << 254) - 1, R - (1 << 200), 2, R // 2], lb.FR, dev)
+        x[1, :4] = lb.ints_to_tensor([R - 1] * 4, lb.FR, dev)
+        return x
+
+    def kinds(x) -> dict:
+        """Each kind at x's shape against radix-2, both timed; the plans' host precompute timed first."""
+        rows, n = x.shape[:2]
         t0 = time.perf_counter()
-        got = getattr(mm, ref)(x)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        prods, k1 = dict(ntt_mxu.products), hf.launches["mont_mul_fr"]
-        want = getattr(r2, ref)(x)
-        equal = torch.equal(got, want)
-        row = dict(equal=equal, max_abs_err=_diff((got,), (want,)), products=prods, k1_launches=k1,
-                   first_call_s=first_s, matmul_ms=time_ms(lambda: getattr(mm, ref)(x), 5),
-                   radix2_ms=time_ms(lambda: getattr(r2, ref)(x), 2))
-        out["kinds"][kind] = row
-        log(f"[ntt] {kind} n=2^15 x {NTT_B}: equal={equal} max_abs_err={row['max_abs_err']} matmul "
-            f"{row['matmul_ms']:.3f} ms a call (first call with the constants' upload {1e3 * first_s:.1f} ms), "
-            f"radix-2 {row['radix2_ms']:.3f} ms; int8 products {prods}, K1 Fr launches {k1}; {gpu}")
-        if not equal:
-            fail(f"the matmul NTT's {kind} disagrees with the radix-2 path")
-        del got, want
-    log(f"[ntt] host precompute of the four plans: {plans_s:.2f} s")
+        mm = tntt.get_ntt(n, "matmul")
+        for kind, _ref in NTT_KINDS:
+            ntt_mxu.get_plan(n, kind)
+        plans_s = time.perf_counter() - t0
+        r2 = tntt.get_ntt(n, "radix2")
+        res = dict(n=n, batch=rows, plans_host_s=plans_s, kinds={})
+        for kind, ref in NTT_KINDS:
+            ntt_mxu.reset_products()
+            hf.reset_launches()
+            t0 = time.perf_counter()
+            got = getattr(mm, ref)(x)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            prods, k1 = dict(ntt_mxu.products), hf.launches["mont_mul_fr"]
+            want = getattr(r2, ref)(x)
+            equal = torch.equal(got, want)
+            row = dict(equal=equal, max_abs_err=_diff((got,), (want,)), products=prods, k1_launches=k1,
+                       first_call_s=first_s, matmul_ms=time_ms(lambda: getattr(mm, ref)(x), 5),
+                       radix2_ms=time_ms(lambda: getattr(r2, ref)(x), 2))
+            res["kinds"][kind] = row
+            log(f"[ntt] {kind} n=2^{n.bit_length() - 1} x {rows}: equal={equal} max_abs_err={row['max_abs_err']} "
+                f"matmul {row['matmul_ms']:.3f} ms a call (first call with the constants' upload "
+                f"{1e3 * first_s:.1f} ms), radix-2 {row['radix2_ms']:.3f} ms; int8 products {prods}, K1 Fr "
+                f"launches {k1}; {gpu}")
+            if not equal:
+                fail(f"the matmul NTT's {kind} at n = {n} x {rows} disagrees with the radix-2 path")
+            del got, want
+        log(f"[ntt] host precompute of the four plans at n=2^{n.bit_length() - 1}: {plans_s:.2f} s")
+        return res
+
+    x = inputs(NTT_N, NTT_B)
+    out = kinds(x)
+    # depth 14's domain (BASELINE config 4) at its batch, each kind exact against radix-2
+    out["wide"] = kinds(inputs(NTT_WIDE_N, NTT_WIDE_B))
+    torch.cuda.empty_cache()
     # each int8 product at the path's shapes, on the operands the path gives it
     plan = ntt_mxu.get_plan(NTT_N, "inv")
     n1, n2 = plan.n1, plan.n2
@@ -1114,7 +1193,7 @@ def check_ntt(gpu: str) -> tuple[dict, set]:
         f"bound of {bound_ac:.3f} ms (steps A and C) / {bound_all:.3f} ms (with the folds); profiler kernel names "
         f"{sorted(names)}")
     fold_ev = profile_window(lambda: ntt_mxu._fold_mod_r(cols), warm=True)[1] or []
-    tr_ev = profile_window(lambda: mm.intt(x), warm=True)[1] or []
+    tr_ev = profile_window(lambda: tntt.get_ntt(NTT_N, "matmul").intt(x), warm=True)[1] or []
     tr_lib = sum(us for n, us in tr_ev if n in names) / 1e3
     tr_k1 = sum(us for n, us in tr_ev if kernel_key(n)) / 1e3
     tr_all = sum(us for _n, us in tr_ev) / 1e3
@@ -1375,10 +1454,8 @@ def run_slice(rnd, e: dict, library: set) -> dict:
     if prof:
         prof["widths"] = {k: dict(sorted(hf.widths[k].items())) for k in WIDTH_KERNELS}
 
-    n_ok = 0
-    for _votes, ballots in warm + timed + [profiled] + host + radix2:
-        for b in ballots:
-            n_ok += phases.verify_ballot(b[0], b[1], b[2], vk_eid, vk_crs)
+    n_ok = verified([b for _votes, ballots in warm + timed + [profiled] + host + radix2 for b in ballots],
+                    vk_eid, vk_crs)
     n_total = BATCH * (len(warm) + len(timed) + 1 + len(host) + len(radix2))
     out = dict(
         depth=DEPTH, batch=BATCH, proofs_per_s=BATCH * len(timed) / wall, batch_s=wall / len(timed),
@@ -1607,7 +1684,7 @@ def run_modes(e: dict, vote: dict, cases, library: set) -> dict:
                     fail(f"depth-6 batch {k} in {mode} differs from the loop batch's ballots")
                 ballots.append(got)
             r["profile"] = {k: prof.get(k) for k in ("wall_s", "busy_s", "plain_s", "port")} if prof else {}
-            n_ok = sum(phases.verify_ballot(b[0], b[1], b[2], vk_eid, vk_crs) for got in ballots[:2] for b in got)
+            n_ok = verified([b for got in ballots[:2] for b in got], vk_eid, vk_crs)
             if n_ok != 2 * BATCH:
                 fail(f"a depth-6 ballot in {mode} failed verify_ballot ({n_ok}/{2 * BATCH})")
             log(f"[modes] {mode}: depth-6 B={BATCH} device-arm batches 0-2 byte-identical to the loop mode's; "
@@ -1765,7 +1842,7 @@ def run_stream(e: dict, seq: list, rnd, library: set, gpu: str) -> dict:
     if profiled != expect[:3]:
         fail("the profiled stream pass's ballots differ from [slice]'s")
     # the first batches are [slice]'s, verified there
-    n_ok = sum(phases.verify_ballot(b[0], b[1], b[2], vk_eid, vk_crs) for bs in passes[0][1][len(seq):] for b in bs)
+    n_ok = verified([b for bs in passes[0][1][len(seq):] for b in bs], vk_eid, vk_crs)
     per_batch = {k: v / len(batches) for k, v in passes[0][2].items() if v}
     log(f"[stream] {len(batches)} batches of B={BATCH} at depth {DEPTH}, byte-identical to [slice]'s sequential "
         f"ballots in every pass; pipelined {' / '.join(f'{x:.3f}' for x in secs['stream'])} s/batch against "
@@ -1826,7 +1903,7 @@ def run_api(e: dict, rnd, gpu: str) -> dict:
                                               vk_crs, FrRandom(SEED + 4 + k))
             calls.append(time.perf_counter() - t0)
             _path_launches(VOTE_KERNELS, f"vote_phase_batch call {k + 1}")
-            n_ok = sum(phases.verify_ballot(b[0], b[1], b[2], vk_eid, vk_crs) for b in ballots)
+            n_ok = verified(ballots, vk_eid, vk_crs)
             if n_ok != BATCH:
                 fail(f"vote_phase_batch call {k + 1}: {n_ok}/{BATCH} ballots verified")
     finally:
@@ -1911,6 +1988,79 @@ def run_merkle(gpu: str) -> dict:
             f"({hashes} hashes); peak device memory {peak / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB held; "
             f"launches {row['launches']}; {check}; {gpu}")
     return dict(depths=out, launches=_path_launches(MERKLE_KERNELS, "the Merkle build"))
+
+
+def run_scale(gpu: str) -> dict:
+    """[scale]: BASELINE configs 3 and 4 at their depths (10, 14) and batch
+    (B = 32), cut to SCALE_VOTERS voters, in loop mode.  At each depth:
+    setup on the card byte for byte against the host-native arm (window
+    sums, not K3d); then ``scale.run`` through the stream from an empty
+    cache (setup and the Merkle tree on the card, the parse, two batches,
+    SCALE_VERIFY verified, the tally and its check, the counts), its vote
+    batches launching every vote kernel and no single-row madd, and H's
+    seven transforms a batch on the matmul NTT at the depth's domain
+    (SCALE_DOMAIN).  Returns each depth's record and its setup's row."""
+    import shutil
+
+    from vote_saver_tpu_torch import scale
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+    from vote_saver_tpu_torch.ops import ntt_mxu
+
+    transforms = Counter()
+    apply = ntt_mxu.MatmulNTTPlan.apply
+
+    def counted(plan, x, *a, **k):
+        transforms[plan.n] += 1
+        return apply(plan, x, *a, **k)
+
+    cache, scale_cache = ROOT / ".torch_cache" / "smoke_scale", scale.CACHE
+    shutil.rmtree(cache, ignore_errors=True)
+    ntt_mxu.MatmulNTTPlan.apply, scale.CACHE = counted, cache
+    out = {}
+    try:
+        for config in SCALE_CONFIGS:
+            depth, B = scale.CONFIGS[config]["depth"], scale.CONFIGS[config]["batch"]
+            tag = f"[scale] depth {depth}"
+            keys, host_s = host_keys(depth)
+            setup = check_setup(dict(keys=keys, setup_s=host_s), depth=depth, tag=f"{tag}: setup")
+            hf.reset_launches()
+            transforms.clear()
+            try:
+                rec = scale.run(config, SCALE_VOTERS, stream=True, verify_sample=SCALE_VERIFY, device="cuda")
+            except RuntimeError as exc:
+                fail(f"{tag}: {exc}")
+            n_batches = -(-SCALE_VOTERS // B)
+            vl = rec["vote_launches"]
+            missing = [k for k in VOTE_KERNELS if not vl.get(k)]
+            if missing:
+                fail(f"{tag}: kernels of the vote path never launched: {missing}")
+            stray = {k: vl[k] for k in OFF_VOTE_PATH if vl.get(k)}
+            if stray:
+                fail(f"{tag}: the vote path launched K2's single-row form: {stray}")
+            if not all(hf.launches[k] for k in SETUP_KERNELS):
+                fail(f"{tag}: the run's setup did not run on the card: {dict(hf.launches)}")
+            want = {SCALE_DOMAIN[depth]: NTT_PER_BATCH * n_batches}
+            if rec["domain"] != SCALE_DOMAIN[depth] or dict(transforms) != want:
+                fail(f"{tag}: H's transforms by domain {dict(transforms)} (domain {rec['domain']}), not {want}")
+            if (rec["verified"] != list(SCALE_VERIFY) or rec["tally_counts_ok"] is not True
+                    or (rec["batch"], rec["voters"], rec["vote_mode"]) != (B, SCALE_VOTERS, "stream")):
+                fail(f"{tag}: the record is not the run asked for: {rec}")
+            t = rec["times_s"]
+            first = t["vote_first_batch_incl_compile"]
+            per_batch = {k: v / n_batches for k, v in vl.items()}
+            log(f"{tag}: {gpu}; setup on the card {setup['device_s']:.3f} s, host-native "
+                f"{'cached' if host_s is None else f'{host_s:.3f} s'}; window sums by outputs {setup['widths']}; "
+                f"{SCALE_VOTERS} voters in {n_batches} stream batches of B = {B}: {t['vote_total']:.3f} s, "
+                f"{t['vote_total'] / n_batches:.3f} s a batch (the first ballots after {first:.3f} s, the next "
+                f"batch launched before their tail; the rest {t['vote_total'] - first:.3f} s); stages a batch (s) "
+                f"{({k: round(v, 4) for k, v in rec['stage_s'].items()})}; "
+                f"launches a batch {per_batch}; peak device memory {rec['peak_device_bytes'] / 2**30:.3f} GiB")
+            log(f"{tag}: phases (s) {({k: round(v, 3) for k, v in t.items()})}; H: {want} transforms on the matmul "
+                f"NTT; verified voters {rec['verified']}; the tally verifies and its counts equal the votes")
+            out[depth] = dict(record=rec, setup=setup)
+    finally:
+        ntt_mxu.MatmulNTTPlan.apply, scale.CACHE = apply, scale_cache
+    return out
 
 
 def _cli(argv: list) -> tuple[float, str]:
@@ -2203,6 +2353,7 @@ def main() -> None:
     phase("stream", run_stream, e, vote["device_batches"], rnd, library, gpu)
     phase("api", run_api, e, rnd, gpu)
     merkle_launches = phase("merkle", run_merkle, gpu)["launches"]
+    scaled = phase("scale", run_scale, gpu)
     phase("cli", run_cli, rnd, gpu)
 
     kern.update(probe_entries(probes))
@@ -2229,6 +2380,9 @@ def main() -> None:
                             registers=regs, spill_bytes=spill))
         if k in MERKLE_KERNELS:
             entries[-1]["merkle_launches"] = merkle_launches[k]
+        if k in VOTE_KERNELS:
+            # over [scale]'s two batches at each depth
+            entries[-1]["scale_launches"] = {d: r["record"]["vote_launches"][k] for d, r in scaled.items()}
         if "warps_per_sm" in r:
             entries[-1].update(smem_bytes=r["smem_bytes"], warps_per_sm=r["warps_per_sm"])
         if k in sass:

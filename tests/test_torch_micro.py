@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from vote_saver_tpu_torch import cli, micro, sdk
+from vote_saver_tpu_torch import cli, micro, scale, sdk
 from vote_saver_tpu_torch.circuit import witness_dev
 from vote_saver_tpu_torch.frontends import c_api, service
 from vote_saver_tpu_torch.ops import hopper_field as hf
@@ -165,6 +165,8 @@ def _default_calls(workdir=None):
         "c_api.admin_keygen": lambda: c_api.admin_keygen(2, 64, None, None, None, None, None),
         "c_api.init_election": lambda: c_api.init_election(2, 64, ctypes.pointer(c_api.SuperBuffer(0, None)),
                                                            None, None, None),
+        "scale.run": lambda: scale.run(1),
+        "python -m vote_saver_tpu_torch.scale": lambda: scale.main(["--config", "1"]),
     }
 
 

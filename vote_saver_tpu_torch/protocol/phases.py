@@ -220,7 +220,8 @@ def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[in
     return out
 
 
-def vote_with_context_stream(ctx: VoteContext, batches, rng: FrRandom | None = None):
+def vote_with_context_stream(ctx: VoteContext, batches, rng: FrRandom | None = None,
+                             timer: groth16.StageTimer | None = None):
     """Pipelined batched voting over (voter_indices, votes, sk_blobs)
     batches: yields one ballot list per batch.
 
@@ -232,7 +233,11 @@ def vote_with_context_stream(ctx: VoteContext, batches, rng: FrRandom | None = N
     batch order: the ballots are byte-identical to sequential
     ``vote_with_context`` calls under the same seeded `rng`.  The device
     arm only, on the context's device and its one CUDA stream; an
-    exception in a launch propagates."""
+    exception in a launch propagates.  ``timer`` sums every batch's stages
+    in the stream's order (``witness``, ``abc_h``, ``schedules`` in a
+    launch; ``msm_*``, ``ballot_tail``, ``serialize`` in a tail); its marks
+    wait for the device, which a launch does anyway at its R1CS check and a
+    tail at its flag read."""
     rng = rng or FrRandom()
 
     def launch(batch):
@@ -241,13 +246,20 @@ def vote_with_context_stream(ctx: VoteContext, batches, rng: FrRandom | None = N
         w_mont = witness_dev.generate_witness_device(
             ctx.circ, np.array(votes), ctx.eid, sks, np.array(voter_indices), sib, ctx.device,
         )
-        finish, _w_std, w_np = groth16.prove_msms_device(ctx.pk, w_mont, defer=True)
+        if timer:
+            timer.mark("witness")
+        finish, _w_std, w_np = groth16.prove_msms_device(ctx.pk, w_mont, timer=timer, defer=True)
         return finish, _primary(ctx, w_np), votes
 
     def tail(state):
         finish, prim, votes = state
         rerand = ballot_dev.finalize_ballots_device(ctx.pk, ctx.spk, ctx.vk, finish(), votes, rng)
-        return _serialize(ctx, rerand, prim)
+        if timer:
+            timer.mark("ballot_tail")
+        out = _serialize(ctx, rerand, prim)
+        if timer:
+            timer.mark("serialize")
+        return out
 
     pending = None
     for batch in batches:
