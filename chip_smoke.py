@@ -109,15 +109,16 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      arm, both timed, and at depth 14 on the card only, its root and
      MERKLE_SAMPLES leaves and parents against the oracle: seconds,
      hashes/s, peak device memory and launches a depth;
-  11b. ``[scale]``: BASELINE configs 3 and 4 at their depths (10, 14) and
-     batch (B = 32), cut to 64 voters: setup on the card byte for byte
+  11b. ``[scale]``: BASELINE config 4 at its depth (14) and batch
+     (B = 32), cut to 64 voters (config 3, depth 10, lies between [slice]'s
+     depth 6 and this; ``scale.py`` runs it): setup on the card byte for byte
      against the host-native arm (keys cached under ``.torch_cache/``),
      then ``vote_saver_tpu_torch.scale.run`` through the stream from an
      empty cache (setup and the Merkle tree on the card, the parse, two
      batches, lanes 0 and 31 of each among the verified ballots, the
      tally, its check and its counts); every vote kernel launched on its
      batches, no single-row madd, H's transforms on the matmul NTT at
-     2^15 / 2^16; seconds by phase and stage, launches a batch, peak
+     2^16; seconds by phase and stage, launches a batch, peak
      device memory;
   12. the port's CLI over a depth-6 election in a temporary workdir, phase
      by phase (every voter's keys; setup and the tree on the card; one
@@ -125,14 +126,27 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      ``--phase bench``, B = 1), then on its artifacts the JSON service as a
      subprocess on the card (generate_vote, verify_vote, verify_tally; its
      stdout holding only response lines) and one generate_vote through the
-     C ABI's function pointers: every ballot verified, each step timed.
+     C ABI's function pointers: every ballot verified, each step timed;
+  13. ``[sharded]``: ``entry.dryrun_multichip(4)`` on the one card (4
+     gloo ranks, points 2 x voters 2: the sharded NTT, NTT4, MSM,
+     scheduled MSM and tally against their unsharded results, and a
+     depth-2 ``vote_with_context(mesh=)`` against the unsharded ballots),
+     beside it ``vote_with_context(mesh=)`` at depth 6, B = 16 on 2 gloo
+     ranks:
+     each rank's ballots byte for byte [slice]'s first batch, a sample
+     verified, every vote kernel launched on each rank; per rank wall
+     seconds and launches, the backend and the transport;
+  14. ``[chain]``: ``run_election`` at depth 6 with 16 voters on the card
+     (the contracts, the chunked uploads, VERGRTH16): every ballot
+     accepted, the counts equal to the votes, the observer's check true.
 
 Every count of kernel launches is set to 0 just before a path runs (setup,
 the combination phase through K5/K6, the probes, the timed device-arm
 batches, each path of ``[modes]`` in each mode, the host-witness batch,
 the tally, each pass of the stream and of its sequential comparison, each
 ``vote_phase_batch`` call, the Merkle trees, each ``[scale]`` run, each
-CLI phase that votes or sets up, the C-ABI vote) and read just after it; the ``kernels`` line reports each kernel's count on its
+CLI phase that votes or sets up, the C-ABI vote, each rank's run in
+``[sharded]``, ``[chain]``'s election) and read just after it; the ``kernels`` line reports each kernel's count on its
 path (a v1 or fold instance, K1's included: on that mode's path in
 ``[modes]``; K1 Fr's on the Merkle build, ``merkle_launches``; each vote
 kernel's on ``[scale]``'s two batches at each depth, ``scale_launches``), and its
@@ -156,6 +170,7 @@ in full by ``verify_ballot`` (host code) on a pool of spawned processes
 from __future__ import annotations
 
 import atexit
+import concurrent.futures
 import functools
 import importlib.abc
 import json
@@ -266,11 +281,16 @@ STREAM_EXTRA, SYNC_BATCHES = 2, 2
 MERKLE_DEPTHS, MERKLE_DEEP, MERKLE_SAMPLES = (DEPTH, 10), 14, 64
 # the Pedersen hash's kernels: K1 in Fr, its multiply and its Fermat chain
 MERKLE_KERNELS = ("mont_mul_fr", "mont_inv_fr")
-# [scale]: BASELINE configs 3 and 4 (depths 10 and 14, B = 32) cut to 64 voters, two stream
-# batches; the voters verified (lanes 0 and 31 of each batch among them); H's domain at each depth
-SCALE_CONFIGS, SCALE_VOTERS = (3, 4), 64
+# [scale]: BASELINE config 4 (depth 14, B = 32) cut to 64 voters, two stream batches; the
+# voters verified (lanes 0 and 31 of each batch among them); H's domain at the depth
+SCALE_CONFIGS, SCALE_VOTERS = (4,), 64
 SCALE_VERIFY = (0, 11, 22, 31, 32, 43, 54, 63)
-SCALE_DOMAIN = {10: 1 << 15, 14: 1 << 16}
+SCALE_DOMAIN = {14: 1 << 16}
+# [sharded]: the points axis of the depth-6 vote's mesh (gloo ranks on the one card), and
+# the voters of that batch verified
+SHARDED_POINTS, SHARDED_VERIFY = 2, (0, BATCH - 1)
+# [chain]: run_election's voters at DEPTH
+CHAIN_VOTERS = BATCH
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -1991,8 +2011,8 @@ def run_merkle(gpu: str) -> dict:
 
 
 def run_scale(gpu: str) -> dict:
-    """[scale]: BASELINE configs 3 and 4 at their depths (10, 14) and batch
-    (B = 32), cut to SCALE_VOTERS voters, in loop mode.  At each depth:
+    """[scale]: BASELINE config 4 (SCALE_CONFIGS) at its depth (14) and
+    batch (B = 32), cut to SCALE_VOTERS voters, in loop mode.  At each depth:
     setup on the card byte for byte against the host-native arm (window
     sums, not K3d); then ``scale.run`` through the stream from an empty
     cache (setup and the Merkle tree on the card, the parse, two batches,
@@ -2061,6 +2081,91 @@ def run_scale(gpu: str) -> dict:
     finally:
         ntt_mxu.MatmulNTTPlan.apply, scale.CACHE = apply, scale_cache
     return out
+
+
+def run_sharded(e: dict, vote: dict, gpu: str) -> dict:
+    """[sharded]: ``entry.dryrun_multichip(4)`` on the one card (4 gloo
+    ranks, points 2 x voters 2: the sharded NTT, NTT4, MSM, scheduled MSM,
+    tally and a depth-2 ``vote_with_context(mesh=)``, each against its
+    unsharded result) and, at the same time, ``vote_with_context(mesh=)``
+    at DEPTH, B = BATCH on SHARDED_POINTS more gloo ranks of the card, sent
+    [slice]'s parsed context: each rank's ballots byte for byte [slice]'s
+    first device-arm batch under its seed (FrRandom(SEED + 1), its votes),
+    SHARDED_VERIFY of them verified, every vote kernel launched on each
+    rank and no single-row madd.  Per rank: seconds until its mesh was up,
+    wall seconds and launches; the backend and the transport."""
+    from vote_saver_tpu_torch import entry
+    from vote_saver_tpu_torch.parallel import sharded
+
+    _pk_crs, vk_crs, _pk_eid, _sk_eid, vk_eid = e["keys"]
+    votes, want = vote["device_batches"][0]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        deep = pool.submit(sharded.spawn, entry.vote, (vote["ctx"].on("cuda"), list(range(BATCH)), votes,
+                                                       [v[1] for v in e["voters"]], SEED + 1),
+                           SHARDED_POINTS, 1, "cuda", "gloo")
+        try:
+            dry = entry.dryrun_multichip(4, "cuda")
+        except RuntimeError as exc:
+            fail(f"[sharded] dryrun_multichip(4): {exc}")
+        try:
+            ranks = deep.result()
+        except RuntimeError as exc:
+            fail(f"[sharded] depth {DEPTH}: {exc}")
+    wall = time.perf_counter() - t0
+    for i, r in enumerate(dry["ranks"]):
+        missing = [k for k in B1_KERNELS if not r["launches"].get(k)]
+        if missing:
+            fail(f"[sharded] dryrun rank {i}: kernels of its vote never launched: {missing}")
+    log(f"[sharded] dryrun_multichip(4): {', '.join(dry['checks'])} equal to their unsharded results on points="
+        f"{dry['n_points']} x voters={dry['n_voters']}, backend {dry['backend']}, transport {dry['transport']}; "
+        f"{dry['seconds']:.3f} s (by step: {({k: round(v, 3) for k, v in dry['steps'].items()})}, the unsharded "
+        f"results made while the ranks run); by rank: up after {[round(r['ready_s'], 3) for r in dry['ranks']]} s "
+        f"(start, imports, card, process group), then {[round(r['seconds'], 3) for r in dry['ranks']]} s; {gpu}")
+    for i, r in enumerate(dry["ranks"]):
+        log(f"[sharded] dryrun rank {i} launches: {r['launches']}")
+    for i, r in enumerate(ranks):
+        if r.value != want:
+            fail(f"[sharded] depth {DEPTH}: rank {i}'s ballots differ from the unsharded batch's")
+        missing = [k for k in VOTE_KERNELS if not r.launches.get(k)]
+        stray = {k: r.launches[k] for k in OFF_VOTE_PATH if r.launches.get(k)}
+        if missing or stray or r.foreign:
+            fail(f"[sharded] depth {DEPTH} rank {i}: never launched {missing}; single-row madd {stray}; "
+                 f"imported {r.foreign}")
+    n_ok = verified([want[i] for i in SHARDED_VERIFY], vk_eid, vk_crs)
+    if n_ok != len(SHARDED_VERIFY):
+        fail(f"[sharded] depth {DEPTH}: {n_ok}/{len(SHARDED_VERIFY)} ballots verified")
+    log(f"[sharded] vote_with_context(mesh=) at depth {DEPTH}, B = {BATCH}, points={SHARDED_POINTS} x voters=1, "
+        f"gloo (host transport) on one card, beside the dry run: {wall:.3f} s for both; by rank: up after "
+        f"{[round(r.ready_s, 3) for r in ranks]} s, then the batch (its device constants built) "
+        f"{[round(r.seconds, 3) for r in ranks]} s; ballots byte-identical to [slice]'s unsharded batch on every "
+        f"rank; voters {list(SHARDED_VERIFY)} verified; {gpu}")
+    for i, r in enumerate(ranks):
+        log(f"[sharded] depth {DEPTH} rank {i} launches: {r.launches}")
+    return dict(dryrun=dry, wall_s=wall, rank_s=[r.seconds for r in ranks], launches=[r.launches for r in ranks])
+
+
+def run_chain(gpu: str) -> dict:
+    """[chain]: ``run_election`` at DEPTH with CHAIN_VOTERS voters on the
+    card (setup and the Merkle tree there, one batch of every voter): every
+    ballot accepted by the voter contract (status 0), the committed counts
+    equal to the votes, the observer's verification true; setup's and the
+    vote's kernels launched."""
+    from vote_saver_tpu_torch import run_election
+    from vote_saver_tpu_torch.ops import hopper_field as hf
+
+    hf.reset_launches()
+    try:
+        out = run_election.run(DEPTH, CHAIN_VOTERS, SEED + 7, "cuda")
+    except RuntimeError as exc:
+        fail(f"[chain] {exc}")
+    launches = _path_launches(SETUP_KERNELS + VOTE_KERNELS, "[chain]'s election")
+    if out["status"] != [0] * CHAIN_VOTERS or out["verified"] is not True:
+        fail(f"[chain] the election's result is not the one asked for: {out}")
+    log(f"[chain] run_election at depth {DEPTH}, {CHAIN_VOTERS} voters: {CHAIN_VOTERS}/{CHAIN_VOTERS} ballots "
+        f"accepted (status 0), counts {out['counts'][:CHAIN_VOTERS]}... equal to the votes, the observer's check "
+        f"true; seconds {({k: round(v, 3) for k, v in out['times_s'].items()})}; {gpu}")
+    return dict(out, launches=launches)
 
 
 def _cli(argv: list) -> tuple[float, str]:
@@ -2355,6 +2460,8 @@ def main() -> None:
     merkle_launches = phase("merkle", run_merkle, gpu)["launches"]
     scaled = phase("scale", run_scale, gpu)
     phase("cli", run_cli, rnd, gpu)
+    phase("sharded", run_sharded, e, vote, gpu)
+    phase("chain", run_chain, gpu)
 
     kern.update(probe_entries(probes))
     paths = dict.fromkeys((*SETUP_KERNELS, *OFF_SETUP_PATH), setup_launches)

@@ -177,6 +177,8 @@ sys.meta_path.insert(0, NoJax())
 _IMPORT_CHECK = _BLOCKER + """
 import vote_saver_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+assert {"vote_saver_tpu_torch.parallel.sharded", "vote_saver_tpu_torch.entry",
+        "vote_saver_tpu_torch.run_election"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import vote_saver_tpu_torch.convert
@@ -194,7 +196,9 @@ print("ok")
 
 def test_port_imports_without_jax():
     """Every module of the port imports with jax, jaxlib and the JAX
-    package (the top-level name ``vote_saver_tpu``) blocked."""
+    package (the top-level name ``vote_saver_tpu``) blocked, the
+    multi-rank layer, the dry run and the chain election among them.  (A
+    spawned rank's sys.modules is checked in ``test_torch_sharded.py``.)"""
     out = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr

@@ -20,12 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from vote_saver_tpu_torch import cli, micro, scale, sdk
+from vote_saver_tpu_torch import cli, entry, micro, run_election, scale, sdk
 from vote_saver_tpu_torch.circuit import witness_dev
 from vote_saver_tpu_torch.frontends import c_api, service
 from vote_saver_tpu_torch.ops import hopper_field as hf
 from vote_saver_tpu_torch.ops import limbs as lb
 from vote_saver_tpu_torch.ops import merkle, pedersen_ops
+from vote_saver_tpu_torch.parallel import sharded
 from vote_saver_tpu_torch.protocol import groth16, phases
 from vote_saver_tpu_torch.testing import torch_threads
 from vote_saver_tpu_torch.utils.rng import FrRandom
@@ -167,6 +168,13 @@ def _default_calls(workdir=None):
                                                            None, None, None),
         "scale.run": lambda: scale.run(1),
         "python -m vote_saver_tpu_torch.scale": lambda: scale.main(["--config", "1"]),
+        "python -m vote_saver_tpu_torch.scale --points 2": lambda: scale.main(["--config", "1", "--points", "2"]),
+        "entry.entry": lambda: entry.entry(),
+        "entry.dryrun_multichip": lambda: entry.dryrun_multichip(4),
+        "python -m vote_saver_tpu_torch.entry": lambda: entry.main([]),
+        "sharded.spawn": lambda: sharded.spawn(entry.run_cases, ({},), 2),
+        "run_election.run": lambda: run_election.run(),
+        "python -m vote_saver_tpu_torch.run_election": lambda: run_election.main([]),
     }
 
 

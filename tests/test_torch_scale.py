@@ -169,7 +169,7 @@ def test_tampered_ballot_raises(port_runs, monkeypatch):
     forged = [list(b) for b in ballots]
     forged[0][2] = ballots[1][2]
 
-    def vote(ctx, idx, votes, sks, rng=None, timer=None):
+    def vote(ctx, idx, votes, sks, rng=None, timer=None, mesh=None):
         return [tuple(forged[i]) for i in idx]
 
     monkeypatch.setattr(scale, "CACHE", cache.parent)

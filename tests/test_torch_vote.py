@@ -24,10 +24,11 @@ from vote_saver_tpu_torch.testing import torch_threads
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
-def _host_msms(pk, w_std, h_std, window_bits=None, timer=None, defer=False):
-    """prove_msms stand-in: native host MSMs, lifted to device coordinates;
-    (outs, or with defer a zero-arg finish giving them, and the host copy
-    of w_std)."""
+def _host_msms(pk, w_std, h_std, window_bits=None, timer=None, defer=False, mesh=None):
+    """prove_msms stand-in, unsharded (`mesh` None): native host MSMs,
+    lifted to device coordinates; (outs, or with defer a zero-arg finish
+    giving them, and the host copy of w_std)."""
+    assert mesh is None
     w = lb.tensor_to_ints(w_std, lb.FR, mont=False)
     h = lb.tensor_to_ints(h_std, lb.FR, mont=False)
     scal = {"a": w, "b1": w, "b2": w, "l": w[:, pk.num_primary + 1 :], "h": h}

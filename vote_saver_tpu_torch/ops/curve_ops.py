@@ -77,6 +77,17 @@ class JacobianOps:
 
     # -- helpers ------------------------------------------------------------
 
+    def scalar_mul_bits(self, p, bits_msb_first):
+        """p * k with k as a (..., nbits) 0/1 array, MSB first; p's coords
+        and the bits broadcast over leading dims.  A doubling (K4) and an
+        add (K3) a bit, the add kept where the bit is set."""
+        bits = torch.as_tensor(np.asarray(bits_msb_first, dtype=np.int64), device=p[0].device)
+        acc = self.infinity_like(p[0])
+        for k in range(bits.shape[-1]):
+            acc = self.double(acc)
+            acc = self.select(bits[..., k] == 1, self.add(acc, p), acc)
+        return acc
+
     def scalar_mul_windowed(self, p, digits_lsb_first, window: int = 4):
         """p * k with k as (..., W) base-2^window digits, LSB window first.
 
@@ -212,6 +223,17 @@ def jj_from_device(p):
 # ---------------------------------------------------------------------------
 # Host <-> device point converters
 # ---------------------------------------------------------------------------
+
+
+def scalars_to_bits_msb(scalars, nbits=255) -> np.ndarray:
+    """Ints -> (n, nbits) uint32 bit array, MSB first (for scalar_mul_bits)."""
+    arr = np.asarray(scalars, dtype=object).reshape(-1)
+    out = np.zeros((arr.shape[0], nbits), dtype=np.uint32)
+    for i, v in enumerate(arr):
+        v = int(v)
+        for k in range(nbits):
+            out[i, nbits - 1 - k] = (v >> k) & 1
+    return out
 
 
 def g1_to_device(points, device="cpu"):

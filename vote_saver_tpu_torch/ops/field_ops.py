@@ -65,6 +65,9 @@ class FieldOps:
     def is_zero(self, a):
         return (a == 0).all(dim=-1)
 
+    def eq(self, a, b):
+        return (a == b).all(dim=-1)
+
     def select(self, cond, a, b):
         return torch.where(cond[..., None], a, b)
 
@@ -80,6 +83,32 @@ class FieldOps:
         R * N) -> canonical (..., L): value * R^-1 mod N."""
         half = torch.stack((cols & 0xFFFF, cols >> 16), dim=-1).flatten(-2)
         return hf._pack(self.half.redc(half))
+
+    def pow_fixed(self, a, exp_bits):
+        """a^e with e given as a static MSB-first bit sequence: a square a
+        bit, a multiply a set bit (K1 each)."""
+        res = self.const("one_mont", a.device).expand(a.shape)
+        for bit in exp_bits:
+            res = self.sq(res)
+            if int(bit):
+                res = self.mul(res, a)
+        return res
+
+    def batch_inv(self, a):
+        """Montgomery's trick over the leading axis: the prefix products,
+        one inversion (``inv``) of their total, then the walk back; (n, ...,
+        L) -> (n, ..., L).  A zero entry gives garbage (callers mask it), as
+        in the JAX package."""
+        one = self.const("one_mont", a.device).expand(a.shape[1:])
+        prefix = [one]  # prefix[i]: the product of a[:i]
+        for x in a[:-1]:
+            prefix.append(self.mul(prefix[-1], x))
+        acc = self.inv(self.mul(prefix[-1], a[-1]))
+        out = [None] * a.shape[0]
+        for i in range(a.shape[0] - 1, -1, -1):
+            out[i] = self.mul(acc, prefix[i])
+            acc = self.mul(acc, a[i])
+        return torch.stack(out)
 
     def inv(self, a):
         """Fermat inversion a^(N-2) (``hopper_field.mont_inv``: the whole

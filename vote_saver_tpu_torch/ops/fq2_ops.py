@@ -59,6 +59,9 @@ class Fq2Ops:
     def is_zero(self, a):
         return (a == 0).all(dim=-1).all(dim=-1)
 
+    def eq(self, a, b):
+        return (a == b).all(dim=-1).all(dim=-1)
+
     def select(self, cond, a, b):
         return torch.where(cond[..., None, None], a, b)
 

@@ -1,6 +1,6 @@
 """Variable-base MSM and the fixed-base window table.
 
-Counterpart of ``msm_var_base``, ``FixedBaseTable``,
+Counterpart of ``msm_var_base``, ``msm_pippenger``, ``FixedBaseTable``,
 ``scalars_to_window_digits`` and ``limbs_to_window_digits`` in
 ``vote_saver_tpu/ops/msm.py``.  ``msm_var_base`` is the complete-formula
 fallback of the scheduled MSM, run when a mixed-add lane flags the doubling
@@ -35,6 +35,68 @@ def msm_var_base(ops: JacobianOps, points, scalar_digits):
     digits = torch.as_tensor(scalar_digits, device=points[0].device)
     per_point = ops.scalar_mul_windowed(points, digits)
     return ops.sum_reduce(per_point, axis=digits.dim() - 2)
+
+
+def _segmented_tree_sum(ops: JacobianOps, points, seg_ids: torch.Tensor):
+    """Hillis-Steele segmented suffix sum over a bucket-sorted point axis
+    (dim 1; dim 0 batches independent rows): after log2(n) rounds position
+    i holds the sum of the run of equal seg_ids starting at i, so a run's
+    head holds the run's sum."""
+    n = seg_ids.shape[1]
+    idx = torch.arange(n, device=seg_ids.device)
+    for s in range((n - 1).bit_length()):
+        shift = 1 << s
+        shifted = tuple(torch.roll(c, -shift, dims=1) for c in points)
+        valid = (idx + shift < n) & (torch.roll(seg_ids, -shift, dims=1) == seg_ids)
+        added = ops.add(points, shifted)
+        points = ops.select(valid, added, points)
+    return points
+
+
+def msm_pippenger(ops: JacobianOps, points, scalar_limbs, window_bits: int = 8):
+    """Pippenger MSM with sort-based bucket accumulation, as the JAX
+    package's: each window sorts its points by digit (stably), sums runs
+    of equal digits by the segmented tree, puts each run's head in its
+    bucket, then the running-sum pass sum_b b * S_b from the top bucket
+    down; Horner combines the windows, MSB first.  Every window runs at
+    once on a leading window axis.
+
+    points: Jacobian coords with leading dim n; scalar_limbs: (n, 8) plain
+    little-endian Fr limbs, int32 tensor or uint32 array.  window_bits
+    must divide the 32-bit limb."""
+    if 32 % window_bits:
+        raise ValueError(f"window_bits {window_bits} does not divide the 32-bit limb")
+    dev = points[0].device
+    limbs = torch.as_tensor(np.asarray(scalar_limbs).astype(np.uint32).view(np.int32)
+                            if isinstance(scalar_limbs, np.ndarray) else scalar_limbs, device=dev)
+    n = points[0].shape[0]
+    num_windows = 256 // window_bits
+    nbuckets = 1 << window_bits
+    # (W, n) window digits, LSB window first
+    shifts = torch.arange(32 // window_bits, device=dev) * window_bits
+    digits = ((limbs.to(torch.int64) & 0xFFFFFFFF)[:, :, None] >> shifts) & (nbuckets - 1)
+    digits = digits.reshape(n, num_windows).t()
+    sorted_dig, order = torch.sort(digits, dim=1, stable=True)
+    tail = tuple(points[0].shape[1:])
+    summed = _segmented_tree_sum(ops, tuple(c[order] for c in points), sorted_dig)
+    idx = torch.arange(n, device=dev)
+    live = ((idx == 0) | (sorted_dig != torch.roll(sorted_dig, 1, dims=1))) & (sorted_dig != 0)
+    w_idx, p_idx = torch.nonzero(live, as_tuple=True)
+    buckets = []
+    for inf, c in zip(ops.infinity_like(points[0][:1]), summed):
+        b = inf.expand((num_windows, nbuckets) + tail).clone()
+        b[w_idx, sorted_dig[w_idx, p_idx]] = c[w_idx, p_idx]
+        buckets.append(b)
+    # running-sum trick: sum_b b * S_b is the sum of the suffix sums
+    inf0 = ops.infinity_like(points[0][:1].expand((num_windows,) + tail))
+    running, total = inf0, inf0
+    for b in range(nbuckets - 1, 0, -1):
+        running = ops.add(running, tuple(c[:, b] for c in buckets))
+        total = ops.add(total, running)
+    acc = ops.infinity_like(points[0][0])
+    for w in range(num_windows - 1, -1, -1):
+        acc = ops.add(ops.double(acc, times=window_bits), tuple(c[w] for c in total))
+    return acc
 
 
 class FixedBaseTable:

@@ -313,24 +313,31 @@ class MatmulNTTPlan:
                 self._dev[key] = torch.from_numpy(_toeplitz_t_host(wd)).to(device).t()
         return self._dev[key]
 
+    def steps_ab(self, xa: torch.Tensor, impl: str = "int8", rows: slice = slice(None)) -> torch.Tensor:
+        """Steps A and B on columns: xa (bf, m, n1[i1], L), column i2 of
+        `rows` at xa[:, i2 - rows.start] (x[i1*n2 + i2]) -> (bf, m, n1[o1],
+        L): the contraction over i1, then the twiddle T[i2, o1]."""
+        bf, m, n1, L = xa.shape
+        y = _fr_matmul(self.table("a", xa.device), xa.reshape(bf * m, n1, L), impl, "step_a").reshape(bf, m, n1, L)
+        # T stored as (n2[i2], n1[o1], L)
+        return fr_ops().mul(y, self.table("t12", xa.device)[rows])
+
+    def step_c(self, zc: torch.Tensor, impl: str = "int8") -> torch.Tensor:
+        """Step C on rows: zc (bf, m, n2[i2], L) -> (bf, m, n2[o2], L), the
+        contraction over i2."""
+        bf, m, n2, L = zc.shape
+        return _fr_matmul(self.table("c", zc.device), zc.reshape(bf * m, n2, L), impl, "step_c").reshape(bf, m, n2, L)
+
     def apply(self, x: torch.Tensor, impl: str = "int8") -> torch.Tensor:
         """x: (..., n, 8) Montgomery limbs -> transformed (..., n, 8)."""
-        f = fr_ops()
-        n1, n2 = self.n1, self.n2
         lead = x.shape[:-2]
         L = x.shape[-1]
         bf = 1
         for d in lead:
             bf *= d
-        a = x.reshape(bf, n1, n2, L)
-        # step A: contract i1 (columns)
-        xa = a.transpose(1, 2).reshape(bf * n2, n1, L)
-        y = _fr_matmul(self.table("a", x.device), xa, impl, "step_a").reshape(bf, n2, n1, L)
-        # step B: twiddle (T stored as (n2[i2], n1[o1], L))
-        z = f.mul(y, self.table("t12", x.device))
-        # step C: contract i2 (rows)
-        zc = z.transpose(1, 2).reshape(bf * n1, n2, L)
-        r_ = _fr_matmul(self.table("c", x.device), zc, impl, "step_c").reshape(bf, n1, n2, L)
+        a = x.reshape(bf, self.n1, self.n2, L)
+        z = self.steps_ab(a.transpose(1, 2), impl)
+        r_ = self.step_c(z.transpose(1, 2), impl)
         # out[o1 + n1*o2] = R[o1, o2]
         return r_.transpose(1, 2).reshape(*lead, self.n, L)
 

@@ -325,6 +325,23 @@ def devaff(pk: ProvingKey, name: str, device):
     return _cache(pk, ("devaff", name, str(device)), build)
 
 
+def _devaff_padded(pk: ProvingKey, name: str, d: int, device):
+    """Device affine point tensors (x, y) of query `name` for a
+    `points`-sharded MSM: the true point count (not ``devaff``'s
+    length-unified G1 arrays, since the shards split the scalars by their
+    own count, and the point shards must align with them) zero-padded to a
+    multiple of `d` with (0, 0), the madd kernel's idle encoding."""
+
+    def build():
+        pts = getattr(pk, f"{name}_pts")
+        conv = ms.g2_affine_to_device if name == "b2" else ms.g1_affine_to_device
+        arrs = conv(pts + [None] * (-len(pts) % d), "cpu")
+        return tuple(a.to(device) for a in arrs)
+
+    device = lb.device_of(device)
+    return _cache(pk, ("devaff_padded", name, d, str(device)), build)
+
+
 def _jac_dev(pk: ProvingKey, name: str, device):
     device = lb.device_of(device)
     conv = co.g2_to_device if name == "b2" else co.g1_to_device
@@ -340,7 +357,7 @@ def _var_base_batch(pk: ProvingKey, name: str, group: str, limbs_list, device):
 
 def prove_msms(pk: ProvingKey, w_std: torch.Tensor, h_std: torch.Tensor,
                window_bits: int = ms.DEFAULT_WINDOW_BITS, timer: StageTimer | None = None,
-               defer: bool = False):
+               defer: bool = False, mesh=None):
     """Five scheduled MSMs for B voters (standard-form scalar limbs on the
     device).  Returns (outs, w_np): outs maps each query to its Jacobian
     coords with leading dim (B,), w_np is the host copy of w_std that the
@@ -352,30 +369,18 @@ def prove_msms(pk: ProvingKey, w_std: torch.Tensor, h_std: torch.Tensor,
     (counted in ``timer.counts["fallbacks"]``) and returns outs; the
     timer's ``msm_*`` marks are made there.  defer=True returns
     (finish, w_np), so a pipelined caller can do other host work before
-    the MSMs are waited for; defer=False returns (finish(), w_np)."""
+    the MSMs are waited for; defer=False returns (finish(), w_np).  With a
+    `mesh` (``parallel.sharded.make_mesh``) the MSMs are point-sharded over
+    its `points` axis (``_prove_msms_sharded``); every rank calls this with
+    the same arguments and gets the same outs."""
     device = w_std.device
     w_np = lb.from_tensor(w_std)
-    h_np = lb.from_tensor(h_std)
     w_limbs = list(w_np)
-    aux_limbs = [wl[pk.num_primary + 1 :] for wl in w_limbs]
-    h_limbs = list(h_np)
-    sch_w = ms.build_schedule_multi(w_limbs, window_bits)
-    sch_aux = ms.build_schedule_multi(aux_limbs, window_bits)
-    sch_h = ms.build_schedule_multi(h_limbs, window_bits)
-    ms.unify_schedule_shapes(sch_w, sch_aux)
-    if timer:
-        timer.mark("schedules")
-    queries = (
-        ("a", "g1", sch_w, w_limbs),
-        ("b1", "g1", sch_w, w_limbs),
-        ("b2", "g2", sch_w, w_limbs),
-        ("l", "g1", sch_aux, aux_limbs),
-        ("h", "g1", sch_h, h_limbs),
-    )
-    outs, excs = {}, []
-    for name, group, sch, _limbs in queries:
-        outs[name], exc = ms.msm_device(group, devaff(pk, name, device), sch)
-        excs.append(exc)
+    h_limbs = list(lb.from_tensor(h_std))
+    if mesh is not None:
+        queries, outs, excs = _prove_msms_sharded(pk, w_limbs, h_limbs, mesh, timer, window_bits)
+    else:
+        queries, outs, excs = _launch_msms(pk, w_limbs, h_limbs, device, timer, window_bits)
 
     def finish():
         flags = torch.stack(excs).tolist()  # the one host read of the five flags
@@ -385,10 +390,69 @@ def prove_msms(pk: ProvingKey, w_std: torch.Tensor, h_std: torch.Tensor,
             if timer:
                 timer.mark(f"msm_{name}")
         if timer:
-            timer.counts["fallbacks"] = timer.counts.get("fallbacks", 0) + sum(flags)
+            timer.counts["fallbacks"] = timer.counts.get("fallbacks", 0) + sum(map(bool, flags))
         return outs
 
     return (finish if defer else finish()), w_np
+
+
+def _queries(pk: ProvingKey, w_limbs, h_limbs, schedule):
+    """The five queries (name, group, schedule, scalar limbs), `schedule`
+    building each scalar set's schedule once."""
+    aux_limbs = [wl[pk.num_primary + 1 :] for wl in w_limbs]
+    sch_w, sch_aux, sch_h = schedule(w_limbs), schedule(aux_limbs), schedule(h_limbs)
+    return (
+        ("a", "g1", sch_w, w_limbs),
+        ("b1", "g1", sch_w, w_limbs),
+        ("b2", "g2", sch_w, w_limbs),
+        ("l", "g1", sch_aux, aux_limbs),
+        ("h", "g1", sch_h, h_limbs),
+    )
+
+
+def _launch_msms(pk: ProvingKey, w_limbs, h_limbs, device, timer, window_bits):
+    """(queries, outs, flags) of the five MSMs on one device."""
+    queries = _queries(pk, w_limbs, h_limbs, lambda limbs: ms.build_schedule_multi(limbs, window_bits))
+    ms.unify_schedule_shapes(queries[0][2], queries[3][2])
+    if timer:
+        timer.mark("schedules")
+    outs, excs = {}, []
+    for name, group, sch, _limbs in queries:
+        outs[name], exc = ms.msm_device(group, devaff(pk, name, device), sch)
+        excs.append(exc)
+    return queries, outs, excs
+
+
+def _prove_msms_sharded(pk: ProvingKey, w_limbs, h_limbs, mesh, timer: StageTimer | None = None,
+                        window_bits: int = ms.DEFAULT_WINDOW_BITS):
+    """Point-sharded prover MSMs over the mesh's `points` axis: of D ranks,
+    rank r owns rows [r*S, (r+1)*S) of every query (S = ceil(n / D) for its
+    n points; ``_devaff_padded``) and builds only its own schedule, over
+    its scalar slice zero-padded to S rows; the five MSMs run through
+    ``sharded_msm_scheduled_fn``, each gathering the D partials and adding
+    them in rank order.  Returns (queries, outs, flags) as ``prove_msms``'s
+    finish reads them, each flag the count of ranks whose madd flagged."""
+    from ..parallel import sharded
+
+    d, r = sharded.axis_rank(mesh, "points")
+    device = sharded.mesh_device(mesh)
+
+    def own_schedule(limbs_list):
+        s = -(-limbs_list[0].shape[0] // d)
+        mine = [np.pad(l, ((0, d * s - l.shape[0]), (0, 0)))[r * s : (r + 1) * s] for l in limbs_list]
+        return ms.build_schedule_multi(mine, window_bits)
+
+    queries = _queries(pk, w_limbs, h_limbs, own_schedule)
+    if timer:
+        timer.mark("schedules")
+    outs, excs = {}, []
+    for name, group, sch, _limbs in queries:
+        pts = _devaff_padded(pk, name, d, device)
+        s = pts[0].shape[0] // d
+        fn = sharded.sharded_msm_scheduled_fn(mesh, group, sch.num_windows, sch.window_bits, sch.num_parts)
+        outs[name], exc = fn(tuple(c[r * s : (r + 1) * s] for c in pts), sch.codes, sch.merge_part, sch.merge_gather)
+        excs.append(exc)
+    return queries, outs, excs
 
 
 def msms_from_device(outs: dict):
@@ -402,20 +466,21 @@ def msms_from_device(outs: dict):
 
 
 def prove_msms_device(pk: ProvingKey, w_mont: torch.Tensor, window_bits: int = ms.DEFAULT_WINDOW_BITS,
-                      timer: StageTimer | None = None, ntt: str | None = None, defer: bool = False):
+                      timer: StageTimer | None = None, ntt: str | None = None, defer: bool = False, mesh=None):
     """Montgomery witness (B, m, L) on the device -> (the five query MSMs as
     device Jacobian coords with leading dim (B,), w_std (B, m, L) standard
     form on the device, w_np its host copy), the NTTs on path `ntt`.  With
     defer=True the first item is ``prove_msms``'s zero-arg ``finish``, which
     gives the MSMs.  Read the primary inputs from w_np: a read of w_std
     would wait for the MSMs.  Raises ValueError if an assignment fails the
-    R1CS."""
+    R1CS.  With a `mesh` the five MSMs are point-sharded over its `points`
+    axis (``prove_msms``)."""
     h_std, w_std, sat = _abc_h_w(pk, w_mont, ntt)
     if not bool(sat.all()):
         raise ValueError("witness does not satisfy the R1CS")
     if timer:
         timer.mark("abc_h")
-    outs, w_np = prove_msms(pk, w_std, h_std, window_bits, timer, defer=defer)
+    outs, w_np = prove_msms(pk, w_std, h_std, window_bits, timer, defer=defer, mesh=mesh)
     return outs, w_std, w_np
 
 

@@ -3,8 +3,11 @@ batched, and as a pipelined stream of batches), the tally, and ballot
 verification.
 
 Counterpart of ``vote_saver_tpu/protocol/phases.py``, with every public
-function of that module but its ``mesh=`` arguments.  Blob-in/blob-out as
-there; the vote phase is batched over voters.  Admin key generation runs
+function of that module.  Blob-in/blob-out as there; the vote phase is
+batched over voters, and its device arm takes the JAX package's ``mesh=``
+(``parallel.sharded.make_mesh``): every rank of the mesh calls it with the
+same arguments, the five MSMs are point-sharded, and every rank gets the
+same ballots, byte for byte those of the unsharded call.  Admin key generation runs
 Groth16 setup on ``device`` (the card by default), or natively on the host
 with ``device="host"`` (the CRS is the same); the election data's Merkle
 tree is hashed on ``device`` too, or through the oracle with "host" (the
@@ -34,6 +37,8 @@ package's under the same seed.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -104,6 +109,13 @@ class VoteContext:
         self.vk = vk
         self.pk = pk
         self.device = device
+
+    def on(self, device) -> "VoteContext":
+        """This context on `device`: the same parsed election, with a copy
+        of the proving key whose device constants are not built yet; what a
+        parsed context is sent to another process or card as."""
+        return VoteContext(self.tree_depth, self.eid_bits, self.circ, self.levels, self.eid_field, self.eid,
+                           self.spk, self.vk, dataclasses.replace(self.pk, _dev={}), lb.device_of(device))
 
 
 def prepare_vote_context(tree_depth: int, eid_bits: int, merkle_tree_blob: bytes, rt_blob: bytes,
@@ -180,13 +192,16 @@ def _serialize(ctx: VoteContext, rerand, prim) -> list[tuple[bytes, bytes, bytes
 def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[int],
                       sk_blobs: list[bytes], rng: FrRandom | None = None,
                       timer: groth16.StageTimer | None = None, host_witness: bool = False,
-                      ntt: str | None = None):
+                      ntt: str | None = None, mesh=None):
     """Per voter (proof_blob, pinput_blob, ct_blob, sn_blob), as the JAX
     package's vote_with_context.  ``host_witness`` selects the host-witness
     + host-tail arm; ``ntt`` the prover's NTT path (None: the int8 matmul
     NTT on the card for domains of at least 2^12, else radix-2; or
     "radix2" / "matmul", ``ops.ntt.choose_path``); ``timer`` records
-    per-stage seconds."""
+    per-stage seconds; ``mesh`` point-shards the device arm's MSMs (the
+    host-witness arm proves without one, so both raise ValueError)."""
+    if host_witness and mesh is not None:
+        raise ValueError("the host-witness arm proves unsharded: pass host_witness or mesh, not both")
     rng = rng or FrRandom()
     B = len(voter_indices)
     circ = ctx.circ
@@ -208,7 +223,7 @@ def vote_with_context(ctx: VoteContext, voter_indices: list[int], votes: list[in
         )
         if timer:
             timer.mark("witness")
-        outs, _w_std, w_np = groth16.prove_msms_device(ctx.pk, w_mont, timer=timer, ntt=ntt)
+        outs, _w_std, w_np = groth16.prove_msms_device(ctx.pk, w_mont, timer=timer, ntt=ntt, mesh=mesh)
         prim = _primary(ctx, w_np)
         rerand = ballot_dev.finalize_ballots_device(ctx.pk, ctx.spk, ctx.vk, outs, votes, rng)
         stage = "ballot_tail"

@@ -4,17 +4,29 @@ election data (the Merkle tree on the device), the parse, batched proving
 (sequential batches, or the pipelined stream), a verified sample of the
 ballots, the tally and its check.
 
-Counterpart of ``scripts/scale_run.py`` over the port's phases, without
-``--mesh-cpu`` (the port has no sharded prover).  The phases run in that
-script's order and draw from one ``FrRandom(seed)`` in its order, so a
-fresh run's blobs equal the JAX package's byte for byte under the same
-seed.  The voter keys, the admin keys and the election data are cached
-under ``.torch_cache/scale_d{depth}_v{voters}/`` and a run resumes from
-them, as the script's ``.bench_cache/`` does; a resumed run skips those
-steps' draws, so its ballots are another seed's.
+Counterpart of ``scripts/scale_run.py`` over the port's phases.  The
+phases run in that script's order and draw from one ``FrRandom(seed)`` in
+its order, so a fresh run's blobs equal the JAX package's byte for byte
+under the same seed.  ``--points P``, the counterpart of its
+``--mesh-cpu``, runs the election on the P ranks of a points x 1 mesh
+(``parallel.sharded.spawn``: gloo where they share the card), each calling
+``run(..., mesh=)``: every rank computes the same keys and data, the five
+MSMs of each batch are point-sharded, and rank 0 alone writes the caches
+and the record, which gains ``"mesh"``, and verifies and tallies.  The
+voters axis stays 1: the prover shards over points only, so a second
+points group would run the same election again on the same card.  The
+sequential batches only: the stream takes no mesh, as in that script.
+The voter keys, the admin keys and the election data are cached under
+``.torch_cache/scale_d{depth}_v{voters}/`` and a run resumes from them, as
+the script's ``.bench_cache/`` does; a resumed run skips those steps'
+draws, so its ballots are another seed's.  Which steps resume is read once
+at the start, by rank 0 for every rank: a rank that read the markers
+itself could find one that rank 0 wrote in this run, skip that step's
+draws and prove another witness.
 
     python -m vote_saver_tpu_torch.scale --config 3 --stream --out SCALE_torch_cfg3.json
     python -m vote_saver_tpu_torch.scale --config 1 --device cpu
+    python -m vote_saver_tpu_torch.scale --config 2 --points 2
 
 Any failed ballot, tally check or count raises, and the command exits
 non-zero.  The default device is the card; without one the run raises
@@ -32,6 +44,7 @@ import struct
 import time
 
 import torch
+import torch.distributed as dist
 
 from . import micro
 from .ops import hopper_field as hf
@@ -48,6 +61,7 @@ CONFIGS = {
 }
 EID_BITS = 64
 SEED = 0x5CA1E
+CACHED = ("voter_init", "admin_keygen", "admin_data")
 CACHE = pathlib.Path(__file__).resolve().parents[1] / ".torch_cache"
 
 
@@ -64,11 +78,15 @@ def _sample(n_voters: int, verify_sample) -> list[int]:
 
 
 def run(config: int, voters: int | None = None, batch: int | None = None, stream: bool = False,
-        verify_sample=4, device="cuda", seed: int = SEED, out=None) -> dict:
+        verify_sample=4, device="cuda", seed: int = SEED, out=None, mesh=None) -> dict:
     """Run BASELINE config `config` (its voter count and batch overridden
     by `voters` / `batch`) on `device` and return the record; write it as
     JSON to `out` when given.  `verify_sample` is a count or a list of
-    voter indices."""
+    voter indices.  With a `mesh` every rank calls this alike; only rank 0
+    writes, and only its record goes past the vote."""
+    if mesh is not None and stream:
+        raise ValueError("the stream runs unsharded: pass stream or mesh, not both")
+    writer = mesh is None or dist.get_rank() == 0
     dev = lb.device_of(device)
     cfg = CONFIGS[config]
     depth = cfg["depth"]
@@ -77,6 +95,8 @@ def run(config: int, voters: int | None = None, batch: int | None = None, stream
     on_card = dev.type == "cuda"
     rec = dict(config=config, depth=depth, voters=n_voters, batch=B,
                device=micro.gpu_line() if on_card else "cpu", times_s={})
+    if mesh is not None:
+        rec["mesh"] = " x ".join(f"{name}={size}" for name, size in zip(mesh.mesh_dim_names, mesh.shape))
     t = rec["times_s"]
     cache = CACHE / f"scale_d{depth}_v{n_voters}"
     cache.mkdir(parents=True, exist_ok=True)
@@ -93,14 +113,22 @@ def run(config: int, voters: int | None = None, batch: int | None = None, stream
         log(f"{name}: {t[name]:.3f} s")
         return res
 
+    # which cached steps resume, fixed before any rank writes a marker
+    resume = [{name: (cache / f"{name}.ok").exists() for name in CACHED}]
+    if mesh is not None:
+        dist.broadcast_object_list(resume, src=0)
+    resume = resume[0]
+
     def cached(name, fn):
         """A tuple of blobs, kept on disk so that an interrupted run resumes."""
         marker = cache / f"{name}.ok"
-        if marker.exists():
+        if resume[name]:
             t[name] = json.loads((cache / f"{name}.time").read_text())
             log(f"{name}: resumed from {cache}")
             return tuple((cache / f"{name}.{i}").read_bytes() for i in range(int(marker.read_text())))
         blobs = step(name, fn)
+        if not writer:
+            return blobs
         for i, b in enumerate(blobs):
             (cache / f"{name}.{i}").write_bytes(b)
         (cache / f"{name}.time").write_text(json.dumps(t[name]))
@@ -130,7 +158,7 @@ def run(config: int, voters: int | None = None, batch: int | None = None, stream
     if stream:
         outs = phases.vote_with_context_stream(ctx, batches, rng, timer=timer)
     else:
-        outs = (phases.vote_with_context(ctx, *b, rng, timer=timer) for b in batches)
+        outs = (phases.vote_with_context(ctx, *b, rng, timer=timer, mesh=mesh) for b in batches)
     for got in outs:
         ballots += got
         now = time.perf_counter()
@@ -146,6 +174,8 @@ def run(config: int, voters: int | None = None, batch: int | None = None, stream
     rec["proofs_per_s_steady"] = (n_voters - B) / steady if n_voters > B and steady > 0 else None
     rec["stage_s"] = {k: v / len(batches) for k, v in timer.seconds.items()}
     rec["vote_launches"] = {k: v - before[k] for k, v in hf.launches.items() if v > before[k]}
+    if not writer:
+        return rec
 
     sample = _sample(n_voters, verify_sample)
     ok = step("vergrth16_sample", lambda: [
@@ -181,10 +211,22 @@ def main(argv=None) -> None:
     ap.add_argument("--verify-sample", type=int, default=4, help="how many ballots to verify one by one")
     ap.add_argument("--device", default="cuda", help='"cuda" (the default) or "cpu" (the plain versions)')
     ap.add_argument("--out", help="write the record there as JSON too")
+    ap.add_argument("--points", type=int, help="run on the ranks of a points x 1 mesh, its points axis this size")
     args = ap.parse_args(argv)
-    rec = run(args.config, args.voters, args.batch, args.stream, args.verify_sample, args.device,
-              out=args.out)
+    kw = dict(config=args.config, voters=args.voters, batch=args.batch, stream=args.stream,
+              verify_sample=args.verify_sample, device=args.device, out=args.out)
+    if args.points:
+        from .parallel import sharded
+
+        ranks = sharded.spawn(_rank, (kw,), args.points, 1, args.device, timeout=24 * 3600)
+        rec = dict(ranks[0].value, rank_seconds=[r.seconds for r in ranks])
+    else:
+        rec = run(**kw)
     print(json.dumps(rec), flush=True)
+
+
+def _rank(mesh, kw: dict) -> dict:
+    return run(**kw, mesh=mesh)
 
 
 if __name__ == "__main__":

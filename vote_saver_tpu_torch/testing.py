@@ -1,15 +1,25 @@
 """Inputs that drive every special lane of the curve kernels K2-K6 and of
-setup's window sum.
+setup's window sum, and the host stand-ins of the CPU tests' sharded ranks.
 
 Shared by the CPU tests and chip_smoke.py, so the kernels meet the same
 corner cases on the card as their plain versions meet against the Pallas
 formulas on the CPU.  Host ints only; callers move them to tensors.
+
+``sharded_test_rank`` is what the CPU tests run on each spawned rank (a
+rank imports this package, never a test module): the sharded functions on
+their cases, then a vote with the scheduled MSMs and the ballot tail as
+host stand-ins (``host_msm_device``, ``host_tail``), since their plain
+versions take tens of minutes for one depth-2 batch on the CPU.
+``scale_test_rank`` runs a sharded ``scale.run`` with the same stand-ins,
+one rank held back as a slow rank would be.
 """
 
 from __future__ import annotations
 
 import contextlib
+import pathlib
 import random
+import time
 
 import numpy as np
 import torch
@@ -200,3 +210,114 @@ def team_add_lanes(g2: bool, n: int, rnd: random.Random, period: int = 64):
     p[9] = (rz(), rz(), zero)
     q[10] = (rz(), rz(), zero)
     return [p[i % period] for i in range(n)], [q[i % period] for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Host stand-ins for the CPU tests' sharded ranks
+# ---------------------------------------------------------------------------
+
+
+def schedule_scalars(sched) -> list[list[int]]:
+    """The scalars a msm_sched.Schedule encodes, per part and point, decoded
+    from its codes and orphan plan: an orphan lane counts for the bucket
+    whose run holds it (``merge_gather``), a bucket lane is (part, window,
+    |digit|), and a code (point + 1) | sign << 30."""
+    codes = np.asarray(sched.codes)
+    canon = sched.merge_gather.shape[0]
+    bw = 1 << (sched.window_bits - 1)
+    K, parts = sched.num_windows, sched.num_parts
+    step, lane = np.nonzero(codes)
+    code = codes[step, lane].astype(np.int64)
+    heads = np.nonzero(sched.merge_gather)[0]
+    bases = sched.merge_gather[heads].astype(np.int64) - 1
+    orphan = lane >= canon
+    bucket = lane.astype(np.int64)
+    bucket[orphan] = heads[np.searchsorted(bases, lane[orphan] - canon, side="right") - 1]
+    point = (code & ((1 << 30) - 1)) - 1
+    digit = (bucket % bw + 1) * np.where(code >> 30, -1, 1)
+    n = int(point.max()) + 1 if point.size else 0
+    digits = np.zeros((parts, n, K), dtype=np.int64)
+    np.add.at(digits, (bucket // (bw * K), point, bucket // bw % K), digit)
+    weights = np.array([1 << (sched.window_bits * j) for j in range(K)], dtype=object)
+    return [[int(v) % R for v in (d.astype(object) * weights).sum(axis=1)] for d in digits]
+
+
+def host_msm_device(group: str, points_xy, sched):
+    """msm_sched.msm_device's stand-in: each part's MSM of the scalars the
+    schedule encodes (``schedule_scalars``) over the (x, y) points, by the
+    native host MSM, as Jacobian coords on the points' device; no flag."""
+    from . import native_bridge as nb
+    from .ops import curve_ops as co
+    from .ops import limbs as lb
+
+    g2 = group == "g2"
+    xs, ys = (lb.tensor_to_ints(c, lb.FQ) for c in points_xy)
+    if g2:
+        pts = [((int(x[0]), int(x[1])), (int(y[0]), int(y[1]))) for x, y in zip(xs, ys)]
+        pts = [None if p == ((0, 0), (0, 0)) else p for p in pts]
+    else:
+        pts = [None if (int(x), int(y)) == (0, 0) else (int(x), int(y)) for x, y in zip(xs, ys)]
+    sums = []
+    for scalars in schedule_scalars(sched):
+        scalars = scalars + [0] * (len(pts) - len(scalars))
+        sums.append(nb.msm(pts, scalars, group=group))
+    dev = points_xy[0].device
+    return (co.g2_to_device if g2 else co.g1_to_device)(sums, dev), torch.zeros((), dtype=torch.bool, device=dev)
+
+
+def host_tail(pk, spk, gvk, outs, votes, rng):
+    """ballot_dev.finalize_ballots_device's stand-in: its host oracle, from
+    the same draws of `rng`."""
+    from .protocol import ballot_dev
+
+    return ballot_dev._finalize_host(pk, spk, gvk, outs, votes, ballot_dev.draw_scalars(len(votes), rng))
+
+
+def sharded_test_rank(mesh, cases: dict, vote_args: tuple) -> dict:
+    """A CPU test's rank: ``entry.run_cases`` on `cases`, then, on the ranks
+    at voters coordinate 0 (one `points` group), ``entry.vote(mesh,
+    *vote_args)`` (a parsed context, voters, votes, secret keys, seed)
+    with the host stand-ins for the scheduled MSMs and the ballot tail."""
+    from . import entry
+    from .ops import msm_sched as ms
+    from .protocol import ballot_dev
+
+    out = {"cases": entry.run_cases(mesh, cases)}
+    if mesh.get_local_rank("voters") == 0:
+        ms.msm_device = host_msm_device
+        ballot_dev.finalize_ballots_device = host_tail
+        out["ballots"] = entry.vote(mesh, *vote_args)
+    return out
+
+
+def scale_test_rank(mesh, kw: dict, cache: str, lag_s: float) -> dict:
+    """A CPU test's rank of ``scale.run(**kw, mesh=mesh)`` with its caches
+    under `cache` and the host stand-ins of ``sharded_test_rank``.  Every
+    rank but rank 0 starts late: once rank 0 has written its first cache
+    marker, or after `lag_s` seconds.  Returns the record and the ballots
+    of every batch."""
+    import torch.distributed as dist
+
+    from . import scale
+    from .ops import msm_sched as ms
+    from .protocol import ballot_dev, phases
+
+    ms.msm_device = host_msm_device
+    ballot_dev.finalize_ballots_device = host_tail
+    scale.CACHE = pathlib.Path(cache)
+    ballots = []
+    vote = phases.vote_with_context
+
+    def spy(*a, **k):
+        got = vote(*a, **k)
+        ballots.extend(got)
+        return got
+
+    phases.vote_with_context = spy
+    if dist.get_rank():
+        cfg = scale.CONFIGS[kw["config"]]
+        marker = scale.CACHE / f"scale_d{cfg['depth']}_v{kw.get('voters') or cfg['voters']}" / "voter_init.ok"
+        deadline = time.monotonic() + lag_s
+        while not marker.exists() and time.monotonic() < deadline:
+            time.sleep(0.05)
+    return dict(rec=scale.run(**kw, mesh=mesh), ballots=ballots)
