@@ -33,7 +33,12 @@ Phases, in order; any failure exits non-zero, and there is no CPU fallback:
      against the host oracle, and each timed launch held against its plain
      version on every lane; each chain probe's registers, local bytes,
      shared memory and resident warps a SM as the CUDA runtime reports
-     them.  K7 and K10 fold run their fold product on the int8 tensor
+     them.  K7 and K8 in loop and v1 run the PTX carry chains
+     (``csrc/mul_ptx.cuh``), and K7 runs again in the curve kernels'
+     multiply as the yardstick (``k7_loop_c64``, ``k7_v1_c64``, in the
+     kernels line too): ``[K7 forms]`` sets the two side by side, and
+     ``[sass]`` gives each loop / v1 chain probe's instructions a multiply
+     by class (``micro.sass_mix``).  K7 and K10 fold run their fold product on the int8 tensor
      cores, and so do the fold instances of the bucket scan, the suffix
      round, the doubling and the complete add in G1 and G2 (G2's the team
      add) and of the Fq and Fr inversion chains
@@ -213,7 +218,7 @@ CURVE_MODES = ("v1", "fold")
 # these probes, K7 and K10 fold, and the fold unit's instances hopper_field.MMA_KERNELS
 FOLD_PROBES = ("mul_chain_k7_fold", "mul_chain_k10_fold")
 # the built libraries [sass] reads for them
-FOLD_LIBS = ("libvstorch_micro_", "libvstorch_curve_fold_")
+FOLD_UNITS = ("micro.cu", "curve_fold.cu")
 # fold instances that keep the per-lane dp4a fold, whose [sass] must show IDP and no IMMA
 DP4A_KERNELS = ("g1_window_sum_fold", "g2_window_sum_fold")
 # the spin kernels (and their cycles each, about 0.25 ms) that open each profiling window (profile_window)
@@ -1283,29 +1288,23 @@ def kernel_key(name: str) -> str | None:
 def instance_name(short: str) -> str | None:
     """The kernels-line name of a kernel in ptxas's report (shortened by
     ``_build.short_name``): hopper_field's through kernel_key, the probes'
-    (``k_mul_chain<P,M,CHAINS,UNROLL>``, the tensor-core fold's
-    ``k_mul_chain_mma<P,CHAINS,UNROLL>``, ``k_op<KIND,CHAINS>``) from
-    micro's tables; None for a device function."""
+    (``k_mul_chain<P,M,CHAINS,UNROLL,START>``, ``k_mul_chain_ptx<...>``,
+    the tensor-core fold's ``k_mul_chain_mma<P,CHAINS,UNROLL>``:
+    ``micro.instance``; ``k_op<KIND,CHAINS>``) from micro's tables; None
+    for a device function."""
     from vote_saver_tpu_torch import micro
 
     key = kernel_key(short)
     if key is not None:
         return key
-    m = re.match(r"k_(mul_chain_mma|mul_chain|op)<(.*)>$", short)
+    probes = {micro.instance(k): f"mul_chain_{k}" for k in micro.CHAIN_PROBES}
+    if short in probes:
+        return probes[short]
+    m = re.match(r"k_op<(.*)>$", short)
     if not m:
         return None
-    args = m.group(2).split(",")
-    if m.group(1) == "op":
-        return f"op_{list(micro.OP_KINDS)[int(args[0])]}" + ("_x8" if args[1] == "8" else "")
-    if m.group(1) == "mul_chain_mma":
-        mode, chains, unroll = "fold", args[1], args[2]
-    else:
-        mode = {"MulLoop": "loop", "MulV1": "v1", "MulFold": "fold"}[args[1]]
-        chains, unroll = args[2], args[3]
-    for probe, (_idx, pmode, pchains, punroll) in micro.CHAIN_PROBES.items():
-        if (pmode, pchains, punroll) == (mode, int(chains), int(unroll)):
-            return f"mul_chain_{probe}"
-    return None
+    args = m.group(1).split(",")
+    return f"op_{list(micro.OP_KINDS)[int(args[0])]}" + ("_x8" if args[1] == "8" else "")
 
 
 def sass_counts(text: str) -> dict:
@@ -1332,21 +1331,25 @@ def sass_counts(text: str) -> dict:
     return {k: dict(v) for k, v in out.items()}
 
 
-def check_fold_sass(kl) -> dict:
+def check_fold_sass(gpu: str) -> dict:
     """The fold products on the tensor cores: ``cuobjdump -sass`` of the
-    built probe and curve libraries (FOLD_LIBS) must show IMMA instructions
-    and no IDP (dp4a) in each of FOLD_PROBES and hopper_field.MMA_KERNELS."""
-    import subprocess
-
+    built probe and curve libraries (FOLD_UNITS) must show IMMA instructions
+    and no IDP (dp4a) in each of FOLD_PROBES and hopper_field.MMA_KERNELS.
+    The loop and v1 chain probes' instructions a multiply by class
+    (``micro.sass_mix``: the carry chains beside the yardstick) are logged
+    and returned with them."""
+    from vote_saver_tpu_torch import micro
     from vote_saver_tpu_torch.ops import _build
     from vote_saver_tpu_torch.ops import hopper_field as hf
 
-    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     counts = {}
-    for prefix in FOLD_LIBS:
-        lib = next(p for p in kl.paths if p.name.startswith(prefix))
-        counts.update(sass_counts(subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
-                                                 check=True, timeout=300).stdout))
+    for unit in FOLD_UNITS:
+        text = _build.sass(unit)
+        counts.update(sass_counts(text))
+        if unit == "micro.cu":
+            mix = micro.sass_mix(text)
+            for line in micro.sass_lines(mix, gpu):
+                log(line)
     kernels = FOLD_PROBES + hf.MMA_KERNELS
     for k in kernels:
         c = counts.get(k)
@@ -1358,7 +1361,7 @@ def check_fold_sass(kl) -> dict:
         log(f"[sass] {k}: {c}")
         if not c or c["IMMA"] or not c["IDP"]:
             fail(f"{k} is not the per-lane dp4a fold (cuobjdump -sass: {c})")
-    return {k: counts[k] for k in (*kernels, *DP4A_KERNELS)}
+    return {**{k: counts[k] for k in (*kernels, *DP4A_KERNELS)}, **{f"mul_chain_{k}": v for k, v in mix.items()}}
 
 
 def profile_batch(batch, library: set):
@@ -2366,11 +2369,12 @@ def probe_entries(probes: dict) -> dict:
 
     res = probes["res"]
     chain = {**{f"k7_{m}": r for m, r in res["field_mul"].items()},
+             **{r["probe"]: r for r in res["yardstick"].values()},
              **{f"k8_{v}": r for v, r in res["cios_loop"].items()},
              **{f"k10_{m}": r for m, r in res["mul_chain"].items()}}
     out = {}
     for probe, r in chain.items():
-        _idx, mode, chains, unroll = micro.CHAIN_PROBES[probe]
+        _idx, mode, chains, unroll, _mul = micro.CHAIN_PROBES[probe]
         muls = r["lanes"] * chains * unroll
         work = mode_work(dict(bytes=r["lanes"] * 4 * lb.FQ.num_limbs * (3 + (chains > 1)), mads=muls * MADS["fq"]),
                          mode)
@@ -2429,7 +2433,7 @@ def main() -> None:
         # the loop window sum's other team sizes are logged only
         if not (name.startswith("k_window_sum<") and not name.endswith(f",{hf.WINDOW_TEAM}>")):
             resources[instance_name(name)] = (regs, spill)
-    sass = check_fold_sass(kl)
+    sass = check_fold_sass(gpu)
 
     # each phase's wall seconds, for the run's time budget
     phase_s = {}

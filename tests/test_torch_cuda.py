@@ -16,8 +16,9 @@ call (the team kernel with no spill); a scheduled MSM,
 through one scan launch and the suffix rounds' shift form, must equal the
 native host MSM, and so must a G2 MSM's buckets combined through the flagged
 distinct add K6; the probes K7-K10 must pass their host-oracle
-parity, and the tensor-core fold of K7 and K10 must equal its plain version
-at ragged lane counts; a proof made on the card must be byte-identical to the same proof
+parity, the tensor-core fold of K7 and K10, the PTX carry chains of K7 and
+K8 and K7's yardstick instances must equal their plain versions at ragged
+lane counts; a proof made on the card must be byte-identical to the same proof
 made by the plain versions on the CPU; setup on the card must write the
 host-native arm's CRS; the int8 matmul NTT must equal the radix-2 path on
 the card for each of its four kinds.  The curve kernels and the inversion
@@ -262,6 +263,8 @@ def test_probes_pass_parity(dev):
     equal to plain."""
     for mode in hf.MODES:
         assert micro.field_mul(mode, dev, lanes=1 << 14, reps=2)["max_abs_err"] == 0
+    for mode in micro.YARDSTICKS:
+        assert micro.yardstick(mode, dev, lanes=1 << 14, reps=2)["max_abs_err"] == 0
     assert all(r["max_abs_err"] == 0 for r in micro.mul_chain(device=dev, lanes=1 << 14, reps=2).values())
     assert all(r["max_abs_err"] == 0 for r in micro.op_throughput(dev, lanes=1 << 14, reps=2).values())
     assert all(r["parity"] for r in micro.mont_mul_modes(dev, lanes=1 << 14, reps=2).values())
@@ -272,21 +275,49 @@ def test_probes_pass_parity(dev):
 def test_fold_chains_match_plain_at_ragged_lanes(dev, probe, lanes):
     """K7 and K10 fold (the fold product on the tensor cores, a warp's 32
     lanes as one tile) at lane counts that leave a warp or a block part
-    full: one launch, every lane equal to the plain version, chain 0 equal
-    to x (y R^-1)^depth on sampled lanes; lane 0 has every digit 255."""
-    _idx, mode, chains, unroll = micro.CHAIN_PROBES[probe]
+    full: one launch, every lane equal to the plain version (K7's chains
+    1.. starting along the lane's row of 128, as bench.py's probe rolls
+    them), chain 0 equal to x (y R^-1)^depth on sampled lanes; lane 0 has
+    every digit 255."""
+    _idx, mode, chains, unroll, _mul = micro.CHAIN_PROBES[probe]
     gen = torch.Generator(device=dev).manual_seed(lanes)
     x, y = micro.random_limbs("fq", lanes, dev, gen), micro.random_limbs("fq", lanes, dev, gen)
     x[0], y[0] = -1, -1
     before = micro.launches[f"mul_chain_{probe}"]
     k0, k1 = micro.run_chain(probe, x, y)
     assert micro.launches[f"mul_chain_{probe}"] == before + 1
-    p0, p1 = micro.mul_chain_plain(mode, chains, unroll, x, y)
+    p0, p1 = micro.mul_chain_plain(mode, chains, unroll, x, y, start=micro.start_of(probe))
     assert torch.equal(k0, p0) and (chains == 1 or torch.equal(k1, p1))
     idx = micro._check_lanes(lanes)
     xs, ys, got = (lb.tensor_to_ints(t[idx], lb.FQ, mont=False) for t in (x, y, k0))
     rinv = pow(lb.FQ.mont_r, -1, Q)
     assert list(got) == [int(a) * pow(int(b) * rinv % Q, unroll, Q) % Q for a, b in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("lanes", [1, 33, micro.PARITY_LANES + 5])
+@pytest.mark.parametrize("probe", ["k7_loop", "k7_v1", "k8_loop", "k8_v1", "k7_loop_c64", "k7_v1_c64"])
+def test_carry_chain_probes_match_plain(dev, probe, lanes):
+    """K7 and K8 in loop and v1, the PTX carry chains, and K7's yardstick
+    instances (the curve kernels' multiply) in one launch each at lane
+    counts that leave a row of 128, a warp or a block part full: every lane
+    of both outputs equal to the plain version.  Lane 0 is 2^384 - 1 (its
+    K8 starts too), lane 1 Q - 1 against y = Q - 1; K8's starts of chains
+    1.. are rotations, most of them >= Q."""
+    _idx, mode, chains, unroll, _mul = micro.CHAIN_PROBES[probe]
+    gen = torch.Generator(device=dev).manual_seed(lanes + 1)
+    x, y = micro.random_limbs("fq", lanes, dev, gen), micro.random_limbs("fq", lanes, dev, gen)
+    x[0] = -1
+    if lanes > 1:
+        x[1] = y[1] = lb.ints_to_tensor([Q - 1], lb.FQ, dev, mont=False)[0]
+    before = micro.launches[f"mul_chain_{probe}"]
+    k0, k1 = micro.run_chain(probe, x, y)
+    torch.cuda.synchronize()
+    assert micro.launches[f"mul_chain_{probe}"] == before + 1
+    p0, p1 = micro.mul_chain_plain(mode, chains, unroll, x, y, start=micro.start_of(probe))
+    assert torch.equal(k0, p0) and torch.equal(k1, p1)
+    if probe.startswith("k8") and lanes > 33:
+        assert sum(int(v >= Q) for s in micro.chain_starts("limbs", chains, x)[1:]
+                   for v in lb.tensor_to_ints(s, lb.FQ, mont=False)) > lanes
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])

@@ -127,9 +127,11 @@ _SASS = """
         /*0a50*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
         /*0a60*/                   IMMA.16832.U8.S8 R12, R48.ROW, R44.COL, R12 ;
         /*0a70*/              @!P0 BRA 0x1a0 ;
-		Function : _Z11k_mul_chainI8FqParams5MulV1Li4ELi6EEvPKjS2_PjS3_x
+		Function : _Z15k_mul_chain_ptxI8FqParams8MulV1PtxLi4ELi6ELi0EEvPKjS2_PjS3_x
         /*0100*/                   IMAD.WIDE.U32 R4, R2, R3, RZ ;
         /*0110*/                   EXIT ;
+		Function : _Z11k_mul_chainI8FqParams5MulV1Li4ELi6ELi0EEvPKjS2_PjS3_x
+        /*0100*/                   IMAD.X R4, R2, R3, R5, P0 ;
 		Function : _Z8mul_foldI8FqParamsE2FpIT_ES3_S3_
         /*0200*/                   IDP.4A.U8.S8 R4, R8, c[0x3][0x0], R4 ;
 """
@@ -147,4 +149,5 @@ def test_sass_counts_name_each_kernel():
 
     assert chip_smoke.sass_counts(_SASS) == {
         "mul_chain_k10_fold": {"IMMA": 2, "IDP": 0, "FFMA": 1, "all": 5},
-        "mul_chain_k7_v1": {"IMMA": 0, "IDP": 0, "FFMA": 0, "all": 2}}
+        "mul_chain_k7_v1": {"IMMA": 0, "IDP": 0, "FFMA": 0, "all": 2},
+        "mul_chain_k7_v1_c64": {"IMMA": 0, "IDP": 0, "FFMA": 0, "all": 1}}

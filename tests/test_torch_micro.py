@@ -3,7 +3,9 @@ and the port's entry points defaulting to the card.
 
 Each probe's plain version runs at a few lanes against the host oracle: the
 chain probes end at x * (y R^-1)^depth on every checked lane, in each
-multiplier mode; every K9 kind, its 8-chain forms included, equals its
+multiplier mode, and their sum output starts chains 1.. where the JAX
+probes do (K7 along the lane's row of 128, K8 at its own element rotated by
+16k bits); every K9 kind, its 8-chain forms included, equals its
 Python-integer (or correctly rounded float32) oracle bit for bit, on the
 JAX probe's constant inputs and on K9's per-lane parity inputs, which give
 the lanes different results; K1 agrees across the modes.  The
@@ -27,6 +29,7 @@ from vote_saver_tpu_torch.ops import hopper_field as hf
 from vote_saver_tpu_torch.ops import limbs as lb
 from vote_saver_tpu_torch.ops import merkle, pedersen_ops
 from vote_saver_tpu_torch.parallel import sharded
+from vote_saver_tpu_torch.params import Q
 from vote_saver_tpu_torch.protocol import groth16, phases
 from vote_saver_tpu_torch.testing import torch_threads
 from vote_saver_tpu_torch.utils.rng import FrRandom
@@ -38,23 +41,36 @@ def _one_torch_thread():
         yield
 
 
+def _start(probe, xs, i, k):
+    """Host oracle of where chain k of lane i starts: K7 (bench.py:288-291)
+    at the lane k further along its own row of 128 (a short last row rolls
+    within itself), K8 (scripts/micro_cios_loop.py:96) at its own element
+    rotated right by 16k bits."""
+    if micro.start_of(probe) == "limbs":
+        v = xs[i]
+        return ((v >> (16 * k)) | (v << (384 - 16 * k))) & ((1 << 384) - 1)
+    r0 = i - i % 128
+    m = min(128, len(xs) - r0)
+    return xs[r0 + (i - r0 + k) % m]
+
+
 @pytest.mark.parametrize("probe", list(micro.CHAIN_PROBES))
 def test_chain_probe_plain_matches_host_oracle(probe):
     r = micro.chain_probe(probe, "cpu", parity_lanes=5, reps=2)
-    _idx, mode, chains, unroll = micro.CHAIN_PROBES[probe]
+    _idx, mode, chains, unroll, _mul = micro.CHAIN_PROBES[probe]
     assert r["parity"] and r["parity_depth"] == 2 * unroll and r["mode"] == mode
     assert "ms" not in r  # no rate from a CPU run
-    # the sum output: chains 1.. start at the next lanes
-    _xs, _ys, a, b = micro._parity_inputs(5, "cpu")
+    # the sum output, on a full row and a short one: chains 1.. start where
+    # the JAX probe starts them
+    lanes = 128 + 5
+    xs, ys, a, b = micro._parity_inputs(lanes, "cpu")
     out0, out1 = micro.run_chain(probe, a, b)
-    assert torch.equal(out0, micro.mul_chain_plain(mode, 1, unroll, a, b)[0])
+    assert torch.equal(out0, micro.mul_chain_plain(mode, 1, unroll, a, b, start=micro.start_of(probe))[0])
     if chains > 1:
-        fq = hf.HALF["fq"]
-        want = None
-        for k in range(1, chains):
-            c = micro.mul_chain_plain(mode, 1, unroll, torch.roll(a, -k, dims=0), b)[0]
-            want = hf._half(c) if want is None else fq.add(want, hf._half(c))
-        assert torch.equal(out1, hf._pack(want))
+        rinv = pow(lb.FQ.mont_r, -1, Q)
+        want = [sum(_start(probe, xs, i, k) * pow(ys[i] * rinv % Q, unroll, Q) for k in range(1, chains)) % Q
+                for i in range(lanes)]
+        assert list(lb.tensor_to_ints(out1, lb.FQ, mont=False)) == want
     else:
         assert out1 is None
 
@@ -186,3 +202,27 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _default_calls(tmp_path)[entry]()
     assert lb.device_of("cpu") == torch.device("cpu")
+
+
+_CHAIN_SASS = """
+		Function : _Z15k_mul_chain_ptxI8FqParams10MulLoopPtxLi4ELi6ELi0EEvPKjS2_PjS3_x
+        /*0100*/                   IMAD.WIDE.U32 R4, R2, R3, RZ ;
+        /*0110*/                   IMAD.X R5, R2, R3, R5, P0 ;
+        /*0120*/                   IMAD.HI.U32 R6, R2, R3, R6 ;
+        /*0130*/              @!P1 IADD3.X R7, R7, RZ, RZ, P0, !PT ;
+        /*0140*/                   IMAD.MOV.U32 R8, RZ, RZ, R9 ;
+        /*0150*/                   SEL R1, R2, R3, P0 ;
+        /*0160*/                   EXIT ;
+		Function : _Z15k_mul_chain_mmaI8FqParamsLi4ELi6EEvPKjS2_PjS3_x
+        /*0100*/                   IMMA.16832.U8.S8 R8, R40.ROW, R44.COL, R8 ;
+"""
+
+
+def test_sass_mix_counts_each_class_per_multiply():
+    """micro.sass_mix: the loop / v1 chain probes' SASS by opcode class, over
+    the instance's chains x unroll multiplies; the fold probes left out."""
+    mix = micro.sass_mix(_CHAIN_SASS)
+    assert set(mix) == {"k7_loop"}
+    per = {c: n * 24 for c, n in mix["k7_loop"].items()}
+    assert per == {"IMAD.WIDE": 1, "IMAD.HI": 1, "IMAD.MOV": 1, "IMAD": 1, "IADD3": 1, "SEL/ISETP": 1, "MOV": 0,
+                   "other": 1, "all": 7}

@@ -266,7 +266,14 @@ def test_ptxas_report_names_each_instance():
     assert chip_smoke.kernel_key("(anonymous namespace)::k_mont_mul<FqParams, MulV1>(...)") == "mont_mul_fq_v1"
     assert chip_smoke.instance_name("k_mont_mul_mode<FrParams,MulFold>") == "mont_mul_fr_fold"
     assert chip_smoke.instance_name("k_op<6,8>") == "op_u32_mul_wide_x8"
-    assert chip_smoke.instance_name("k_mul_chain<FqParams,MulFold,1,16>") == "mul_chain_k10_fold"
+    # the chain probes, by mode type and chain start (csrc/micro.cu's kChains)
+    assert _build.short_name("_Z15k_mul_chain_ptxI8FqParams10MulLoopPtxLi4ELi8ELi1EEvPKjS2_PjS3_x") \
+        == "k_mul_chain_ptx<FqParams,MulLoopPtx,4,8,1>"
+    assert chip_smoke.instance_name("k_mul_chain_ptx<FqParams,MulLoopPtx,4,8,1>") == "mul_chain_k8_loop"
+    assert chip_smoke.instance_name("k_mul_chain_ptx<FqParams,MulV1Ptx,4,6,0>") == "mul_chain_k7_v1"
+    assert chip_smoke.instance_name("k_mul_chain<FqParams,MulLoop,4,6,0>") == "mul_chain_k7_loop_c64"
+    assert chip_smoke.instance_name("k_mul_chain<FqParams,MulV1,1,16,0>") == "mul_chain_k10_v1"
+    assert chip_smoke.instance_name("k_mul_chain<FqParams,MulFold,1,16>") is None
     # the tensor-core fold's instances (csrc/micro.cu's k_mul_chain_mma)
     assert _build.short_name("_Z15k_mul_chain_mmaI8FqParamsLi4ELi6EEvPKjS2_PjS3_x") == "k_mul_chain_mma<FqParams,4,6>"
     assert chip_smoke.instance_name("k_mul_chain_mma<FqParams,4,6>") == "mul_chain_k7_fold"

@@ -1,6 +1,7 @@
 // The multiply probes K7-K10 and their extern "C" launchers.
 //
-//   k_mul_chain<P, M, CHAINS, UNROLL>, k_mul_chain_mma<P, CHAINS, UNROLL>
+//   k_mul_chain<P, M, CHAINS, UNROLL, START>, k_mul_chain_ptx<...> (the same
+//   with the carry chains' launch bounds), k_mul_chain_mma<P, CHAINS, UNROLL>
 //   (probe table kChains below)
 //     K7  <- bench.py:bench_field_mul (pallas_call l.302): 4 independent
 //            chains x 6 chained Fq multiplies, in a given mode;
@@ -19,13 +20,19 @@
 //            throughput.  Chain j starts at x + j and takes the constants
 //            y + 8r + j, so no two chains share a product.
 //
-// A chain lane i runs chain k from x[(i + k) % n] (the JAX probes roll the
-// tile to make the chains distinct) against y[i]; out0 is chain 0, out1 the
+// A chain lane i runs chain 0 from x[i] and chain k from where the JAX probe
+// starts it (START, below), all against y[i]; out0 is chain 0, out1 the
 // field sum of chains 1.. (as the JAX kernels write them).  What bounds
-// them: the multiplies (mul_modes.cuh) and, for K9, the op itself; none
-// touches memory between its load and its store.  K9 is the card's integer
-// multiply-add yardstick: every curve kernel is bound by the 32x32->64
-// multiply-add, whose rate this card's data sheet does not give.
+// them: the multiplies and, for K9, the op itself; none touches memory
+// between its load and its store.  K9 is the card's integer multiply-add
+// yardstick: every curve kernel is bound by the 32x32->64 multiply-add,
+// whose rate this card's data sheet does not give.
+//
+// K7 and K8 in loop and v1 run the multiplies as PTX carry chains
+// (mul_ptx.cuh: MulLoopPtx, MulV1Ptx).  The same shape of K7 in field.cuh's
+// mul and MulV1, the form every curve kernel uses, stays beside them as the
+// yardstick (k7_loop_c64, k7_v1_c64), so one run measures what the carry
+// chains would give the curve kernels.
 //
 // The fold probes (K7 fold, K10 fold) are k_mul_chain_mma: the fold with its
 // fold product on the int8 tensor cores (fold_mma.cuh), the counterpart of
@@ -51,20 +58,60 @@
 #include <cstdint>
 
 #include "fold_mma.cuh"
+#include "mul_ptx.cuh"
 
 constexpr int kThreads = 128;
 
-template <class P, class M, int CHAINS, int UNROLL>
-__global__ void __launch_bounds__(kThreads)
-    k_mul_chain(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-                uint32_t* __restrict__ out0, uint32_t* __restrict__ out1, long long n) {
+// Where chain k of lane i starts (chain 0 at x[i]):
+//   kStartRows   K7, bench.py:288-291 (a roll of the tile's last axis): at
+//                lane 128r + (t + k) mod m, for i = 128r + t in a row of m
+//                lanes (128, or fewer in a short last row, which rolls within
+//                its own lanes);
+//   kStartLimbs  K8, scripts/micro_cios_loop.py:96 (a roll of the limb axis
+//                of the 16-bit layout): lane i's own element rotated right by
+//                16k bits, a value that may be >= Q.
+enum ChainStart : int { kStartRows = 0, kStartLimbs = 1 };
+
+__device__ __forceinline__ long long row_roll(long long i, int k, long long n) {
+  const long long r0 = i & ~127LL;
+  const long long m = n - r0 < 128 ? n - r0 : 128;
+  return r0 + (i - r0 + k) % m;
+}
+
+// x rotated right by 16k bits: the limbs by k / 2, then by 16 bits
+template <class P>
+__device__ __forceinline__ Fp<P> rotr16(const Fp<P>& x, int k) {
+  constexpr int L = P::L;
+  Fp<P> r;
+#pragma unroll
+  for (int j = 0; j < L; ++j) r.v[j] = x.v[(j + k / 2) % L];
+  if (k % 2) {
+    const Fp<P> s = r;
+#pragma unroll
+    for (int j = 0; j < L; ++j) r.v[j] = __funnelshift_r(s.v[j], s.v[(j + 1) % L], 16);
+  }
+  return r;
+}
+
+// A chain probe's lane: CHAINS chains from their starts, UNROLL rounds of
+// multiplies by y[i], out0 = chain 0, out1 = the field sum of the others.
+template <class P, class M, int CHAINS, int UNROLL, int START>
+__device__ __forceinline__ void mul_chain(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                                          uint32_t* __restrict__ out0, uint32_t* __restrict__ out1, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Fp<P> c[CHAINS];
   Fp<P> b;
   load(b, y, i);
+  load(c[0], x, i);
 #pragma unroll
-  for (int k = 0; k < CHAINS; ++k) load(c[k], x, (i + k) % n);
+  for (int k = 1; k < CHAINS; ++k) {
+    if (START == kStartLimbs) {
+      c[k] = rotr16(c[0], k);
+    } else {
+      load(c[k], x, row_roll(i, k, n));
+    }
+  }
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
 #pragma unroll
@@ -79,8 +126,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The curve kernels' multiplies (the yardsticks, K10 v1), registers as
+// ptxas chooses them.
+template <class P, class M, int CHAINS, int UNROLL, int START>
+__global__ void __launch_bounds__(kThreads)
+    k_mul_chain(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                uint32_t* __restrict__ out0, uint32_t* __restrict__ out1, long long n) {
+  mul_chain<P, M, CHAINS, UNROLL, START>(x, y, out0, out1, n);
+}
+
+// The carry chains take 142-164 registers a thread (ptxas, at K7's and K8's
+// shapes), so 3 blocks of 128 threads fit an SM: 12 warps.  Four blocks
+// capped them at 128 registers with 8 / 40 bytes of local memory a thread
+// (loop 1% slower, v1 3% faster at K7's shape; PERF.md).
+constexpr int kPtxMinBlocks = 3;
+
+template <class P, class M, int CHAINS, int UNROLL, int START>
+__global__ void __launch_bounds__(kThreads, kPtxMinBlocks)
+    k_mul_chain_ptx(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                    uint32_t* __restrict__ out0, uint32_t* __restrict__ out1, long long n) {
+  mul_chain<P, M, CHAINS, UNROLL, START>(x, y, out0, out1, n);
+}
+
 // The fold chains with the tensor-core fold: chain 0 is multiplied, then the
-// chains rotate, so the loop holds one copy of the multiply.
+// chains rotate, so the loop holds one copy of the multiply.  K7 fold starts
+// its chains as K7 does (kStartRows).
 template <class P, int CHAINS, int UNROLL>
 __global__ void __launch_bounds__(kThreads)
     k_mul_chain_mma(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
@@ -97,7 +167,7 @@ __global__ void __launch_bounds__(kThreads)
   Fp<P> b;
   load(b, y, li);
 #pragma unroll
-  for (int k = 0; k < CHAINS; ++k) load(c[k], x, (li + k) % n);
+  for (int k = 0; k < CHAINS; ++k) load(c[k], x, row_roll(li, k, n));
 #pragma unroll 1
   for (int s = 0; s < CHAINS * UNROLL; ++s) {
     const Fp<P> r = mul_fold_mma<P>(c[0], b, smem, tile);
@@ -117,8 +187,8 @@ __global__ void __launch_bounds__(kThreads)
 
 #ifdef VS_K8_ONLY
 
-template __global__ void k_mul_chain<FqParams, VS_K8_MUL, 4, 8>(const uint32_t*, const uint32_t*,
-                                                                uint32_t*, uint32_t*, long long);
+template __global__ void k_mul_chain_ptx<FqParams, VS_K8_MUL, 4, 8, kStartLimbs>(const uint32_t*, const uint32_t*,
+                                                                                 uint32_t*, uint32_t*, long long);
 
 #else
 
@@ -208,13 +278,15 @@ constexpr int kFoldMmaSmem = FoldMma<FqParams>::smem_bytes(kThreads);
 
 // probe index -> instance, in the order of micro.CHAIN_PROBES
 const ChainProbe kChains[] = {
-    {k_mul_chain<FqParams, MulLoop, 4, 6>, 0},         // K7 loop
-    {k_mul_chain<FqParams, MulV1, 4, 6>, 0},           // K7 v1
-    {k_mul_chain_mma<FqParams, 4, 6>, kFoldMmaSmem},   // K7 fold
-    {k_mul_chain<FqParams, MulLoop, 4, 8>, 0},         // K8 loop
-    {k_mul_chain<FqParams, MulV1, 4, 8>, 0},           // K8 v1
-    {k_mul_chain<FqParams, MulV1, 1, 16>, 0},          // K10 v1
-    {k_mul_chain_mma<FqParams, 1, 16>, kFoldMmaSmem},  // K10 fold
+    {k_mul_chain_ptx<FqParams, MulLoopPtx, 4, 6, kStartRows>, 0},   // K7 loop
+    {k_mul_chain_ptx<FqParams, MulV1Ptx, 4, 6, kStartRows>, 0},     // K7 v1
+    {k_mul_chain_mma<FqParams, 4, 6>, kFoldMmaSmem},                // K7 fold
+    {k_mul_chain_ptx<FqParams, MulLoopPtx, 4, 8, kStartLimbs>, 0},  // K8 loop
+    {k_mul_chain_ptx<FqParams, MulV1Ptx, 4, 8, kStartLimbs>, 0},    // K8 v1
+    {k_mul_chain<FqParams, MulV1, 1, 16, kStartRows>, 0},           // K10 v1
+    {k_mul_chain_mma<FqParams, 1, 16>, kFoldMmaSmem},               // K10 fold
+    {k_mul_chain<FqParams, MulLoop, 4, 6, kStartRows>, 0},          // K7 loop, yardstick (field.cuh's mul)
+    {k_mul_chain<FqParams, MulV1, 4, 6, kStartRows>, 0},            // K7 v1, yardstick (MulV1)
 };
 constexpr int kNumChains = sizeof(kChains) / sizeof(kChains[0]);
 

@@ -18,14 +18,18 @@ kernel in ``csrc/micro.cu``:
   K10 ``mul_chain(modes)``           <- scripts/micro_mul_chain.py: one
       dependent chain of 16, v1 against fold (multiply latency);
 
-the fold instances of K7 and K10 run the fold product on the int8 tensor
-cores, a warp's 32 lanes as one tile (``csrc/fold_mma.cuh``; its B operand
-``fold_mul.mma_operand`` is uploaded once per card), the others one lane
-to a thread;
+the loop and v1 instances of K7 and K8 run the multiply as PTX carry
+chains (``csrc/mul_ptx.cuh``), and K7 also in the form every curve kernel
+uses (field.cuh's mul, MulV1) as the yardstick (``yardstick(mode)``: the
+``k7_*_c64`` probes); the fold instances of K7 and K10 run the fold product
+on the int8 tensor cores, a warp's 32 lanes as one tile
+(``csrc/fold_mma.cuh``; its B operand ``fold_mul.mma_operand`` is uploaded
+once per card), the others one lane to a thread;
 
 and ``mont_mul_modes()``, kernel K1 in each multiplier mode at full width.
 Each chain probe checks parity on several lanes against the host oracle
-(``want = want * y * R^-1 mod Q``) at the JAX probes' shape, 14 x 8 x 128 =
+(``want = want * y * R^-1 mod Q``; the sum output from the chains' starts,
+``_sum_oracle``) at the JAX probes' shape, 14 x 8 x 128 =
 14,336 lanes, and times at 2^20 lanes, which fills the card; on the card
 the timed 2^20-lane launch is also held against the plain version on every
 lane and against the oracle on a sample.  K9 times the JAX probe's constant
@@ -55,16 +59,27 @@ from .ops import hopper_field as hf
 from .ops import limbs as lb
 from .params import Q
 
-# name -> (index in csrc/micro.cu kChains, mode, chains, unroll)
+# name -> (index in csrc/micro.cu kChains, mode, chains, unroll, the
+# instance's multiply: its mode type in mul_modes.cuh / mul_ptx.cuh, or
+# "FoldMma", the tensor-core fold of k_mul_chain_mma)
 CHAIN_PROBES = {
-    "k7_loop": (0, "loop", 4, 6),
-    "k7_v1": (1, "v1", 4, 6),
-    "k7_fold": (2, "fold", 4, 6),
-    "k8_loop": (3, "loop", 4, 8),
-    "k8_v1": (4, "v1", 4, 8),
-    "k10_v1": (5, "v1", 1, 16),
-    "k10_fold": (6, "fold", 1, 16),
+    "k7_loop": (0, "loop", 4, 6, "MulLoopPtx"),
+    "k7_v1": (1, "v1", 4, 6, "MulV1Ptx"),
+    "k7_fold": (2, "fold", 4, 6, "FoldMma"),
+    "k8_loop": (3, "loop", 4, 8, "MulLoopPtx"),
+    "k8_v1": (4, "v1", 4, 8, "MulV1Ptx"),
+    "k10_v1": (5, "v1", 1, 16, "MulV1"),
+    "k10_fold": (6, "fold", 1, 16, "FoldMma"),
+    "k7_loop_c64": (7, "loop", 4, 6, "MulLoop"),
+    "k7_v1_c64": (8, "v1", 4, 6, "MulV1"),
 }
+# K7 in the curve kernels' multiply, beside the carry chains, by mode
+YARDSTICKS = {"loop": "k7_loop_c64", "v1": "k7_v1_c64"}
+# where chain k of a lane starts, by probe family (csrc/micro.cu ChainStart):
+# "rows" as bench.py:288-291 rolls the tile's last axis, "limbs" as
+# scripts/micro_cios_loop.py:96 rolls the 16-bit limb axis
+START = {"k7": "rows", "k8": "limbs", "k10": "rows"}
+ROW = 128  # lanes a row of the JAX tile (its last axis)
 # K9 kind -> ops per iteration (micro_vpu2.OPS_PER_ITER, plus u32_mul_wide
 # and the 8-chain forms of the integer kinds); the order is csrc/micro.cu's
 # kOps
@@ -78,7 +93,7 @@ OP_CHAINS = {k: 8 if k.endswith("_x8") else 1 for k in OP_KINDS}
 PLAIN_CHUNK = 1 << 18  # lanes per call of a plain multiply at full width
 PARITY_LANES = 14 * 8 * 128  # the JAX probes' (14 tiles x 8 x 128) shape
 FULL_LANES = 1 << 20
-_K8_TYPES = {"loop": "MulLoop", "v1": "MulV1"}
+MADS_FQ = 2 * 12 * 12 + 12  # 32x32->64 multiply-adds of one Fq multiply (2L^2 + L)
 
 KERNELS = tuple(f"mul_chain_{k}" for k in CHAIN_PROBES) + tuple(f"op_{k}" for k in OP_KINDS)
 REPLACES = {f"mul_chain_{k}": ("bench.py:302" if k.startswith("k7") else
@@ -107,17 +122,47 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def start_of(probe: str) -> str:
+    return START[probe.split("_")[0]]
+
+
+def instance(probe: str) -> str:
+    """The short name (``_build.short_name``) of `probe`'s kernel instance."""
+    _idx, _mode, chains, unroll, mul = CHAIN_PROBES[probe]
+    if mul == "FoldMma":
+        return f"k_mul_chain_mma<FqParams,{chains},{unroll}>"
+    kernel = "k_mul_chain_ptx" if mul.endswith("Ptx") else "k_mul_chain"
+    return f"{kernel}<FqParams,{mul},{chains},{unroll},{int(start_of(probe) == 'limbs')}>"
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers and plain versions
 # ---------------------------------------------------------------------------
 
 
-def mul_chain_plain(mode: str, chains: int, unroll: int, x: torch.Tensor, y: torch.Tensor):
-    """Chain k of lane i starts at x[(i + k) % n]; `unroll` rounds multiply
+def chain_starts(start: str, chains: int, x: torch.Tensor) -> list[torch.Tensor]:
+    """Where each chain of each lane starts, chain 0 at x itself.  "rows":
+    chain k of lane i = ROW r + t at lane ROW r + (t + k) mod m of its row of
+    m lanes (ROW, or fewer in a short last row); "limbs": at lane i's own
+    element rotated right by 16k bits (a 16-bit limb roll), which may be
+    >= Q."""
+    if start == "limbs":
+        h = hf._half(x)
+        return [x] + [hf._pack(torch.roll(h, -k, dims=-1)) for k in range(1, chains)]
+    if start != "rows":
+        raise ValueError(f"unknown chain start {start!r}")
+    i = torch.arange(x.shape[0], device=x.device)
+    r0 = i - i % ROW
+    m = torch.clamp(x.shape[0] - r0, max=ROW)
+    return [x] + [x[r0 + (i - r0 + k) % m] for k in range(1, chains)]
+
+
+def mul_chain_plain(mode: str, chains: int, unroll: int, x: torch.Tensor, y: torch.Tensor, *, start: str):
+    """The chains of ``chain_starts(start, ...)``; `unroll` rounds multiply
     every chain by y.  -> (chain 0, field sum of chains 1.. or None).  Runs
     PLAIN_CHUNK lanes at a time: the plain multiply's intermediates are
     kilobytes per lane."""
-    starts = [x] + [torch.roll(x, -k, dims=0) for k in range(1, chains)]
+    starts = chain_starts(start, chains, x)
     fq = hf.HALF["fq"]
     out0, out1 = [], []
     for lo in range(0, x.shape[0], PLAIN_CHUNK):
@@ -136,9 +181,9 @@ def mul_chain_plain(mode: str, chains: int, unroll: int, x: torch.Tensor, y: tor
 def run_chain(probe: str, x: torch.Tensor, y: torch.Tensor):
     """One launch of chain probe `probe` (K7, K8 or K10) on (n, 12) int32 Fq
     limbs -> (chain 0, field sum of chains 1.. or None)."""
-    idx, mode, chains, unroll = CHAIN_PROBES[probe]
+    idx, mode, chains, unroll, _mul = CHAIN_PROBES[probe]
     if not hf._on_cuda(x):
-        return mul_chain_plain(mode, chains, unroll, x, y)
+        return mul_chain_plain(mode, chains, unroll, x, y, start=start_of(probe))
     n = x.shape[0]
     hf._check((x, y), (lb.FQ.num_limbs,), n, x.device)
     out0, out1 = torch.empty_like(x), torch.empty_like(x)
@@ -403,21 +448,46 @@ def _chain_oracle(probe: str, lanes, xs, ys, got, depth: int) -> None:
             raise AssertionError(f"{probe} parity fails at lane {lane}")
 
 
+def _sum_oracle(probe: str, lanes, x: torch.Tensor, y: torch.Tensor, got: torch.Tensor, depth: int) -> None:
+    """Chains 1.. of each lane in `lanes` start where the JAX probe starts
+    them (by lane index here: K7 along the lane's row, K8 at the lane's own
+    element rotated right by 16k bits), and their field sum ends at
+    sum_k start_k * (y R^-1)^depth."""
+    n, chains, rows = x.shape[0], CHAIN_PROBES[probe][2], start_of(probe) == "rows"
+
+    def src(i, k):
+        r0 = i - i % ROW
+        return r0 + (i - r0 + k) % min(ROW, n - r0) if rows else i
+
+    need = sorted({src(i, k) for i in lanes for k in range(1, chains)})
+    vals = dict(zip(need, lb.tensor_to_ints(x[need], lb.FQ, mont=False)))
+    top = (1 << 384) - 1
+    for lane, yv, g in zip(lanes, *(lb.tensor_to_ints(t[lanes], lb.FQ, mont=False) for t in (y, got))):
+        starts = [vals[src(lane, k)] if rows else (vals[lane] >> 16 * k | vals[lane] << 384 - 16 * k) & top
+                  for k in range(1, chains)]
+        if g != sum(starts) * pow(yv * _RINV % Q, depth, Q) % Q:
+            raise AssertionError(f"{probe} sum output fails at lane {lane}")
+
+
 def chain_probe(probe: str, device="cuda", lanes: int = FULL_LANES, parity_lanes: int = PARITY_LANES,
                 reps: int = 20) -> dict:
     """Run chain probe `probe` (K7, K8 or K10): parity at `parity_lanes`
     (reps launches fed back, chain 0 against the host oracle on several
-    lanes; on the card also the kernel against its plain version for one
-    launch), then, on the card, M mul/s at `lanes`, that launch held
-    against the plain version on every lane (``plain_ms`` is its time) and
-    against the host oracle on a sample."""
+    lanes, the first launch's sum of chains 1.. too; on the card also the
+    kernel against its plain version for one launch), then, on the card, M
+    mul/s at `lanes`, that launch held against the plain version on every
+    lane (``plain_ms`` is its time) and against the host oracle on a
+    sample."""
     device = lb.device_of(device)
-    _idx, mode, chains, unroll = CHAIN_PROBES[probe]
+    _idx, mode, chains, unroll, _mul = CHAIN_PROBES[probe]
+    start = start_of(probe)
     xs, ys, a, b = _parity_inputs(parity_lanes, device)
-    x = a
-    for _ in range(reps):
-        x, _rest = run_chain(probe, x, b)
     idx = _check_lanes(parity_lanes)
+    x, rest = run_chain(probe, a, b)
+    if chains > 1:
+        _sum_oracle(probe, idx, a, b, rest, unroll)
+    for _ in range(reps - 1):
+        x, _rest = run_chain(probe, x, b)
     _chain_oracle(probe, idx, [xs[i] for i in idx], [ys[i] for i in idx],
                   lb.tensor_to_ints(x[idx], lb.FQ, mont=False), reps * unroll)
     out = dict(probe=probe, mode=mode, chains=chains, unroll=unroll, parity_lanes=parity_lanes,
@@ -425,7 +495,7 @@ def chain_probe(probe: str, device="cuda", lanes: int = FULL_LANES, parity_lanes
     if device.type != "cuda":
         return out
     k0, k1 = run_chain(probe, a, b)
-    p0, p1 = mul_chain_plain(mode, chains, unroll, a, b)
+    p0, p1 = mul_chain_plain(mode, chains, unroll, a, b, start=start)
     err = max_abs_err([(k0, p0)] + ([(k1, p1)] if chains > 1 else []))
     gen = torch.Generator(device=device).manual_seed(7)
     fa, fb = random_limbs("fq", lanes, device, gen), random_limbs("fq", lanes, device, gen)
@@ -433,12 +503,14 @@ def chain_probe(probe: str, device="cuda", lanes: int = FULL_LANES, parity_lanes
     out["ms"] = time_ms(lambda: run_chain(probe, fa, fb), reps)
     out["mul_mps"] = lanes * chains * unroll / out["ms"] / 1e3
     k0, k1 = run_chain(probe, fa, fb)
-    (p0, p1), out["plain_ms"] = timed(lambda: mul_chain_plain(mode, chains, unroll, fa, fb))
+    (p0, p1), out["plain_ms"] = timed(lambda: mul_chain_plain(mode, chains, unroll, fa, fb, start=start))
     out["max_abs_err"] = max(err, max_abs_err([(k0, p0)] + ([(k1, p1)] if chains > 1 else [])))
     if out["max_abs_err"]:
         raise AssertionError(f"{probe} kernel disagrees with its plain version")
     idx = _check_lanes(lanes)
     _chain_oracle(probe, idx, *(lb.tensor_to_ints(t[idx], lb.FQ, mont=False) for t in (fa, fb, k0)), unroll)
+    if chains > 1:
+        _sum_oracle(probe, idx, fa, fb, k1, unroll)
     out.update(chain_info(probe, device))
     return out
 
@@ -452,6 +524,12 @@ def field_mul(mode: str = "loop", device="cuda", **kw) -> dict:
     return out
 
 
+def yardstick(mode: str = "loop", device="cuda", **kw) -> dict:
+    """K7 in `mode` (loop or v1) with the curve kernels' multiply (field.cuh's
+    mul, MulV1), beside ``field_mul``'s carry chains."""
+    return chain_probe(YARDSTICKS[mode], device, **kw)
+
+
 def cios_loop(variants=("loop", "v1"), device="cuda", **kw) -> dict:
     """K8: loop against v1 (4 chains x 8); on the card also the seconds of a
     build of each variant alone, and its registers and spill bytes as
@@ -462,7 +540,8 @@ def cios_loop(variants=("loop", "v1"), device="cuda", **kw) -> dict:
     for v in variants:
         r = chain_probe(f"k8_{v}", device, **kw)
         if r["device"].startswith("cuda"):
-            r["build_s"], usage = _build.compile_seconds("micro.cu", ("VS_K8_ONLY=1", f"VS_K8_MUL={_K8_TYPES[v]}"))
+            r["build_s"], usage = _build.compile_seconds(
+                "micro.cu", ("VS_K8_ONLY=1", f"VS_K8_MUL={CHAIN_PROBES[f'k8_{v}'][4]}"))
             regs = re.search(r"Used (\d+) registers", usage)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", usage)
             if not (regs and spill):
@@ -549,13 +628,15 @@ def mont_mul_modes(device="cuda", lanes: int = FULL_LANES, reps: int = 20) -> di
 
 def run_all(device="cuda") -> dict:
     """Every probe on the card, in the order K9 (the yardstick), K1 by mode,
-    K7, K8, K10, and the integer rates the bounds use (``rates``)."""
+    K7, K7 in the curve kernels' multiply, K8, K10, and the integer rates
+    the bounds use (``rates``)."""
     k9 = op_throughput(device)
     return dict(
         op_throughput=k9,
         rates=card_int_rates(k9),
         mont_mul_modes=mont_mul_modes(device),
         field_mul={m: field_mul(m, device) for m in hf.MODES},
+        yardstick={m: yardstick(m, device) for m in YARDSTICKS},
         cios_loop=cios_loop(device=device),
         mul_chain=mul_chain(device=device),
     )
@@ -581,22 +662,89 @@ def report_lines(res: dict, gpu: str) -> list[str]:
         lines.append(f"[K1] {key}: {r['mul_mps']:.1f} M mul/s ({r['ms']:.4f} ms at {r['lanes']} lanes); "
                      f"equal to loop and to plain on every lane; {gpu}")
     chains = [("K7", f"field_mul {m} (fq_mul_mps)", r, "4 chains x 6") for m, r in res["field_mul"].items()]
+    chains += [("K7", f"yardstick {m} ({r['probe']})", r, "4 chains x 6") for m, r in res["yardstick"].items()]
     chains += [("K8", f"cios_loop {v}", r, "4 chains x 8") for v, r in res["cios_loop"].items()]
     chains += [("K10", f"mul_chain {m}", r, "one chain of 16") for m, r in res["mul_chain"].items()]
     for tag, what, r, shape in chains:
         extra = (f"; build alone {r['build_s']:.1f} s, {r['spill_stores']} B spill stores" if tag == "K8" else "")
-        lines.append(f"[{tag}] {what}: {r['mul_mps']:.1f} M mul/s ({r['ms']:.4f} ms at {r['lanes']} lanes, {shape}); "
-                     f"parity ok at {r['parity_lanes']} lanes; the {r['lanes']}-lane launch equal to plain "
+        share = (f", {100 * mul_bound_ms(r, rt) / r['ms']:.1f}% of its multiply-add bound" if r["mode"] != "fold"
+                 else "")
+        lines.append(f"[{tag}] {what}: {r['mul_mps']:.1f} M mul/s ({r['ms']:.4f} ms at {r['lanes']} lanes, {shape}"
+                     f"{share}); parity ok at {r['parity_lanes']} lanes; the {r['lanes']}-lane launch equal to plain "
                      f"({r['plain_ms']:.1f} ms); {r['registers']} registers, {r['local_bytes']} B local a thread, "
                      f"{r['smem_bytes']} B shared memory a block, {r['warps_per_sm']} warps a SM{extra}; {gpu}")
+    lines += form_lines(res, gpu)
     return lines
 
 
+def mul_bound_ms(r: dict, rates: dict) -> float:
+    """The least time of a loop or v1 chain probe's launch on this card: its
+    multiply-adds (MADS_FQ a multiply) at ``rates["mul_wide"]`` (its bytes
+    take a fifteenth of that at 2^20 lanes)."""
+    return r["lanes"] * r["chains"] * r["unroll"] * MADS_FQ / rates["mul_wide"] * 1e3
+
+
+def form_lines(res: dict, gpu: str) -> list[str]:
+    """K7 in loop and v1, the carry chains beside the curve kernels' form."""
+    out = []
+    for m, y in res["yardstick"].items():
+        c = res["field_mul"][m]
+        side = [f"{name} {r['ms']:.4f} ms, {r['mul_mps']:.1f} M mul/s, "
+                f"{100 * mul_bound_ms(r, res['rates']) / r['ms']:.1f}% of the bound, {r['registers']} registers, "
+                f"{r['local_bytes']} B local, {r['warps_per_sm']} warps a SM"
+                for name, r in (("carry chains", c), ("64-bit accumulator (yardstick)", y))]
+        out.append(f"[K7 forms] {m}: {side[0]} | {side[1]}; time ratio {c['ms'] / y['ms']:.3f}; {gpu}")
+    return out
+
+
+# SASS opcode classes of the chain probes' per-multiply counts, in order: an
+# opcode counts in the first class whose prefix it starts with
+SASS_CLASSES = (("IMAD.WIDE", ("IMAD.WIDE",)), ("IMAD.HI", ("IMAD.HI",)), ("IMAD.MOV", ("IMAD.MOV",)),
+                ("IMAD", ("IMAD",)), ("IADD3", ("IADD3",)), ("SEL/ISETP", ("SEL", "ISETP")),
+                ("MOV", ("MOV",)))
+
+
+def sass_mix(text: str) -> dict:
+    """``cuobjdump -sass`` of the probe library -> {probe: {class: count a
+    multiply}} for the loop and v1 chain probes: each SASS_CLASSES class
+    (IMAD.WIDE*, IMAD.HI*, IMAD.MOV*, the other IMAD forms such as IMAD and
+    IMAD.X, IADD3*, SEL* and ISETP*, MOV*), "other" and "all", over the
+    instance's chains x unroll multiplies (its loads, start and stores
+    included)."""
+    from .ops import _build
+
+    by_name = {instance(k): k for k, v in CHAIN_PROBES.items() if v[1] != "fold"}
+    counts: dict = {}
+    probe = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            probe = by_name.get(_build.short_name(m.group(1)))
+            if probe:
+                counts[probe] = dict.fromkeys([c for c, _ in SASS_CLASSES] + ["other", "all"], 0)
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if probe and op:
+            cls = next((c for c, pre in SASS_CLASSES if op.group(1).startswith(pre)), "other")
+            counts[probe][cls] += 1
+            counts[probe]["all"] += 1
+    return {k: {c: n / (CHAIN_PROBES[k][2] * CHAIN_PROBES[k][3]) for c, n in v.items()} for k, v in counts.items()}
+
+
+def sass_lines(mix: dict, gpu: str) -> list[str]:
+    """One line a chain probe of ``sass_mix``."""
+    return [f"[sass] {k} ({instance(k)}): per multiply " + ", ".join(f"{c} {n:.1f}" for c, n in v.items())
+            + f" (the bound counts {MADS_FQ} 32x32->64 multiply-adds); {gpu}" for k, v in mix.items()]
+
+
 def main() -> None:
+    from .ops import _build
+
     lb.device_of("cuda")
     gpu = gpu_line()
     res = run_all("cuda")
-    for line in report_lines(res, gpu):
+    res["sass"] = sass_mix(_build.sass("micro.cu"))
+    for line in report_lines(res, gpu) + sass_lines(res["sass"], gpu):
         print(line, flush=True)
     print(json.dumps(dict(gpu=gpu, **res)), flush=True)
 

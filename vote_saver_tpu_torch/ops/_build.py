@@ -25,8 +25,8 @@ import types
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_build"
-HEADERS = ("field.cuh", "mul_modes.cuh", "curve.cuh", "curve_kernels.cuh", "curve_unit.cuh", "fold_mma.cuh",
-           "add_team.cuh", "add_team_g2.cuh")
+HEADERS = ("field.cuh", "mul_modes.cuh", "mul_ptx.cuh", "curve.cuh", "curve_kernels.cuh", "curve_unit.cuh",
+           "fold_mma.cuh", "add_team.cuh", "add_team_g2.cuh")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--resource-usage",
@@ -163,6 +163,13 @@ def compile_seconds(unit: str, defines: tuple[str, ...] = ()) -> tuple[float, st
     return secs, proc.stdout + proc.stderr
 
 
+def sass(unit: str) -> str:
+    """``cuobjdump -sass`` of `unit`'s built library (build it first)."""
+    tool = pathlib.Path(nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(library_path(unit))], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
 def short_name(mangled: str) -> str:
     """k_add<Fq2,MulLoop>-style name of a mangled kernel or device function
     (template arguments: the field, the multiplier mode, Called<mode> for
@@ -171,7 +178,8 @@ def short_name(mangled: str) -> str:
     m = re.search(r"(k_[a-z_]+|mul_fold|mul_called|fq_mul_call)(I.*)?$", mangled)
     if not m:
         return mangled
-    args = re.findall(r"FqParams|FrParams|AddTeamG2|Fq2|CalledI\d*Mul(?:Loop|V1|FoldMma|Fold)|MulLoop|MulV1|"
+    args = re.findall(r"FqParams|FrParams|AddTeamG2|Fq2|CalledI\d*Mul(?:Loop|V1|FoldMma|Fold)|MulLoopPtx|MulV1Ptx|"
+                      r"MulLoop|MulV1|"
                       r"MulFoldMmaOf|MulFoldMma|MulFold|Li\d+E", m.group(2) or "")
     args = [a[2:-1] if a.startswith("Li") else f"Called<{a[a.index('Mul'):]}>" if a.startswith("Called") else a
             for a in args]
